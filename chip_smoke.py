@@ -8,24 +8,38 @@ CUDA toolkit::
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-   identify the card;
-2. hold each kernel against its plain PyTorch version at the main path's
-   full-width shapes, in bfloat16 and float32, and time kernel, plain
-   version and a PyTorch library yardstick with CUDA events: ``ms`` is
-   device time (calls replayed from a CUDA graph), ``eager_ms`` the time
-   per eager call, Python and launch overhead included;
+1. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all started together) and identify the card;
+2. hold each kernel against its plain PyTorch version at both main runs'
+   full-width shapes (``paged_flash_decode`` in its MLA and its GQA
+   layout), in bfloat16 and float32, and time kernel, plain version and a
+   PyTorch library yardstick with CUDA events: ``ms`` is device time
+   (calls replayed from a CUDA graph), ``eager_ms`` the time per eager
+   call, Python and launch overhead included;
 3. main run: full-width DeepSeek-V2-Lite in bfloat16 (seeded random
-   weights, routed experts in pinned host memory) served by
+   weights, routed experts in pinned host memory, 28.8 GB) served by
    ``BatchedOffloadEngine`` with the paper's learned prefetch policy at a
    10% expert cache, counting every kernel launch;
-4. on-card parity: full width, float32, depth cut to 3 layers; the engine
-   on the card and on the CPU from identical weights must give identical
-   streams, routed expert ids and counters.
+4. on-card parity: DeepSeek-V2-Lite at full width, float32, depth cut to 3
+   layers; the engine on the card and on the CPU from identical weights
+   must give identical streams, routed expert ids and counters;
+5. main run 2: full-width Llama-4-Scout in bfloat16, depth cut to 8 layers
+   (two 3:1 chunked:global groups; 32.2 GB of routed experts in pinned
+   host memory), paged engine: global layers through the block pools
+   (``paged_flash_decode``, GQA layout), chunked layers through contiguous
+   rows (``flash_decode``), prompts streamed token by token;
+6. parity run 2: Llama-4-Scout at full width, float32, one chunked and one
+   global layer with a 16-slot chunk; the paged, the ``paged=False`` and
+   the batch-1 engine each identical on the card and on the CPU, and the
+   three identical to each other.
 
-The last stdout line is ``{"ok": true, "device": {...}}``; the line
-before it is the card's name and power limit; before that the
-``{"kernels": [...]}`` line. Details go to ``chiprun_out/chip_smoke.json``.
+Host memory: about 32 GB for main run 2's pinned experts (each main run's
+pinned blocks are released before the next phase), and 16 GB of float32
+experts for parity run 2. The last stdout line is ``{"ok": true,
+"device": {...}}``; the line before it is the card's name and power limit;
+before that the ``{"kernels": [...]}`` line, whose ``launches`` are main
+run 2's counts (``launches_by_run`` has both runs'). Details go to
+``chiprun_out/chip_smoke.json``.
 This script imports nothing of JAX or of the reference package.
 """
 from __future__ import annotations
@@ -130,40 +144,64 @@ def bound(nbytes: float, ops: float, dtype: str):
 # phase 2: kernels against their plain versions at main-path shapes
 
 def check_paged(torch, F, dev, gen):
+    """Both layouts at their main runs' shapes: the MLA shared page of
+    DeepSeek-V2-Lite (main run 1) and the GQA layout of Llama-4-Scout's
+    global layers (main run 2), decode with cache_len 128."""
     from repro_torch.kernels import paged_attention as pa
-    n, g, dk, dv, bs, w = 4, 16, 576, 512, 8, 16    # decode, cache_len 128
-    scale = 192 ** -0.5
-    pos_list = [95, 90, 84, 71]                      # 64 prompt + decode
+    out = paged_case(torch, F, dev, gen, pa, kvh=1, g=16, dk=576, dv=512,
+                     gqa=False)
+    out["gqa"] = paged_case(torch, F, dev, gen, pa, kvh=8, g=5, dk=128,
+                            dv=128, gqa=True)
+    return out
+
+
+def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa):
+    n, bs, w = 4, 8, 16                              # decode, cache_len 128
+    scale = (192 if not gqa else dk) ** -0.5
+    pos_list = [95, 90, 84, 71]                      # prompt + decode
     out = {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        q = torch.randn(n, 1, g, dk, generator=gen, device=dev).to(dt)
-        pool = torch.randn(n * w + 1, bs, 1, dk, generator=gen,
+        q = torch.randn(n, kvh, g, dk, generator=gen, device=dev).to(dt)
+        pool = torch.randn(n * w + 1, bs, kvh, dk, generator=gen,
                            device=dev).to(dt)
+        v_pool = (torch.randn(n * w + 1, bs, kvh, dv, generator=gen,
+                              device=dev).to(dt) if gqa else None)
         tables = (1 + torch.randperm(n * w, generator=gen, device=dev)
                   ).to(torch.int32).reshape(n, w)
         pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
-        args = (q, pool, None, tables, pos)
+        args = (q, pool, v_pool, tables, pos)
         o = pa.paged_flash_decode(*args, scale=scale, dv=dv)
         op = pa.paged_flash_decode_plain(*args, scale=scale, dv=dv)
         torch.cuda.synchronize()
         err = (o.float() - op.float()).abs().max().item()
         tol = 1e-4 if dtype == "float32" else 3e-2
         if not err <= tol:
-            fail(f"paged_flash_decode {dtype}: max abs err {err} > {tol}")
+            fail(f"paged_flash_decode ({'GQA' if gqa else 'MLA'} layout) "
+                 f"{dtype}: max abs err {err} > {tol}")
         out[dtype] = err
         if dtype != "bfloat16":
             continue
         kpos = torch.arange(w * bs, device=dev)
         mask = (kpos[None, :] <= pos[:, None].long())[:, None, None, :]
+        h = kvh * g
 
         def library():   # gather the pages, then one dense attention call
-            k = pool[tables.reshape(-1).long()].reshape(n, 1, w * bs, dk)
+            if not gqa:  # one latent page per position: K and V are views
+                k = pool[tables.reshape(-1).long()].reshape(n, 1, w * bs, dk)
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2).reshape(n, g, 1, dk),
+                    k.expand(n, g, w * bs, dk),
+                    k[..., :dv].expand(n, g, w * bs, dv), attn_mask=mask,
+                    scale=scale)
+            flat = tables.reshape(-1).long()
+            k = pool[flat].reshape(n, w * bs, kvh, 1, dk)
+            v = v_pool[flat].reshape(n, w * bs, kvh, 1, dv)
+            k = k.expand(n, w * bs, kvh, g, dk).reshape(n, w * bs, h, dk)
+            v = v.expand(n, w * bs, kvh, g, dv).reshape(n, w * bs, h, dv)
             return F.scaled_dot_product_attention(
-                q.transpose(1, 2).reshape(n, g, 1, dk),
-                k.expand(n, g, w * bs, dk),
-                k[..., :dv].expand(n, g, w * bs, dv), attn_mask=mask,
-                scale=scale)
+                q.reshape(n, h, 1, dk), k.transpose(1, 2),
+                v.transpose(1, 2), attn_mask=mask, scale=scale)
         out.update(timings(
             torch, lambda: pa.paged_flash_decode(*args, scale=scale, dv=dv),
             lambda: pa.paged_flash_decode_plain(*args, scale=scale, dv=dv),
@@ -171,20 +209,90 @@ def check_paged(torch, F, dev, gen):
         keys = sum(p + 1 for p in pos_list)
         pages = sum(p // bs + 1 for p in pos_list)
         el = 2
-        nbytes = (pages * bs * dk * el + q.numel() * el + n * g * dv * el
+        page_bytes = bs * kvh * (dk + (dv if gqa else 0)) * el
+        nbytes = (pages * page_bytes + q.numel() * el + n * h * dv * el
                   + tables.numel() * 4 + n * 4)
-        ops = keys * g * (2 * dk + 2 * dv)
+        ops = keys * h * (2 * dk + 2 * dv)
         b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        pools = (f"K/V pools ({n * w + 1},{bs},{kvh},{dk}) each" if gqa
+                 else f"pool ({n * w + 1},{bs},1,{dk}), dv {dv}")
         out.update(bound_ms=b_ms, bound_by=b_by,
-                   shape=f"q ({n},1,{g},{dk}) bf16, pool "
-                         f"({n * w + 1},{bs},1,{dk}), tables ({n},{w}), "
-                         f"pos {pos_list}, dv {dv}")
+                   shape=f"q ({n},{kvh},{g},{dk}) bf16, {pools}, tables "
+                         f"({n},{w}), pos {pos_list}")
+    return out
+
+
+def check_flash(torch, F, dev, gen):
+    """``flash_decode`` at main run 2's shapes: 4 lanes of 40 query heads
+    over 8 kv heads, hd 128, against rows of the chunked ring (S = 8192,
+    the timed case) and of a global row (S = cache_len = 128)."""
+    from repro_torch.kernels import flash_attention as fa
+    n, h, kvh, hd, r = 4, 40, 8, 128, 5
+    vl_list = [96, 90, 84, 71]
+    out = {}
+    for s_len in (128, 8192):
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q = torch.randn(n, h, hd, generator=gen, device=dev).to(dt)
+            kc = torch.randn(r, s_len, kvh, hd, generator=gen,
+                             device=dev).to(dt)
+            vc = torch.randn(r, s_len, kvh, hd, generator=gen,
+                             device=dev).to(dt)
+            rows = torch.tensor([3, 0, 2, 1], dtype=torch.int32, device=dev)
+            vl = torch.tensor(vl_list, dtype=torch.int32, device=dev)
+            args = (q, kc, vc, rows, vl)
+            o = fa.flash_decode(*args)
+            op = fa.flash_decode_plain(*args)
+            torch.cuda.synchronize()
+            err = (o.float() - op.float()).abs().max().item()
+            tol = 1e-4 if dtype == "float32" else 3e-2
+            if not err <= tol:
+                fail(f"flash_decode S={s_len} {dtype}: max abs err {err} "
+                     f"> {tol}")
+            out[dtype if s_len == 8192 else f"{dtype}_S{s_len}"] = err
+            if dtype != "bfloat16" or s_len != 8192:
+                continue
+            vmax = max(vl_list)
+            mask = (torch.arange(vmax, device=dev)[None, :]
+                    < vl[:, None].long())[:, None, None, :]
+            g = h // kvh
+
+            def library():  # rows sliced to the longest valid_len, one SDPA
+                idx = rows.long()
+                k = kc[idx, :vmax][:, :, :, None].expand(
+                    n, vmax, kvh, g, hd).reshape(n, vmax, h, hd)
+                v = vc[idx, :vmax][:, :, :, None].expand(
+                    n, vmax, kvh, g, hd).reshape(n, vmax, h, hd)
+                return F.scaled_dot_product_attention(
+                    q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask)
+            out.update(timings(torch, lambda: fa.flash_decode(*args),
+                               lambda: fa.flash_decode_plain(*args),
+                               library))
+            keys = sum(vl_list)
+            el = 2
+            nbytes = (keys * kvh * hd * 2 * el + 2 * q.numel() * el
+                      + 2 * n * 4)
+            ops = keys * h * 4 * hd
+            out["bound_ms"], out["bound_by"] = bound(nbytes, ops,
+                                                     "bfloat16")
+            out["shape"] = (f"q ({n},{h},{hd}) bf16, K/V rows "
+                            f"({r},{s_len},{kvh},{hd}) each, rows "
+                            f"{rows.tolist()}, valid_len {vl_list}")
     return out
 
 
 def check_expert(torch, dev, gen):
+    """Main run 1's shapes (DeepSeek-V2-Lite: top-6, D 2048, F 1408, 166
+    slots), then main run 2's (Llama-4-Scout: top-1, D 5120, F 8192, 12
+    slots)."""
+    out = expert_case(torch, dev, gen, 4, 6, 2048, 1408, 166)
+    out["llama4"] = expert_case(torch, dev, gen, 4, 1, 5120, 8192, 12)
+    return out
+
+
+def expert_case(torch, dev, gen, n, k, d, f, slots):
     from repro_torch.kernels import expert_ffn as ef
-    n, k, d, f, slots = 4, 6, 2048, 1408, 166
     out = {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
@@ -219,10 +327,17 @@ def check_expert(torch, dev, gen):
 
 
 def check_topk(torch, dev, gen):
+    """Main run 1's router (64 experts, top-6), then main run 2's (16
+    experts, top-1); each with an exact tie in row 0."""
+    out = topk_case(torch, dev, gen, 4, 64, 6, tie=40)
+    out["llama4"] = topk_case(torch, dev, gen, 4, 16, 1, tie=12)
+    return out
+
+
+def topk_case(torch, dev, gen, t, e, k, tie):
     from repro_torch.kernels import topk_gating as tg
-    t, e, k = 4, 64, 6
     logits = torch.randn(t, e, generator=gen, device=dev) * 2
-    logits[0, 7] = logits[0, 40] = logits[0].max() + 1.0     # exact tie
+    logits[0, 7] = logits[0, tie] = logits[0].max() + 1.0    # exact tie
     w, idx = tg.topk_gating(logits, k)
     wp, ip = tg.topk_gating_plain(logits, k)
     torch.cuda.synchronize()
@@ -285,7 +400,28 @@ def host_available_bytes() -> int:
     return 0
 
 
-def main_run(torch, np, dev):
+# main runs: (arch, depth to cut to or None, prompt length, the kernels
+# the run must launch); each is served at full width in bfloat16
+MAIN_RUNS = {
+    "deepseek-v2-lite": (None, 64, ("paged_flash_decode", "expert_ffn",
+                                    "topk_gating")),
+    "llama4-scout-17b-a16e": (8, 32, ("paged_flash_decode", "flash_decode",
+                                      "expert_ffn", "topk_gating")),
+}
+
+
+def release_host_memory(torch) -> None:
+    """Free the previous phase's tensors, including the pinned host blocks
+    PyTorch's host allocator keeps cached after they are freed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty = (getattr(getattr(torch, "accelerator", None), "empty_host_cache",
+                     None) or getattr(torch._C, "_host_emptyCache", None))
+    if empty is not None:
+        empty()
+
+
+def main_run(torch, np, dev, arch):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import PredictorConfig
     from repro_torch.core.policies import OnlineMoEBeyondPolicy
@@ -294,22 +430,26 @@ def main_run(torch, np, dev):
     from repro_torch.models.model import build_model
     from repro_torch.serving.scheduler import BatchedOffloadEngine
 
-    cfg = get_config("deepseek-v2-lite")
+    depth, prompt_len, need = MAIN_RUNS[arch]
+    cfg = get_config(arch)
     full_depth = cfg.num_layers
     m = cfg.moe
     per_layer = m.num_experts * 3 * cfg.d_model * m.d_ff_expert * 2
     avail = host_available_bytes()
-    n_layers = cfg.num_layers
+    n_layers = min(cfg.num_layers, depth or cfg.num_layers)
     # routed experts live in pinned host memory: cut depth (never widths)
-    # only if they would not fit beside a 16 GB margin
+    # further only if they would not fit beside a 16 GB margin, keeping
+    # one whole block pattern so every layer kind runs
     fit = int((avail - 16e9) // per_layer) + m.first_dense_layers
     if fit < n_layers:
-        n_layers = max(m.first_dense_layers + 2, fit)
-        log(f"depth cut to {n_layers} layers: {avail / 1e9:.1f} GB host "
-            "memory available")
-        cfg = cfg.replace(num_layers=n_layers)
+        n_layers = max(m.first_dense_layers + max(2, len(cfg.block_pattern)),
+                       fit)
+        log(f"{arch}: depth cut to {n_layers} layers: {avail / 1e9:.1f} GB "
+            "host memory available")
+    cfg = cfg.replace(num_layers=n_layers)
     n_moe = n_layers - m.first_dense_layers
     capacity = max(int(0.10 * n_moe * m.num_experts), 4 * m.top_k)
+    torch.cuda.reset_peak_memory_stats()     # the peak of this run's model
     t0 = time.perf_counter()
     gen = torch.Generator(dev).manual_seed(SEED)
     model = build_model(cfg)
@@ -323,7 +463,7 @@ def main_run(torch, np, dev):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, 64).tolist()
+    prompts = [rng.integers(0, cfg.vocab_size, prompt_len).tolist()
                for _ in range(4)]
     max_new, cache_len = 32, 128
     record_routes(eng.core, check_finite=True)
@@ -333,22 +473,26 @@ def main_run(torch, np, dev):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
     launches = launch_counts()
-    for name, count in launches.items():
-        if count == 0:
-            fail(f"main run never launched the {name} kernel")
+    for name in need:
+        if launches[name] == 0:
+            fail(f"{arch} main run never launched the {name} kernel")
     for s in outs:
         if len(s) != max_new + 1 or not all(0 <= x < cfg.vocab_size
                                             for x in s):
-            fail(f"bad stream from the main run: {s}")
+            fail(f"bad stream from the {arch} main run: {s}")
     st = eng.stats
     generated = sum(len(s) for s in outs)
     result = {
         "config": cfg.name, "dtype": cfg.dtype, "layers": n_layers,
-        "depth_cut": n_layers != full_depth, "requests": len(prompts),
-        "prompt_len": 64, "max_new": max_new, "cache_len": cache_len,
-        "max_batch": 4, "block_size": 8, "prefill_chunk": 8,
-        "capacity_slots": capacity, "policy": "moe-beyond-online",
-        "init_s": init_s, "run_s": run_s,
+        "full_depth": full_depth, "depth_cut": n_layers != full_depth,
+        "kinds": list(cfg.layer_kinds()), "requests": len(prompts),
+        "prompt_len": prompt_len, "max_new": max_new,
+        "cache_len": cache_len, "max_batch": 4, "block_size": 8,
+        "prefill_chunk": 8, "capacity_slots": capacity,
+        "routed_experts": n_moe * m.num_experts,
+        "pinned_expert_bytes": n_moe * per_layer,
+        "host_available_bytes_before": avail,
+        "policy": "moe-beyond-online", "init_s": init_s, "run_s": run_s,
         "generated_tokens": generated,
         "generated_tokens_per_s": generated / run_s,
         "positions_per_s": st.tokens / run_s,
@@ -356,6 +500,7 @@ def main_run(torch, np, dev):
         "fetch_bytes": st.fetch_bytes, "steps": st.steps,
         "prefill_chunks": st.prefill_chunks,
         "prefill_tokens": st.prefill_tokens,
+        "fallback_prefill_tokens": st.fallback_prefill_tokens,
         "sim_stall_s": st.sim_stall_s, "launches": launches,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
@@ -363,11 +508,30 @@ def main_run(torch, np, dev):
     return result, launches
 
 
+def predictor_pair(torch, dev, pc, seed):
+    """A full-size predictor drawn on the card: (card copy, CPU copy)."""
+    from repro_torch.core.predictor import predictor_init
+    pp_cpu = predictor_init(torch.Generator(dev).manual_seed(seed), pc,
+                            device="cpu")
+    pp_gpu = {k: ([{kk: vv.to(dev) for kk, vv in lp.items()} for lp in v]
+                  if k == "enc" else v.to(dev)) for k, v in pp_cpu.items()}
+    return pp_gpu, pp_cpu
+
+
+def check_same(label, card, cpu):
+    """card/cpu: (streams, routed ids, EngineStats dict) of one engine."""
+    if card[0] != cpu[0]:
+        fail(f"{label}GPU/CPU streams differ: {card[0]} vs {cpu[0]}")
+    if card[1] != cpu[1]:
+        fail(f"{label}GPU/CPU routed expert ids differ")
+    if card[2] != cpu[2]:
+        fail(f"{label}GPU/CPU EngineStats differ: {card[2]} vs {cpu[2]}")
+
+
 def parity_run(torch, np, dev):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import PredictorConfig
     from repro_torch.core.policies import OnlineMoEBeyondPolicy
-    from repro_torch.core.predictor import predictor_init
     from repro_torch.models.model import build_model
     from repro_torch.serving.scheduler import BatchedOffloadEngine
 
@@ -377,10 +541,7 @@ def parity_run(torch, np, dev):
     gen = torch.Generator(dev).manual_seed(SEED + 2)
     params = model.init(gen, device="cpu")          # drawn on the card
     pc = predictor_config(PredictorConfig, cfg)
-    pp_cpu = predictor_init(torch.Generator(dev).manual_seed(SEED + 3), pc,
-                            device="cpu")
-    pp_gpu = {k: ([{kk: vv.to(dev) for kk, vv in lp.items()} for lp in v]
-                  if k == "enc" else v.to(dev)) for k, v in pp_cpu.items()}
+    pp_gpu, pp_cpu = predictor_pair(torch, dev, pc, SEED + 3)
     rng = np.random.default_rng(SEED + 4)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (11, 6)]
     runs = {}
@@ -396,27 +557,97 @@ def parity_run(torch, np, dev):
         st.pop("latency")
         runs[where] = (outs, routes, st)
         del eng
-    if runs["card"][0] != runs["cpu"][0]:
-        fail(f"GPU/CPU streams differ: {runs['card'][0]} vs "
-             f"{runs['cpu'][0]}")
-    if runs["card"][1] != runs["cpu"][1]:
-        fail("GPU/CPU routed expert ids differ")
-    if runs["card"][2] != runs["cpu"][2]:
-        fail(f"GPU/CPU EngineStats differ: {runs['card'][2]} vs "
-             f"{runs['cpu'][2]}")
+    check_same("", runs["card"], runs["cpu"])
     return {"layers": 3, "dtype": "float32", "streams": runs["card"][0],
             "routing_steps": len(runs["card"][1]),
             "stats": runs["card"][2], "identical": True}
 
 
+def parity_run_llama4(torch, np, dev):
+    """Llama-4-Scout at full width in float32, cut to the reference's own
+    reduced pattern (one chunked and one global layer) with a 16-slot
+    chunk, so the chunked ring wraps twice in a 38-position request and
+    both attention kernels run. Three engines on identical weights — paged
+    ``BatchedOffloadEngine``, ``paged=False`` engine, batch-1
+    ``OffloadEngine`` — must each give identical streams, routed ids and
+    ``EngineStats`` on the card and on the CPU, and identical streams to
+    each other."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PredictorConfig
+    from repro_torch.core.policies import OnlineMoEBeyondPolicy
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.engine import OffloadEngine
+    from repro_torch.serving.scheduler import BatchedOffloadEngine
+
+    cuts = dict(num_layers=2, block_pattern=("chunked", "global"), chunk=16,
+                dtype="float32")
+    cfg = get_config("llama4-scout-17b-a16e").replace(**cuts)
+    model = build_model(cfg)
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    params = model.init(gen, device="cpu")          # drawn on the card
+    pc = predictor_config(PredictorConfig, cfg)
+    pp_gpu, pp_cpu = predictor_pair(torch, dev, pc, SEED + 6)
+    rng = np.random.default_rng(SEED + 7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (30, 9)]
+    max_new, cache_len, capacity, layer_s = 8, 48, 4, 2e-4
+    runs = {}
+    for where, pp in (("card", pp_gpu), ("cpu", pp_cpu)):
+        device = dev if where == "card" else "cpu"
+        for engine in ("paged", "rows", "batch1"):
+            t0 = time.perf_counter()
+            if engine == "batch1":
+                eng = OffloadEngine(model, params,
+                                    OnlineMoEBeyondPolicy(pp, pc), capacity,
+                                    layer_compute_s=layer_s, device=device)
+            else:
+                serve = ServeConfig(max_batch=2, block_size=8,
+                                    paged=engine == "paged",
+                                    layer_compute_s=layer_s)
+                eng = BatchedOffloadEngine(
+                    model, params, lambda pp=pp: OnlineMoEBeyondPolicy(pp, pc),
+                    capacity, serve=serve, device=device)
+            routes = record_routes(eng.core, check_finite=True)
+            if engine == "batch1":
+                outs = [eng.generate(p, max_new, cache_len) for p in prompts]
+            else:
+                outs = eng.generate(prompts, max_new, cache_len)
+                if engine == "paged":
+                    eng.pool.check_leaks(expected_in_use=0)
+            st = eng.stats.as_dict()
+            st.pop("latency")
+            runs[(where, engine)] = (outs, routes, st)
+            log(f"parity run 2: {engine} engine on the {where} in "
+                f"{time.perf_counter() - t0:.1f} s")
+            del eng
+    for engine in ("paged", "rows", "batch1"):
+        check_same(f"parity run 2, {engine}: ", runs[("card", engine)],
+                   runs[("cpu", engine)])
+    streams = {e: runs[("card", e)][0] for e in ("paged", "rows", "batch1")}
+    if not streams["paged"] == streams["rows"] == streams["batch1"]:
+        fail(f"parity run 2: the three engines' streams differ: {streams}")
+    return {"config": cfg.name, "cuts": {**cuts, "block_pattern":
+                                         list(cuts["block_pattern"])},
+            "prompt_lens": [len(p) for p in prompts], "max_new": max_new,
+            "cache_len": cache_len, "capacity_slots": capacity,
+            "streams": streams["paged"],
+            "stats": {e: runs[("card", e)][2]
+                      for e in ("paged", "rows", "batch1")},
+            "identical": True}
+
+
 KERNELS = [
     ("paged_flash_decode", "src/repro_torch/kernels/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention.py:106"),
+    ("flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
+     "src/repro/kernels/flash_attention.py:58"),
     ("expert_ffn", "src/repro_torch/kernels/csrc/expert_ffn.cu",
      "src/repro/kernels/expert_ffn.py:39"),
     ("topk_gating", "src/repro_torch/kernels/csrc/topk_gating.cu",
      "src/repro/kernels/topk_gating.py:52"),
 ]
+TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+               "eager_ms", "plain_eager_ms", "library_eager_ms", "shape")
 
 
 def main() -> None:
@@ -444,45 +675,61 @@ def main() -> None:
     log(f"kernels built in {build_s:.1f} s on {ident}")
 
     gen = torch.Generator(dev).manual_seed(SEED)
+    phase_s = {}
+    t = time.perf_counter()
     checks = {"paged_flash_decode": check_paged(torch, F, dev, gen),
               "expert_ffn": check_expert(torch, dev, gen),
-              "topk_gating": check_topk(torch, dev, gen)}
-    gc.collect()
-    torch.cuda.empty_cache()
-    log("kernel checks passed")
+              "topk_gating": check_topk(torch, dev, gen),
+              "flash_decode": check_flash(torch, F, dev, gen)}
+    phase_s["kernel_checks"] = time.perf_counter() - t
+    release_host_memory(torch)
+    log(f"kernel checks passed in {phase_s['kernel_checks']:.1f} s")
 
-    t1 = time.perf_counter()
-    main_res, launches = main_run(torch, np, dev)
-    log(f"main run done in {time.perf_counter() - t1:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    t2 = time.perf_counter()
-    parity = parity_run(torch, np, dev)
-    log(f"parity run done in {time.perf_counter() - t2:.1f} s")
+    runs, launches = {}, {}
+    for arch, phase in (("deepseek-v2-lite", "main_run"),
+                        ("deepseek-v2-lite", "parity_run"),
+                        ("llama4-scout-17b-a16e", "main_run_2"),
+                        ("llama4-scout-17b-a16e", "parity_run_2")):
+        t = time.perf_counter()
+        if phase.startswith("main"):
+            runs[phase], launches[arch] = main_run(torch, np, dev, arch)
+        elif arch == "deepseek-v2-lite":
+            runs[phase] = parity_run(torch, np, dev)
+        else:
+            runs[phase] = parity_run_llama4(torch, np, dev)
+        phase_s[phase] = time.perf_counter() - t
+        release_host_memory(torch)
+        log(f"{phase} ({arch}) done in {phase_s[phase]:.1f} s")
 
     kernels = []
     for name, source, replaces in KERNELS:
         c = checks[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": c.get("bfloat16", c.get("float32")),
-            "max_abs_err_f32": c["float32"],
-            "ms": c["ms"], "kernel_ms": c["ms"], "plain_ms": c["plain_ms"],
-            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": c["library_ms"], "eager_ms": c["eager_ms"],
-            "plain_eager_ms": c["plain_eager_ms"],
-            "library_eager_ms": c["library_eager_ms"],
-            "shape": c["shape"]})
-    report = {"gpu": ident, "build_s": build_s, "kernels": kernels,
-              "main_run": main_res, "parity": parity,
+            "replaces": replaces,
+            "launches": launches["llama4-scout-17b-a16e"][name],
+            "launches_by_run": {a: n[name] for a, n in launches.items()},
+            "max_abs_err": c["bfloat16"] if "bfloat16" in c
+            else c["float32"],
+            "max_abs_err_f32": c["float32"], "kernel_ms": c["ms"],
+            **{k: c[k] for k in TIMING_KEYS}}
+        extra = c.get("gqa") or c.get("llama4")
+        if extra is not None:   # the same kernel at main run 2's shapes
+            entry["main_run_2_shapes"] = {
+                "max_abs_err": extra.get("bfloat16", extra["float32"]),
+                "max_abs_err_f32": extra["float32"],
+                **{k: extra[k] for k in TIMING_KEYS}}
+        kernels.append(entry)
+    report = {"gpu": ident, "build_s": build_s, "phase_s": phase_s,
+              "kernels": kernels, "checks": checks, **runs,
               "ptxas": [ln for ln in build.BUILD_LOG.splitlines()
                         if "ptxas info" in ln]}
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    print(json.dumps({"main_run": main_res}), flush=True)
+    print(json.dumps({"phase_s": {"build": build_s, **phase_s}}), flush=True)
+    print(json.dumps({"main_run": runs["main_run"],
+                      "main_run_2": runs["main_run_2"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ident, flush=True)
     print(json.dumps({"ok": True, "device": {

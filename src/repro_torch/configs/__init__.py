@@ -1,6 +1,6 @@
-"""Architecture registry of the port. Only the paper's backbone is ported
-so far; the other architectures are ROADMAP work ("GQA/local/chunked
-attention and the other architectures")."""
+"""Architecture registry of the port: the paper's backbone and the MoE
+decoder with GQA attention. The other architectures are ROADMAP work
+("GQA/local/chunked attention and the other architectures")."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +14,7 @@ from repro_torch.configs.base import (  # noqa: F401 (re-export)
 
 _ARCH_MODULES = {
     "deepseek-v2-lite": "deepseek_v2_lite",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
 }
 
 

@@ -49,11 +49,14 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // num_heads
     block_pattern: Tuple[str, ...] = ("global",)
-    window: int = 1024
-    chunk: int = 8192
+    window: int = 1024               # sliding-window size for "local"
+    chunk: int = 8192                # chunk size for "chunked"
     ffn_kind: str = "swiglu"         # swiglu | geglu
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    frontend: Optional[str] = None   # None | "vision" | "audio" (stubbed)
+    frontend_dim: int = 1024         # dim of precomputed patch/frame embeddings
+    frontend_len: int = 256          # patches/frames per example
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"

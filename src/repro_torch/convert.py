@@ -4,9 +4,12 @@ to the same weights without this package ever importing JAX.
 
 Backbone: ``params["stack"]`` ``{head, scan, tail}`` (the scan groups
 stacked along a leading axis) is unstacked into one dict per layer, in
-layer order, exactly as the reference's ``unstack_layers`` does. Layouts
-are kept (``w_q`` ``(D,H,qk)``, ``w_uk`` ``(rank,H,n)``, experts
-``(E,D,F)``/``(E,F,D)``). Predictor: the stacked ``enc`` becomes a list
+layer order, exactly as the reference's ``unstack_layers`` does, whatever
+the pattern's length (``("mla",)`` of DeepSeek-V2-Lite, the 3:1
+chunked:global pattern of Llama-4-Scout). Top-level leaves other than the
+stack (``tok_emb``, ``final_ln``, ``head``, ``frontend_proj``) are carried
+as they are. Layouts are kept (``w_q`` ``(D,H,qk)``, ``wq`` ``(D,H,hd)``,
+``w_uk`` ``(rank,H,n)``, experts ``(E,D,F)``/``(E,F,D)``). Predictor: the stacked ``enc`` becomes a list
 of per-layer dicts.
 """
 from __future__ import annotations

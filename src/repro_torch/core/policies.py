@@ -173,10 +173,13 @@ class PerRequestPolicy:
     stateless policy instance may be passed directly and is then shared.
     """
 
-    def __init__(self, policy_or_factory):
+    def __init__(self, policy_or_factory, force_shared: bool = False):
+        """force_shared: accept a *stateful* instance as shared anyway —
+        only sound when at most one request is ever in flight (the batch-1
+        OffloadEngine)."""
         if isinstance(policy_or_factory, Policy):
             pol = policy_or_factory
-            if not pol.stateless:
+            if not (pol.stateless or force_shared):
                 raise ValueError(
                     f"policy {pol.name!r} keeps per-request state; pass a "
                     f"factory (e.g. lambda: {type(pol).__name__}(...)) so "

@@ -31,6 +31,8 @@ SIGNATURES = {
     "expert_ffn_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _P],
     "topk_gating_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                            _I, _P],
 }
 
 _LIB = None

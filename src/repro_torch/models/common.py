@@ -33,6 +33,18 @@ def rms_norm(x, w, eps: float = 1e-6):
     return (out * w.float()).to(x.dtype)
 
 
+def decode_lanes(pos, rows, b: int, device):
+    """(pos, rows) of a row-cache decode of ``b`` entries as (B,) int32
+    tensors: ``pos`` an int or per-entry positions, ``rows`` the cache row
+    of each entry (default ``0..b-1``)."""
+    pos = torch.as_tensor(pos, device=device).to(torch.int32).reshape(-1)
+    if pos.numel() == 1:
+        pos = pos.expand(b)
+    rows = (torch.arange(b, device=device, dtype=torch.int32) if rows is None
+            else torch.as_tensor(rows, device=device).to(torch.int32))
+    return pos, rows
+
+
 # ---------------------------------------------------------------------------
 # RoPE (half-rotation / llama convention)
 

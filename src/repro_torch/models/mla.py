@@ -1,7 +1,11 @@
-"""Multi-head Latent Attention (DeepSeek-V2), the paged decode paths.
+"""Multi-head Latent Attention (DeepSeek-V2), the decode paths.
 
 Decode uses the *absorbed* formulation, so the KV cache is one latent row
-of ``kv_lora_rank + rope_head_dim`` features per token. The paged pool
+of ``kv_lora_rank + rope_head_dim`` features per token. The contiguous
+cache keeps one ``(R, cache_len, ...)`` row per request
+(:func:`mla_init_cache`, :func:`mla_apply`), attended by the plain absorbed
+``_mla_attend`` as in the reference, which runs no kernel there. The paged
+pool
 stores it as ONE ``lat`` tensor ``(num_blocks, block_size, rank + rr)``,
 ckv first: the paged flash-decode kernel then reads it as a single
 "kv-head" whose K is the whole latent page and whose V is its ckv prefix.
@@ -15,8 +19,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.paged_attention import paged_flash_decode
-from repro_torch.models.common import (apply_rope, dense_init, rms_norm,
-                                       rms_norm_init)
+from repro_torch.models.common import (apply_rope, decode_lanes,
+                                       dense_init, rms_norm, rms_norm_init)
 
 NEG_INF = -1e30
 
@@ -80,6 +84,39 @@ def _mla_attend(p, cfg, q_nope, q_rope, c, r, valid, out_dtype):
     o_lat = torch.einsum("bhts,bsc->bthc", probs, c)
     out = torch.einsum("bthc,chv->bthv", o_lat, p["w_uv"])
     return torch.einsum("bthv,hvd->btd", out, p["wo"])
+
+
+def mla_init_cache(cfg, batch, cache_len, dtype, device):
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, cache_len, m.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, cache_len, m.rope_head_dim),
+                             dtype=dtype, device=device),
+    }
+
+
+def mla_apply(p, cfg, x, positions, mode, cache=None, pos=None, rows=None):
+    """Decode one token per batch entry against its latent row: x (B,1,D),
+    positions (B,1), pos an int or (B,) positions, entry ``i`` using row
+    ``rows[i]`` (default ``i``). The new latent is written in place at
+    ``pos``, then attended with every slot ``<= pos``. Returns
+    (y (B,1,D), cache)."""
+    if mode != "decode":
+        raise NotImplementedError(
+            f"mla_apply mode={mode!r}: ROADMAP, GQA/local/chunked attention "
+            "and the other architectures (full and prefill mla_apply)")
+    pos, rows = decode_lanes(pos, rows, x.shape[0], x.device)
+    pos, rows = pos.long(), rows.long()
+    q_nope, q_rope = _project_q(p, cfg, x, positions)
+    ckv_new, krope_new = _project_ckv(p, cfg, x, positions)
+    cache["ckv"].index_put_((rows, pos), ckv_new[:, 0])
+    cache["krope"].index_put_((rows, pos), krope_new[:, 0])
+    c, r = cache["ckv"][rows], cache["krope"][rows]
+    kpos = torch.arange(c.shape[1], device=x.device)
+    valid = kpos[None, None, :] <= pos[:, None, None]         # (B,1,S)
+    y = _mla_attend(p, cfg, q_nope, q_rope, c, r, valid, x.dtype)
+    return y, cache
 
 
 def mla_paged_init_cache(cfg, num_blocks: int, block_size: int, dtype,

@@ -1,9 +1,9 @@
 """Public model facade: ``build_model(cfg)`` -> a decoder whose ``init``
 draws every weight from an explicit ``torch.Generator`` onto a device.
 
-Training, full-sequence forward and the contiguous decode state of the
-reference's ``Model`` are ROADMAP work ("training and launch"); the
-serving engines drive the per-layer paged halves in ``transformer.py``.
+Training, full-sequence forward and the decode state of the reference's
+``Model`` are ROADMAP work ("training and launch"); the serving engines
+drive the per-layer row and paged halves in ``transformer.py``.
 """
 from __future__ import annotations
 
@@ -36,9 +36,13 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.moe is None or cfg.mla is None or set(cfg.layer_kinds()) != {
-            "mla"}:
+    """MoE decoders whose layers are attention kinds (MLA, or GQA with
+    global/local/chunked masking). Dense, recurrent and encoder-decoder
+    models raise ``NotImplementedError`` naming their ROADMAP item."""
+    kinds = set(cfg.layer_kinds())
+    if cfg.moe is None or not kinds <= {"mla", *transformer.GQA_KINDS}:
         raise NotImplementedError(
-            f"{cfg.name}: only MLA + MoE decoders are ported (ROADMAP: GQA/"
-            "local/chunked attention and the other architectures)")
+            f"{cfg.name}: only MoE decoders with MLA/global/local/chunked "
+            "attention are ported (ROADMAP: GQA/local/chunked attention and "
+            "the other architectures)")
     return Model(cfg)

@@ -15,15 +15,18 @@ class ServeConfig:
     """Knobs for ``BatchedOffloadEngine`` / ``DecodeCore``.
 
       * ``max_batch`` — decode lanes (requests) per step.
-      * ``paged`` — must be True: the block-paged KV layout with chunked
-        prefill (the contiguous-row engine is ROADMAP work).
+      * ``paged`` — True: block-paged KV pools for growing layers (ring
+        layers keep one row per lane), chunked prefill when every layer
+        pages; False: contiguous rows for every layer, prompts streamed
+        token by token.
       * ``block_size`` — token positions per KV block.
       * ``kv_blocks`` — pool capacity in blocks including the scratch
         block 0 (None -> ``max_batch`` full-length requests + scratch).
       * ``prefill_chunk`` — max prompt tokens per chunked-prefill program
         (clamped so a chunk never pins more than ``capacity`` experts).
-      * ``use_kernel`` — True reads paged KV through the paged flash-decode
-        kernel, False through the gather-and-materialise route.
+      * ``use_kernel`` — True reads KV through the attention kernels
+        (paged flash-decode for pools, flash-decode for GQA rows), False
+        through the gather-and-materialise route.
       * ``prefix_cache`` — must be False (prefix sharing is ROADMAP work).
       * ``replacement`` — expert-slot eviction; must be "lru" (LFU and
         learned replacement are ROADMAP work).
@@ -49,8 +52,6 @@ class ServeConfig:
     def check_ported(self) -> None:
         """Raise for a setting the port does not serve yet."""
         todo = {
-            "paged": (not self.paged, "the batch-1 OffloadEngine and the "
-                      "contiguous-row path"),
             "prefix_cache": (self.prefix_cache, "prefix cache, preemption "
                              "and run_workload"),
             "preemption": (self.preemption, "prefix cache, preemption and "

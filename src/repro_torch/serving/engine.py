@@ -1,8 +1,12 @@
 """Offloaded decode core — the paper's deployment loop on the device.
 
-A decode step (or a prompt chunk) runs layer by layer. Each MLA layer's
-attention reads its KV through the block-paged pool
-(``models/mla.py``; the paged flash-decode kernel by default). At each
+A decode step (or a prompt chunk) runs layer by layer. Each layer's
+attention reads its KV either through the block-paged pool (``global`` and
+``mla`` layers of the paged engine; the paged flash-decode kernel by
+default) or from the request's contiguous row (ring-buffer ``local`` and
+``chunked`` layers always, every layer of the row engines; the
+``flash_decode`` kernel for GQA kinds, the plain absorbed attend for MLA).
+At each
 MoE layer the router (``topk_gating`` kernel) picks the experts, their ids
 come back to the host — the host decides cache residency — misses are
 demand-fetched into the device slot buffer, every expert any in-flight
@@ -11,10 +15,9 @@ kernel reads the slot buffer in place. The policy's predictions for the
 next MoE layer are submitted before the layers in between run, so the
 modeled transfers overlap compute (``offload.OverlapTracker``).
 
-Only the block-paged path of the reference's ``DecodeCore`` is ported:
-the contiguous-row path and the batch-1 ``OffloadEngine`` are ROADMAP
-work, and so are tiers, dispatch, learned replacement, telemetry and the
-``"roofline"``/``"measured"`` compute clocks.
+``OffloadEngine`` is the batch-1 public API on the same core. Tiers,
+dispatch, learned replacement, telemetry and the ``"roofline"``/
+``"measured"`` compute clocks are ROADMAP work.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import LatencyStats
-from repro_torch.core.policies import PerRequestPolicy
+from repro_torch.core.policies import PerRequestPolicy, Policy
 from repro_torch.kernels.expert_ffn import expert_ffn
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import moe as moe_mod
@@ -72,8 +75,10 @@ class EngineStats:
       * ``steps`` — batched decode steps executed.
       * ``prefill_tokens`` / ``prefill_chunks`` — prompt tokens absorbed
         by chunked prefill, and the chunk programs run.
-      * ``fallback_prefill_tokens`` — prompt tokens streamed through
-        decode instead (0 on the chunked-prefill path this slice runs).
+      * ``fallback_prefill_tokens`` — prompt tokens fed through a decode
+        step that chunked prefill could have absorbed: 0 on the
+        chunked-prefill path, the whole prompt body when ring-buffer stacks
+        (or ``paged=False``) stream prompts token by token.
       * ``rejected_requests`` — requests refused at admission because
         their worst case exceeds the whole KV pool.
       * ``latency`` — the latest run's :class:`LatencyStats`, or None.
@@ -109,13 +114,15 @@ def _to_device(tree, device):
 
 
 class DecodeCore:
-    """Batched paged decode machinery: the expert cache / slot buffer
-    control plane and the per-step host driver. Engines own request
-    bookkeeping; the core owns device state and stall/hit accounting.
+    """Batched decode machinery: the expert cache / slot buffer control
+    plane and the per-step host driver. Engines own request bookkeeping;
+    the core owns device state and stall/hit accounting.
 
-    The routed experts live in the host store only; every other weight is
-    copied to ``device``. ``kernel=False`` reads paged KV through the
-    gather route instead of the paged flash-decode kernel.
+    Row caches carry ``max_batch + 1`` rows; row ``max_batch`` is a scratch
+    row that padding lanes read and write. The routed experts live in the
+    host store only; every other weight is copied to ``device``.
+    ``kernel=False`` reads KV through the gather route instead of the
+    attention kernels.
     """
 
     def __init__(self, model, params, capacity: int, eviction: str = "lru",
@@ -135,6 +142,7 @@ class DecodeCore:
         self.moe_layers = T.moe_layer_ids(cfg)
         self.moe_index = {li: i for i, li in enumerate(self.moe_layers)}
         self.max_batch = max_batch
+        self.scratch_row = max_batch
         self.max_prefill_chunk = max_prefill_chunk
         self.kernel = kernel
         layers = params["layers"]
@@ -156,22 +164,44 @@ class DecodeCore:
             tracker=self.tracker)
         self.stats = EngineStats()
         self.layer_compute_s = layer_compute_s
+        self.dtype = self.params["tok_emb"].dtype
         self._tok_emb_np = self.params["tok_emb"].float().cpu().numpy()
 
     # ------------------------------------------------------------------
+    def alloc_caches(self, cache_len: int):
+        """Per-layer contiguous decode caches of ``max_batch + 1`` rows."""
+        return [T.block_cache_init(self.cfg, kind, self.max_batch + 1,
+                                   cache_len, self.dtype, self.device)
+                for kind in self.kinds]
+
     def alloc_paged_caches(self, num_blocks: int, block_size: int):
-        """Per-layer (num_blocks, block_size, ...) pools sharing one
-        block-id space (serving/kvpool.py)."""
-        return [T.block_paged_cache_init(self.cfg, self.kinds[li], num_blocks,
-                                         block_size, self.params[
-                                             "tok_emb"].dtype, self.device)
-                for li in range(self.cfg.num_layers)]
+        """Per-layer caches of the paged engine: layers whose KV grows get
+        (num_blocks, block_size, ...) pools sharing one block-id space
+        (serving/kvpool.py); ring kinds keep ``max_batch + 1`` rows."""
+        return [T.block_paged_cache_init(self.cfg, kind, num_blocks,
+                                         block_size, self.max_batch + 1,
+                                         self.dtype, self.device)
+                for kind in self.kinds]
+
+    @property
+    def paged_ok(self) -> bool:
+        """Every layer kind is decodable by the paged step (pools for
+        growing KV, bounded rows for ring buffers)."""
+        return all(k in T.PAGED_KINDS + ("local", "chunked")
+                   for k in self.kinds)
+
+    @property
+    def chunk_prefill_ok(self) -> bool:
+        """Chunked prefill needs every layer's state reachable through
+        block tables: ring kinds fall back to token-by-token prompts."""
+        return all(k in T.PAGED_KINDS for k in self.kinds)
 
     def copy_block(self, caches, src: int, dst: int):
         """Copy pool page ``src -> dst`` in every paged layer, in place."""
-        for li in range(self.cfg.num_layers):
-            caches[li] = T.block_paged_copy(self.cfg, self.kinds[li],
-                                            caches[li], src, dst)
+        for li, kind in enumerate(self.kinds):
+            if kind in T.PAGED_KINDS:
+                caches[li] = T.block_paged_copy(self.cfg, kind, caches[li],
+                                                src, dst)
         return caches
 
     def _next_moe(self, li: int) -> Optional[int]:
@@ -246,41 +276,50 @@ class DecodeCore:
         self.stats.overlapped_s = self.tracker.overlapped_s
 
     @torch.no_grad()
-    def step(self, caches, pos: Sequence[int], tokens: Sequence[int],
-             policy: Optional[PerRequestPolicy], rids: Sequence[int],
-             tables: Optional[np.ndarray] = None):
+    def step(self, caches, rows: Sequence[int], pos: Sequence[int],
+             tokens: Sequence[int], policy: Optional[PerRequestPolicy],
+             rids: Sequence[int], tables: Optional[np.ndarray] = None):
         """One decode step for N active requests (N <= max_batch).
 
-        ``tables`` (N, W) int32 block tables must cover ``pos``. Returns
-        (logits (N, V) f32, caches, per-request per-MoE-layer routed
-        expert sets)."""
-        if tables is None:
-            raise NotImplementedError(
-                "contiguous-row decode: ROADMAP, the batch-1 OffloadEngine "
-                "and the contiguous-row path")
+        rows: cache row per request; pos: per-request positions; tokens:
+        token fed per request. With ``tables`` (N, W) int32 block tables
+        (row i covering ``pos[i]``), paged kinds run through the pools while
+        ring kinds keep using ``rows``; without it every layer uses
+        contiguous rows. Returns (logits (N, V) f32, caches, per-request
+        per-MoE-layer routed expert sets)."""
         cfg, dev = self.cfg, self.device
         n = len(tokens)
         ts = list(pos)
         nb = bucket_size(n, self.max_batch)
         pad = nb - n
+        # pad lanes use the scratch row (and, paged, all-scratch tables) at
+        # position 0: their writes never touch a live request's KV
+        rows_p = torch.tensor(list(rows) + [self.scratch_row] * pad,
+                              dtype=torch.int32, device=dev)
         pos_p = torch.tensor(list(pos) + [0] * pad, dtype=torch.int32,
                              device=dev)
         toks_p = torch.tensor(list(tokens) + [0] * pad, dtype=torch.int64,
                               device=dev)
         embeddings = self._tok_emb_np[np.asarray(tokens, np.int64)]
-        # pad lanes get all-scratch tables: their writes land in block 0
-        tab_p = np.zeros((nb, tables.shape[1]), np.int32)
-        tab_p[:n] = tables
-        tab_p = torch.from_numpy(tab_p).to(dev)
+        if tables is not None:
+            tab_p = np.zeros((nb, tables.shape[1]), np.int32)
+            tab_p[:n] = tables
+            tab_p = torch.from_numpy(tab_p).to(dev)
 
         x = T.embed(self.params, cfg, toks_p)[:, None, :]     # (nb,1,D)
         experts_out = [[] for _ in range(n)]
         self._submit_prefetch(policy, rids, ts, 0)
         for li in range(cfg.num_layers):
             lp = self.layers[li]
-            x, caches[li] = T.block_paged_decode(
-                lp, cfg, self.kinds[li], x, caches[li], tab_p, pos_p,
-                kernel=self.kernel)
+            kind = self.kinds[li]
+            if tables is not None and kind in T.PAGED_KINDS:
+                x, caches[li] = T.block_paged_decode(
+                    lp, cfg, kind, x, caches[li], tab_p, pos_p,
+                    kernel=self.kernel)
+            else:
+                x, caches[li] = T.block_row_decode(
+                    lp, cfg, kind, x, caches[li], rows_p, pos_p,
+                    kernel=self.kernel)
             self.tracker.advance(self.layer_compute_s)    # attention half
             if li in self.moe_index:
                 mi = self.moe_index[li]
@@ -313,6 +352,8 @@ class DecodeCore:
         bucket; per-token math matches decode, so streams stay identical.
         Returns (logits (len, V) f32, caches, per-MoE-layer lists of
         per-token routed expert sets)."""
+        assert self.chunk_prefill_ok, \
+            "chunked prefill needs a global/mla-only stack"
         cfg, dev = self.cfg, self.device
         n = len(tokens)
         assert 0 < n <= self.max_prefill_chunk
@@ -354,3 +395,66 @@ class DecodeCore:
         self.stats.prefill_chunks += 1
         self._sync_stats()
         return logits, caches, experts_out
+
+
+class OffloadEngine:
+    """Batch-1 engine: the original public API on the shared DecodeCore,
+    every layer against contiguous rows (row 0; row 1 is the scratch row).
+
+    ``policy`` may keep per-request state: one request is in flight at a
+    time, so one instance serves them all. ``device`` defaults to
+    ``"cuda"``; the CPU runs the kernels' plain PyTorch versions.
+    """
+
+    def __init__(self, model, params, policy: Optional[Policy],
+                 capacity: int, host_bw: float = 100e9,
+                 layer_compute_s: float = 0.0, device="cuda"):
+        self.core = DecodeCore(model, params, capacity, host_bw=host_bw,
+                               max_batch=1, layer_compute_s=layer_compute_s,
+                               device=device)
+        self.cfg = self.core.cfg
+        self._prp = (None if policy is None
+                     else PerRequestPolicy(policy, force_shared=True))
+
+    @property
+    def stats(self) -> EngineStats:
+        return self.core.stats
+
+    def init_state(self, cache_len: int):
+        return {"pos": 0, "caches": self.core.alloc_caches(cache_len)}
+
+    def decode_token(self, state, token: int):
+        """One token through all layers; returns (logits, state, experts)."""
+        logits, caches, experts = self.core.step(
+            state["caches"], rows=[0], pos=[state["pos"]],
+            tokens=[int(token)], policy=self._prp, rids=[0])
+        state["caches"] = caches
+        state["pos"] = state["pos"] + 1
+        return logits[0], state, experts[0]
+
+    def generate(self, prompt, max_new: int, cache_len: int,
+                 temperature: float = 0.0, seed: int = 0):
+        """Stream the prompt token by token, then sample. Emits
+        ``max_new + 1`` tokens (the prompt's last position samples one
+        too), as the reference does."""
+        if len(prompt) == 0:
+            raise ValueError(
+                "empty prompt: generation needs at least one token to seed "
+                "the decode loop")
+        if max_new < 0:
+            raise ValueError(f"max_new must be >= 0, got {max_new}")
+        state = self.init_state(cache_len)
+        if self._prp is not None:
+            self._prp.begin_request(0)
+        rng = np.random.default_rng(seed)
+        cur = prompt[0]
+        n_total = min(len(prompt) + max_new, cache_len)
+        generated = []
+        for t in range(n_total):
+            logits, state, _ = self.decode_token(state, int(cur))
+            if t + 1 < len(prompt):
+                cur = prompt[t + 1]
+            else:
+                cur = sample_token(logits, temperature, rng)
+                generated.append(cur)
+        return generated

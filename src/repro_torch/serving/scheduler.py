@@ -6,11 +6,15 @@ every in-flight request, prediction state is per request
 (``core.policies.PerRequestPolicy``), and each step's experts are pinned
 so one lane's demand fetch never evicts another lane's in-use expert.
 
-KV lives in a shared block-paged pool (``serving/kvpool.py``): a request
-is admitted when its worst-case block count can be reserved, its table
-grows as it decodes, and its blocks return to the pool when it retires.
-Prompts are absorbed by chunked prefill, one chunk per prefilling request
-interleaved with the decode steps.
+With ``ServeConfig.paged`` (the default), KV of growing layers lives in a
+shared block-paged pool (``serving/kvpool.py``): a request is admitted
+when its worst-case block count can be reserved, its table grows as it
+decodes, and its blocks return to the pool when it retires. Ring-buffer
+layers (local, chunked) keep one bounded row per lane. Prompts are
+absorbed by chunked prefill, one chunk per prefilling request interleaved
+with the decode steps, when every layer pages; a stack with ring layers
+streams them token by token. ``paged=False`` keeps fixed-length
+contiguous rows for every layer and streams prompts token by token.
 
 Admission is FIFO. Priorities, SLO budgets, preemption, the prefix cache
 and the open-loop ``run_workload`` are ROADMAP work ("prefix cache,
@@ -123,6 +127,7 @@ class BatchedOffloadEngine:
                                kernel=serve.use_kernel, device=device)
         self.cfg = self.core.cfg
         self.max_batch = max_batch
+        self.paged = serve.paged and self.core.paged_ok
         self.block_size = serve.block_size
         self.kv_blocks = serve.kv_blocks
         self.pool: Optional[KVBlockPool] = None
@@ -160,7 +165,10 @@ class BatchedOffloadEngine:
     def run(self, cache_len: int) -> Dict[int, List[int]]:
         self._records = {}
         t0 = time.perf_counter()
-        results = self._run_paged(cache_len)
+        if self.paged:
+            results = self._run_paged(cache_len)
+        else:
+            results = self._run_rows(cache_len)
         self.core.stats.latency = latency_stats(
             self._records.values(), time.perf_counter() - t0)
         return results
@@ -175,6 +183,56 @@ class BatchedOffloadEngine:
                 for i, p in enumerate(prompts)]
         results = self.run(cache_len)
         return [results[r] for r in rids]
+
+    # ------------------------------------------------------------------
+    def _run_rows(self, cache_len: int) -> Dict[int, List[int]]:
+        """Contiguous path: fixed-length KV rows, one per lane, prompts
+        streamed token by token through the decode step."""
+        caches = self.core.alloc_caches(cache_len)
+        rows: List[Optional[Request]] = [None] * self.max_batch
+        results: Dict[int, List[int]] = {}
+        while self._queue or any(r is not None for r in rows):
+            for s in range(self.max_batch):          # admission
+                while rows[s] is None and self._queue:
+                    req = self._queue.popleft()
+                    req.start(cache_len)
+                    if req.done:
+                        # cache_len admits zero steps: retire before ever
+                        # stepping, as the paged engine does
+                        results[req.rid] = req.generated
+                        self._finish_record(req)
+                        continue
+                    rows[s] = req
+                    if self._policy is not None:
+                        self._policy.begin_request(req.rid)
+            active = [(s, r) for s, r in enumerate(rows) if r is not None]
+            if not active:
+                continue
+            self._count_fallback(r for _, r in active)
+            logits, caches, _ = self.core.step(
+                caches,
+                rows=[s for s, _ in active],
+                pos=[r.t for _, r in active],
+                tokens=[r.cur for _, r in active],
+                policy=self._policy,
+                rids=[r.rid for _, r in active])
+            for (s, r), lg in zip(active, logits):   # retire
+                r.feed_result(lg)
+                if r.done:
+                    results[r.rid] = r.generated
+                    self._finish_record(r)
+                    rows[s] = None
+                    if self._policy is not None:
+                        self._policy.end_request(r.rid)
+        return results
+
+    def _count_fallback(self, active) -> None:
+        """Prompt tokens fed through a decode step that chunked prefill
+        could have absorbed (position < len(prompt)-1): zero on the
+        chunk-prefill path, the whole prompt body when ring stacks (or
+        paged=False) stream prompts token by token."""
+        self.core.stats.fallback_prefill_tokens += sum(
+            1 for r in active if r.t < len(r.prompt) - 1)
 
     # ------------------------------------------------------------------
     def _admit_paged(self, lanes: List[Optional[Request]], cache_len: int,
@@ -206,8 +264,9 @@ class BatchedOffloadEngine:
             if self._policy is not None:
                 self._policy.begin_request(req.rid)
             # positions prefill may absorb: all but the one whose logits
-            # seed the first sample
-            req.prefill_end = min(len(req.prompt) - 1, req.n_total)
+            # seed the first sample (none when ring layers stream prompts)
+            req.prefill_end = (min(len(req.prompt) - 1, req.n_total)
+                               if self.core.chunk_prefill_ok else 0)
             lanes[lane] = req
             if req.done:
                 self._retire(lanes, req, results)   # cache_len admits 0
@@ -253,13 +312,13 @@ class BatchedOffloadEngine:
                       if r is not None and not r.prefilling]
             if not active:
                 continue
-            self.core.stats.fallback_prefill_tokens += sum(
-                1 for r in active if r.t < len(r.prompt) - 1)
+            self._count_fallback(active)
             for r in active:
                 r.table.ensure(r.t)
             tables = np.stack([r.table.padded(table_width) for r in active])
             logits, caches, _ = self.core.step(
                 caches,
+                rows=[r.lane for r in active],
                 pos=[r.t for r in active],
                 tokens=[r.cur for r in active],
                 policy=self._policy,

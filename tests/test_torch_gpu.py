@@ -10,9 +10,11 @@ import torch
 
 from repro_torch.configs import get_reduced
 from repro_torch.core.policies import NextLayerAllPolicy
-from repro_torch.kernels import (expert_ffn, launch_counts, paged_attention,
-                                 reset_launch_counts, topk_gating)
+from repro_torch.kernels import (expert_ffn, flash_attention, launch_counts,
+                                 paged_attention, reset_launch_counts,
+                                 topk_gating)
 from repro_torch.models.model import build_model
+from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.scheduler import BatchedOffloadEngine
 
 pytestmark = pytest.mark.gpu
@@ -61,22 +63,59 @@ def test_kernels_match_plain_on_card(cuda, dtype, tol):
     assert (wk - wp).abs().max().item() <= 1e-6
 
 
-def test_engine_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_gqa_attention_kernels_match_plain_on_card(cuda, dtype, tol):
+    """``flash_decode`` (rows indexed in the kernel, S not a multiple of its
+    tile, valid_len 1/mid/S) and ``paged_flash_decode``'s GQA layout
+    (separate K and V pools) against their plain versions."""
+    g = torch.Generator(cuda).manual_seed(1)
+    q = torch.randn(3, 8, 64, generator=g, device=cuda).to(dtype)
+    kc = torch.randn(4, 70, 2, 64, generator=g, device=cuda).to(dtype)
+    vc = torch.randn(4, 70, 2, 64, generator=g, device=cuda).to(dtype)
+    rows = torch.tensor([3, 0, 2], dtype=torch.int32, device=cuda)
+    vlen = torch.tensor([1, 33, 70], dtype=torch.int32, device=cuda)
+    o = flash_attention.flash_decode(q, kc, vc, rows, vlen)
+    op = flash_attention.flash_decode_plain(q, kc, vc, rows, vlen)
+    assert (o.float() - op.float()).abs().max().item() <= tol
+
+    qg = q.reshape(3, 2, 4, 64).contiguous()
+    kp = torch.randn(10, 8, 2, 64, generator=g, device=cuda).to(dtype)
+    vp = torch.randn(10, 8, 2, 64, generator=g, device=cuda).to(dtype)
+    tab = torch.tensor([[1, 2, 0], [3, 4, 5], [6, 0, 0]], dtype=torch.int32,
+                       device=cuda)
+    pos = torch.tensor([12, 23, 0], dtype=torch.int32, device=cuda)
+    o = paged_attention.paged_flash_decode(qg, kp, vp, tab, pos)
+    op = paged_attention.paged_flash_decode_plain(qg, kp, vp, tab, pos)
+    assert (o.float() - op.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("arch,paged", [("deepseek-v2-lite", True),
+                                        ("llama4-scout-17b-a16e", True),
+                                        ("llama4-scout-17b-a16e", False)])
+def test_engine_on_card_matches_cpu(cuda, arch, paged):
     """The reduced engine on the card (kernels) and on the CPU (plain
-    versions) from identical weights: identical streams and counters."""
-    cfg = get_reduced("deepseek-v2-lite")
+    versions) from identical weights: identical streams and counters, and
+    every kernel of the path launched on the card."""
+    cfg = get_reduced(arch)
     model = build_model(cfg)
     params = model.init(device="cpu")
     prompts = [[3, 17, 5], [99, 255, 7, 42, 11, 4, 9, 250, 33, 2]]
     outs, stats = [], []
     for dev in ("cpu", "cuda"):
         reset_launch_counts()
+        serve = ServeConfig(max_batch=2, block_size=4, paged=paged)
         eng = BatchedOffloadEngine(model, params,
                                    NextLayerAllPolicy(cfg.moe.num_experts),
-                                   8, max_batch=2, block_size=4, device=dev)
+                                   8, serve=serve, device=dev)
         outs.append(eng.generate(prompts, 4, 24))
         stats.append((eng.stats.hits, eng.stats.misses,
                       eng.stats.fetch_bytes, eng.stats.sim_stall_s))
     assert outs[0] == outs[1]
     assert stats[0] == stats[1]
-    assert all(v > 0 for v in launch_counts().values())
+    want = {"deepseek-v2-lite": ("paged_flash_decode", "expert_ffn",
+                                 "topk_gating")}.get(
+        arch, ("flash_decode", "expert_ffn", "topk_gating")
+        + (("paged_flash_decode",) if paged else ()))
+    counts = launch_counts()
+    assert all(counts[k] > 0 for k in want), counts

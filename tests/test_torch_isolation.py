@@ -14,13 +14,13 @@ from repro_torch.configs import get_reduced
 from repro_torch.configs.base import PredictorConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.model import Model, build_model
-from repro_torch.serving.engine import DecodeCore
+from repro_torch.serving.engine import DecodeCore, OffloadEngine
 from repro_torch.serving.scheduler import BatchedOffloadEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
 ENTRY_POINTS = [Model.init, BatchedOffloadEngine.__init__,
-                DecodeCore.__init__, predictor_init,
+                OffloadEngine.__init__, DecodeCore.__init__, predictor_init,
                 convert.backbone_from_jax, convert.predictor_from_jax,
                 resolve_device]
 
@@ -72,4 +72,6 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     params = model.init(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchedOffloadEngine(model, params, None, 48)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OffloadEngine(model, params, None, 48)
     assert resolve_device("cpu").type == "cpu"

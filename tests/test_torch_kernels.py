@@ -16,8 +16,9 @@ import torch
 from repro.kernels.expert_ffn import expert_ffn as expert_ffn_pallas
 from repro.kernels.paged_attention import paged_flash_decode_pallas
 from repro.kernels.topk_gating import topk_gating as topk_gating_pallas
-from repro_torch.kernels import (expert_ffn, launch_counts, paged_attention,
-                                 reset_launch_counts, topk_gating)
+from repro_torch.kernels import (expert_ffn, flash_attention, launch_counts,
+                                 paged_attention, reset_launch_counts,
+                                 topk_gating)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -199,5 +200,9 @@ def test_cpu_path_counts_no_launch():
     path leaves them at zero."""
     reset_launch_counts()
     topk_gating.topk_gating(torch.zeros((2, 8)), 2)
-    assert launch_counts() == {"paged_flash_decode": 0, "expert_ffn": 0,
-                               "topk_gating": 0}
+    flash_attention.flash_decode(
+        torch.zeros((1, 4, 8)), torch.zeros((2, 5, 2, 8)),
+        torch.zeros((2, 5, 2, 8)), torch.ones(1, dtype=torch.int32),
+        torch.ones(1, dtype=torch.int32))
+    assert launch_counts() == {"paged_flash_decode": 0, "flash_decode": 0,
+                               "expert_ffn": 0, "topk_gating": 0}

@@ -8,14 +8,15 @@ CUDA toolkit::
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+1. build the five CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and identify the card;
-2. hold each kernel against its plain PyTorch version at both main runs'
+2. hold each kernel against its plain PyTorch version at the main runs'
    full-width shapes (``paged_flash_decode`` in its MLA and its GQA
-   layout), in bfloat16 and float32, and time kernel, plain version and a
-   PyTorch library yardstick with CUDA events: ``ms`` is device time
-   (calls replayed from a CUDA graph), ``eager_ms`` the time per eager
-   call, Python and launch overhead included;
+   layout; ``ssd_chunk`` also at the reduced mamba2 shape), in bfloat16
+   and float32, and time kernel, plain version and a PyTorch library
+   yardstick with CUDA events: ``ms`` is device time (calls replayed from
+   a CUDA graph), ``eager_ms`` the time per eager call, Python and launch
+   overhead included;
 3. main run: full-width DeepSeek-V2-Lite in bfloat16 (seeded random
    weights, routed experts in pinned host memory, 28.8 GB) served by
    ``BatchedOffloadEngine`` with the paper's learned prefetch policy at a
@@ -31,14 +32,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6. parity run 2: Llama-4-Scout at full width, float32, one chunked and one
    global layer with a 16-slot chunk; the paged, the ``paged=False`` and
    the batch-1 engine each identical on the card and on the CPU, and the
-   three identical to each other.
+   three identical to each other;
+7. main run 3: mamba2-130m at full width and depth (24 SSD layers) in
+   bfloat16 through the model facade: ``prefill`` of 4 prompts of 4,000
+   tokens and 64 greedy ``decode_step``s, then one 32,768-token prompt and
+   16 steps; every prefill layer's within-chunk term goes through
+   ``ssd_chunk``;
+8. parity run 3: mamba2-130m at full width in float32, depth cut to 4
+   layers: 2 prompts of 300 tokens and 16 greedy steps through the facade
+   on the card and on the CPU from identical weights; identical streams
+   and last-position logits within 1e-3. TF32 is off for the whole
+   script (matmul and cuDNN), and the causal convolution is a
+   shift-and-add, never a cuDNN convolution.
 
 Host memory: about 32 GB for main run 2's pinned experts (each main run's
 pinned blocks are released before the next phase), and 16 GB of float32
 experts for parity run 2. The last stdout line is ``{"ok": true,
 "device": {...}}``; the line before it is the card's name and power limit;
-before that the ``{"kernels": [...]}`` line, whose ``launches`` are main
-run 2's counts (``launches_by_run`` has both runs'). Details go to
+before that the ``{"kernels": [...]}`` line, whose ``launches`` are the
+counts of the main run that drives each kernel (Llama-4-Scout's for the
+four attention and MoE kernels, mamba2's for ``ssd_chunk``;
+``launches_by_run`` has every main run's). Details go to
 ``chiprun_out/chip_smoke.json``.
 This script imports nothing of JAX or of the reference package.
 """
@@ -357,6 +371,75 @@ def topk_case(torch, dev, gen, t, e, k, tie):
                       lambda: tg.topk_gating_plain(logits, k), library)}
 
 
+def check_ssd(torch, dev, gen):
+    """``ssd_chunk`` at every shape main run 3 gives it: mamba2-130m's H 24,
+    L 128, N 128, P 64, and G = requests x chunks per prompt for each part
+    of ``MAMBA_PARTS`` (4 x 32 and 1 x 256, which the wrapper splits over
+    CTAs in different head groups), the first part's timed in float32 as
+    the model path calls it; then the reduced config's shape (L 32, N 32,
+    8 heads)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssd import ssd_dims
+    cfg = get_config(MAMBA2)
+    heads = ssd_dims(cfg)[1]
+    l, n, p = cfg.ssm.chunk, cfg.ssm.d_state, cfg.ssm.headdim
+    out = {}
+    for i, (name, batch, prompt_len, _) in enumerate(MAMBA_PARTS):
+        case = ssd_case(torch, dev, gen, batch * -(-prompt_len // l), heads,
+                        l, n, p, timed=i == 0)
+        if i == 0:
+            out.update(case)
+        else:
+            out[name] = case
+    out["reduced"] = ssd_case(torch, dev, gen, 2 * 8, 8, 32, 32, 64)
+    return out
+
+
+def ssd_case(torch, dev, gen, g, h, l, n, p, timed=False):
+    from repro_torch.kernels import ssd_chunk as sc
+    out = {"G": g, "heads_per_cta": sc._heads_per_cta(g, h, dev)}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        c = (torch.randn(g, l, n, generator=gen, device=dev) * 0.3).to(dt)
+        b = (torch.randn(g, l, n, generator=gen, device=dev) * 0.3).to(dt)
+        x = (torch.randn(g, h, l, p, generator=gen, device=dev) * 0.5).to(dt)
+        a = -(torch.rand(g, h, l, generator=gen, device=dev) * 0.2).cumsum(-1)
+        y = sc.ssd_chunk(c, b, x, a)
+        yp = sc.ssd_chunk_plain(c, b, x, a)
+        torch.cuda.synchronize()
+        err = (y.float() - yp.float()).abs().max().item()
+        scale = max(1.0, yp.float().abs().max().item())
+        tol = (1e-4 if dtype == "float32" else 1e-2) * scale
+        if not err <= tol:
+            fail(f"ssd_chunk ({g},{h},{l},{n},{p}) {dtype}: max abs err {err} "
+                 f"> {tol}")
+        out[dtype] = err
+        out[f"{dtype}_out_abs_max"] = scale
+        if dtype != "float32" or not timed:
+            continue
+        mask = torch.ones(l, l, dtype=torch.bool, device=dev).tril()
+
+        def library():   # two matmuls around the masked decay (TF32 off)
+            s = torch.matmul(c, b.transpose(1, 2))
+            seg = (a[..., :, None] - a[..., None, :]).masked_fill(
+                ~mask, float("-inf"))
+            return torch.matmul(s[:, None] * torch.exp(seg), x)
+        out.update(timings(torch, lambda: sc.ssd_chunk(c, b, x, a),
+                           lambda: sc.ssd_chunk_plain(c, b, x, a), library))
+        # the work the function needs: C B^T once per chunk (C and B are
+        # shared across heads) and the masked products over the lower
+        # triangle, 2 operations per multiply-add; the TPU kernel's grid
+        # did G*H*2*L*L*(N+P), kept beside it
+        ops = g * l * (l + 1) * (n + h * p)
+        nbytes = 2 * g * l * n * 4 + 2 * g * h * l * p * 4 + g * h * l * 4
+        out["bound_ms"], out["bound_by"] = bound(nbytes, ops, "float32")
+        out["bound_ms_tpu_work"] = bound(
+            nbytes, g * h * 2 * l * l * (n + p), "float32")[0]
+        out["shape"] = (f"c, b ({g},{l},{n}), xdt ({g},{h},{l},{p}), a_cum "
+                        f"({g},{h},{l}) f32")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the engine
 
@@ -636,15 +719,166 @@ def parity_run_llama4(torch, np, dev):
             "identical": True}
 
 
+# main run 3 parts: (name, requests, prompt length, greedy decode steps)
+MAMBA_PARTS = (("batch", 4, 4000, 64), ("long", 1, 32768, 16))
+
+
+def tensors(tree) -> list:
+    """The tensors of a nested dict/list parameter or state tree."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [t for v in tree for t in tensors(v)]
+    return [tree]
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def greedy(torch, model, params, prompts, steps: int):
+    """Facade prefill, then ``steps`` greedy decode steps on the prompts'
+    device, nothing read back to the host until the end. Returns (streams
+    (B, steps) as lists, last-position logits of the prefill and of every
+    step (steps + 1, B, V), final state, prefill seconds, decode
+    seconds)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, state = model.prefill(params, {"tokens": prompts},
+                                  prompts.shape[1] + steps)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    toks, outs = [], [logits]
+    t = time.perf_counter()
+    for _ in range(steps):
+        tok = logits.argmax(-1)
+        toks.append(tok)
+        logits, state = model.decode_step(params, state,
+                                          {"tokens": tok[:, None]})
+        outs.append(logits)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    return (torch.stack(toks).T.tolist(), torch.stack(outs), state,
+            prefill_s, decode_s)
+
+
+def mamba_run(torch, np, dev):
+    """Main run 3: mamba2-130m at full width and depth, bfloat16, seeded
+    random weights, through the facade; prefill and decode timed apart,
+    launches counted over each part. Each part runs once untimed at its
+    own shapes first (prefill and 2 steps), so first-call library set-up
+    (cuBLAS heuristics for new shapes) is not in its times or counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("mamba2-130m")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(SEED + 8),
+                        device=dev)
+    torch.cuda.synchronize()
+    result = {"config": cfg.name, "dtype": cfg.dtype,
+              "layers": cfg.num_layers, "chunk": cfg.ssm.chunk,
+              "init_s": time.perf_counter() - t0,
+              "param_bytes": sum(t.numel() * t.element_size()
+                                 for t in tensors(params))}
+    rng = np.random.default_rng(SEED + 8)
+    total = {}
+    for name, batch, prompt_len, steps in MAMBA_PARTS:
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (batch, prompt_len))).to(dev)
+        greedy(torch, model, params, prompts, 2)     # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        streams, outs, state, prefill_s, decode_s = greedy(
+            torch, model, params, prompts, steps)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if tuple(outs.shape) != (steps + 1, batch, cfg.vocab_size):
+            fail(f"main run 3 ({name}): logits of shape {tuple(outs.shape)}")
+        if not torch.isfinite(outs).all():
+            fail(f"main run 3 ({name}): non-finite logits")
+        if state["pos"] != prompt_len + steps:
+            fail(f"main run 3 ({name}): state at {state['pos']}")
+        want = {k: 0 for k in launches}
+        want["ssd_chunk"] = cfg.num_layers
+        if launches != want:
+            fail(f"main run 3 ({name}): launches {launches}, want {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        result[name] = {
+            "requests": batch, "prompt_len": prompt_len,
+            "chunks_per_request": -(-prompt_len // cfg.ssm.chunk),
+            "decode_steps": steps, "prefill_s": prefill_s,
+            "prefill_tokens_per_s": batch * prompt_len / prefill_s,
+            "decode_s": decode_s,
+            "decode_tokens_per_s": batch * steps / decode_s,
+            "decode_ms_per_step": decode_s / steps * 1e3,
+            "max_memory_allocated_bytes": peak,
+            "launches": launches, "stream_head": [s[:8] for s in streams]}
+        del outs, state
+    result["launches"] = total
+    del params
+    return result, total
+
+
+def parity_run_mamba(torch, np, dev):
+    """Parity run 3: mamba2-130m at full width in float32, 4 layers, 2
+    prompts of 300 tokens (padded to 3 chunks), 16 greedy steps through the
+    facade on the card and on the CPU from identical weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    layers, prompt_len, steps, tol = 4, 300, 16, 1e-3
+    cfg = get_config("mamba2-130m").replace(num_layers=layers,
+                                            dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(SEED + 9),
+                        device="cpu")                 # drawn on the card
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 9).integers(
+        0, cfg.vocab_size, (2, prompt_len)))
+    runs = {}
+    for where, p, d in (("card", to_device(params, dev), dev),
+                        ("cpu", params, torch.device("cpu"))):
+        streams, outs, _, _, _ = greedy(torch, model, p, prompts.to(d),
+                                        steps)
+        if not torch.isfinite(outs).all():
+            fail(f"parity run 3: non-finite logits on the {where}")
+        runs[where] = (streams, outs.cpu())
+    if runs["card"][0] != runs["cpu"][0]:
+        fail(f"parity run 3: GPU/CPU streams differ: {runs['card'][0]} vs "
+             f"{runs['cpu'][0]}")
+    err = (runs["card"][1] - runs["cpu"][1]).abs().max().item()
+    if not err <= tol:
+        fail(f"parity run 3: last-position logits differ by {err} > {tol}")
+    return {"config": cfg.name, "layers": layers, "dtype": "float32",
+            "prompt_len": prompt_len, "requests": 2, "decode_steps": steps,
+            "streams": runs["card"][0], "max_abs_logit_err": err,
+            "tolerance": tol,
+            "logit_abs_max": runs["cpu"][1].abs().max().item(),
+            "identical_streams": True}
+
+
+# (name, source, the TPU kernel it replaces, the main run whose launches
+# the kernels line reports, the dtype of that run's calls)
+LLAMA4, MAMBA2 = "llama4-scout-17b-a16e", "mamba2-130m"
 KERNELS = [
     ("paged_flash_decode", "src/repro_torch/kernels/csrc/paged_attention.cu",
-     "src/repro/kernels/paged_attention.py:106"),
+     "src/repro/kernels/paged_attention.py:106", LLAMA4, "bfloat16"),
     ("flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
-     "src/repro/kernels/flash_attention.py:58"),
+     "src/repro/kernels/flash_attention.py:58", LLAMA4, "bfloat16"),
     ("expert_ffn", "src/repro_torch/kernels/csrc/expert_ffn.cu",
-     "src/repro/kernels/expert_ffn.py:39"),
+     "src/repro/kernels/expert_ffn.py:39", LLAMA4, "bfloat16"),
     ("topk_gating", "src/repro_torch/kernels/csrc/topk_gating.cu",
-     "src/repro/kernels/topk_gating.py:52"),
+     "src/repro/kernels/topk_gating.py:52", LLAMA4, "float32"),
+    ("ssd_chunk", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+     "src/repro/kernels/ssd_chunk.py:41", MAMBA2, "float32"),
 ]
 TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                "eager_ms", "plain_eager_ms", "library_eager_ms", "shape")
@@ -666,6 +900,9 @@ def main() -> None:
 
     from repro_torch.kernels import build
 
+    # float32 means float32: no TF32 in matmuls (the default) or in cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.perf_counter()
@@ -680,38 +917,43 @@ def main() -> None:
     checks = {"paged_flash_decode": check_paged(torch, F, dev, gen),
               "expert_ffn": check_expert(torch, dev, gen),
               "topk_gating": check_topk(torch, dev, gen),
-              "flash_decode": check_flash(torch, F, dev, gen)}
+              "flash_decode": check_flash(torch, F, dev, gen),
+              "ssd_chunk": check_ssd(torch, dev, gen)}
     phase_s["kernel_checks"] = time.perf_counter() - t
     release_host_memory(torch)
     log(f"kernel checks passed in {phase_s['kernel_checks']:.1f} s")
 
     runs, launches = {}, {}
-    for arch, phase in (("deepseek-v2-lite", "main_run"),
-                        ("deepseek-v2-lite", "parity_run"),
-                        ("llama4-scout-17b-a16e", "main_run_2"),
-                        ("llama4-scout-17b-a16e", "parity_run_2")):
+    phases = (
+        ("main_run", "deepseek-v2-lite",
+         lambda: main_run(torch, np, dev, "deepseek-v2-lite")),
+        ("parity_run", "deepseek-v2-lite",
+         lambda: parity_run(torch, np, dev)),
+        ("main_run_2", LLAMA4, lambda: main_run(torch, np, dev, LLAMA4)),
+        ("parity_run_2", LLAMA4, lambda: parity_run_llama4(torch, np, dev)),
+        ("main_run_3", MAMBA2, lambda: mamba_run(torch, np, dev)),
+        ("parity_run_3", MAMBA2, lambda: parity_run_mamba(torch, np, dev)))
+    for phase, arch, run in phases:
         t = time.perf_counter()
         if phase.startswith("main"):
-            runs[phase], launches[arch] = main_run(torch, np, dev, arch)
-        elif arch == "deepseek-v2-lite":
-            runs[phase] = parity_run(torch, np, dev)
+            runs[phase], launches[arch] = run()
         else:
-            runs[phase] = parity_run_llama4(torch, np, dev)
+            runs[phase] = run()
         phase_s[phase] = time.perf_counter() - t
         release_host_memory(torch)
         log(f"{phase} ({arch}) done in {phase_s[phase]:.1f} s")
 
     kernels = []
-    for name, source, replaces in KERNELS:
+    for name, source, replaces, run, dtype in KERNELS:
         c = checks[name]
         entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": launches["llama4-scout-17b-a16e"][name],
+            "replaces": replaces, "launches": launches[run][name],
+            "launches_run": run,
             "launches_by_run": {a: n[name] for a, n in launches.items()},
-            "max_abs_err": c["bfloat16"] if "bfloat16" in c
-            else c["float32"],
-            "max_abs_err_f32": c["float32"], "kernel_ms": c["ms"],
+            "max_abs_err": c[dtype], "max_abs_err_dtype": dtype,
+            "max_abs_err_f32": c["float32"],
+            "max_abs_err_bf16": c.get("bfloat16"), "kernel_ms": c["ms"],
             **{k: c[k] for k in TIMING_KEYS}}
         extra = c.get("gqa") or c.get("llama4")
         if extra is not None:   # the same kernel at main run 2's shapes
@@ -719,6 +961,9 @@ def main() -> None:
                 "max_abs_err": extra.get("bfloat16", extra["float32"]),
                 "max_abs_err_f32": extra["float32"],
                 **{k: extra[k] for k in TIMING_KEYS}}
+        for shape in ("long", "reduced"):   # ssd_chunk's other shapes
+            if shape in c:
+                entry[f"{shape}_shape_max_abs_err"] = c[shape]
         kernels.append(entry)
     report = {"gpu": ident, "build_s": build_s, "phase_s": phase_s,
               "kernels": kernels, "checks": checks, **runs,
@@ -728,8 +973,11 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"phase_s": {"build": build_s, **phase_s}}), flush=True)
-    print(json.dumps({"main_run": runs["main_run"],
-                      "main_run_2": runs["main_run_2"]}), flush=True)
+    print(json.dumps({k: runs[k] for k in ("main_run", "main_run_2",
+                                           "main_run_3")}), flush=True)
+    print(json.dumps({"parity_run_3": {k: runs["parity_run_3"][k] for k in (
+        "max_abs_logit_err", "tolerance", "identical_streams")}}),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ident, flush=True)
     print(json.dumps({"ok": True, "device": {

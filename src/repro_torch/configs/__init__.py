@@ -1,6 +1,6 @@
-"""Architecture registry of the port: the paper's backbone and the MoE
-decoder with GQA attention. The other architectures are ROADMAP work
-("GQA/local/chunked attention and the other architectures")."""
+"""Architecture registry of the port: the paper's backbone, the MoE
+decoder with GQA attention and the Mamba-2 SSD model. The other
+architectures are ROADMAP work (Queue 1 item 6)."""
 from __future__ import annotations
 
 import importlib
@@ -10,19 +10,21 @@ from repro_torch.configs.base import (  # noqa: F401 (re-export)
     ModelConfig,
     MoEConfig,
     PredictorConfig,
+    SSMConfig,
 )
 
 _ARCH_MODULES = {
     "deepseek-v2-lite": "deepseek_v2_lite",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "mamba2-130m": "mamba2_130m",
 }
 
 
 def _mod(arch: str):
     if arch not in _ARCH_MODULES:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP: GQA/local/chunked "
-            f"attention and the other architectures); ported: "
+            f"arch {arch!r} is not ported yet (ROADMAP Queue 1 item 6: "
+            f"the other architectures); ported: "
             f"{sorted(_ARCH_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
 

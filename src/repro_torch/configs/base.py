@@ -38,6 +38,15 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    expand: int = 2
+    headdim: int = 64
+    chunk: int = 128
+    d_conv: int = 4
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     arch_type: str                   # dense | moe | ssm | hybrid | vlm | audio
@@ -54,6 +63,7 @@ class ModelConfig:
     ffn_kind: str = "swiglu"         # swiglu | geglu
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
     frontend: Optional[str] = None   # None | "vision" | "audio" (stubbed)
     frontend_dim: int = 1024         # dim of precomputed patch/frame embeddings
     frontend_len: int = 256          # patches/frames per example

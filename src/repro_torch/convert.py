@@ -6,9 +6,11 @@ Backbone: ``params["stack"]`` ``{head, scan, tail}`` (the scan groups
 stacked along a leading axis) is unstacked into one dict per layer, in
 layer order, exactly as the reference's ``unstack_layers`` does, whatever
 the pattern's length (``("mla",)`` of DeepSeek-V2-Lite, the 3:1
-chunked:global pattern of Llama-4-Scout). Top-level leaves other than the
-stack (``tok_emb``, ``final_ln``, ``head``, ``frontend_proj``) are carried
-as they are. Layouts are kept (``w_q`` ``(D,H,qk)``, ``wq`` ``(D,H,hd)``,
+chunked:global pattern of Llama-4-Scout, ``("ssd",)`` of mamba2-130m).
+Top-level leaves other than the stack (``tok_emb``, ``final_ln``,
+``head`` unless the embeddings are tied, ``frontend_proj``) are carried
+as they are, each in its own dtype (an SSD layer's ``A_log``,
+``dt_bias`` and ``D`` stay float32 in a bfloat16 model). Layouts are kept (``w_q`` ``(D,H,qk)``, ``wq`` ``(D,H,hd)``,
 ``w_uk`` ``(rank,H,n)``, experts ``(E,D,F)``/``(E,F,D)``). Predictor: the stacked ``enc`` becomes a list
 of per-layer dicts.
 """
@@ -51,7 +53,7 @@ def unstack_layers(cfg, stack) -> list:
 
 def backbone_from_jax(cfg, params, device="cuda"):
     """The reference's ``model.init`` tree (numpy leaves) -> the port's
-    ``{"tok_emb", "final_ln", "head", "layers": [...]}`` on ``device``."""
+    ``{"tok_emb", "final_ln", ["head"], "layers": [...]}`` on ``device``."""
     dev = resolve_device(device)
     out = {k: _tensor(v, dev) for k, v in params.items() if k != "stack"}
     out["layers"] = [_tree(lp, lambda a: _tensor(a, dev))

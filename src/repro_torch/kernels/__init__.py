@@ -8,13 +8,14 @@ the main path went through every kernel.
 from __future__ import annotations
 
 from repro_torch.kernels import (expert_ffn, flash_attention,
-                                 paged_attention, topk_gating)
+                                 paged_attention, ssd_chunk, topk_gating)
 
 KERNEL_MODULES = {
     "paged_flash_decode": paged_attention,
     "flash_decode": flash_attention,
     "expert_ffn": expert_ffn,
     "topk_gating": topk_gating,
+    "ssd_chunk": ssd_chunk,
 }
 
 

@@ -33,6 +33,7 @@ SIGNATURES = {
     "topk_gating_launch": [_P, _P, _P, _I, _I, _I, _P],
     "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                             _I, _P],
+    "ssd_chunk_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB = None

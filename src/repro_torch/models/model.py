@@ -1,9 +1,13 @@
 """Public model facade: ``build_model(cfg)`` -> a decoder whose ``init``
-draws every weight from an explicit ``torch.Generator`` onto a device.
+draws every weight from an explicit ``torch.Generator`` onto a device, and
+whose ``forward``/``prefill``/``decode_step``/``init_decode_state`` take
+the reference facade's arguments and keep its decode state
+``{"pos", "caches"}`` (``caches`` one entry per layer here).
 
-Training, full-sequence forward and the decode state of the reference's
-``Model`` are ROADMAP work ("training and launch"); the serving engines
-drive the per-layer row and paged halves in ``transformer.py``.
+The facade's whole-sequence paths run the layer kinds that
+``transformer.block_apply`` ports (``ssd``); the MoE attention decoders are
+served through the engines' per-layer row and paged halves. Training
+(``loss_fn``) is ROADMAP work ("training and launch").
 """
 from __future__ import annotations
 
@@ -15,6 +19,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer
+from repro_torch.models.common import dtype_of
+
+
+def _tokens(params, batch) -> torch.Tensor:
+    if batch.get("patches") is not None:
+        raise NotImplementedError(
+            "the vision early-fusion prefix: ROADMAP Queue 1 item 6")
+    return torch.as_tensor(batch["tokens"], device=params["tok_emb"].device)
 
 
 @dataclass
@@ -34,15 +46,48 @@ class Model:
             return transformer.lm_init(generator, self.cfg, dev,
                                        expert_device)
 
+    def forward(self, params, batch) -> torch.Tensor:
+        """batch {"tokens": (B, T)} -> float32 logits (B, T, V)."""
+        logits, _ = transformer.lm_apply(params, self.cfg,
+                                         _tokens(params, batch), "full")
+        return logits
+
+    def prefill(self, params, batch, cache_len: int):
+        """-> (last-position logits (B, V), decode state). Only the last
+        position is unembedded: the full-vocabulary logits of a long
+        prompt are never built. ``cache_len`` sizes attention caches in
+        the reference; an SSD layer's state has no length."""
+        tokens = _tokens(params, batch)
+        logits, caches = transformer.lm_apply(
+            params, self.cfg, tokens, "prefill", last_only=True)
+        return logits[:, -1], {"pos": tokens.shape[1], "caches": caches}
+
+    def decode_step(self, params, state, batch):
+        """batch {"tokens": (B, 1)} -> (logits (B, V), next state)."""
+        logits, caches = transformer.lm_apply(
+            params, self.cfg, _tokens(params, batch), "decode",
+            caches=state["caches"])
+        return logits[:, -1], {"pos": state["pos"] + 1, "caches": caches}
+
+    def init_decode_state(self, batch_size: int, cache_len: int,
+                          pos: int = 0, device="cuda"):
+        caches = transformer.stack_cache_init(
+            self.cfg, batch_size, cache_len, dtype_of(self.cfg),
+            resolve_device(device))
+        return {"pos": pos, "caches": caches}
+
 
 def build_model(cfg: ModelConfig) -> Model:
-    """MoE decoders whose layers are attention kinds (MLA, or GQA with
-    global/local/chunked masking). Dense, recurrent and encoder-decoder
+    """Stacks whose every layer is ``ssd`` (mamba2), and MoE decoders whose
+    layers are attention kinds (MLA, or GQA with global/local/chunked
+    masking). Dense attention decoders, ``rglru`` and encoder-decoder
     models raise ``NotImplementedError`` naming their ROADMAP item."""
     kinds = set(cfg.layer_kinds())
-    if cfg.moe is None or not kinds <= {"mla", *transformer.GQA_KINDS}:
+    ssm_stack = kinds == {"ssd"} and cfg.ssm is not None
+    moe_attn = cfg.moe is not None and kinds <= {"mla", *transformer.GQA_KINDS}
+    if not (ssm_stack or moe_attn):
         raise NotImplementedError(
-            f"{cfg.name}: only MoE decoders with MLA/global/local/chunked "
-            "attention are ported (ROADMAP: GQA/local/chunked attention and "
-            "the other architectures)")
+            f"{cfg.name}: only Mamba-2 SSD stacks and MoE decoders with "
+            "MLA/global/local/chunked attention are ported (ROADMAP Queue 1 "
+            "item 6: the other architectures)")
     return Model(cfg)

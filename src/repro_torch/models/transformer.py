@@ -1,10 +1,13 @@
-"""Decoder assembly for the serving engines: per-layer params (a plain
-list, not the reference's scan-stacked pytree — ``convert.py`` unstacks
-it), the attention halves of a decode step (contiguous rows and block-paged
-pools), embed and unembed.
+"""Decoder assembly: per-layer params (a plain list, not the reference's
+scan-stacked pytree — ``convert.py`` unstacks it), the attention halves of
+a serving decode step (contiguous rows and block-paged pools), the
+whole-block ``block_apply``/``stack_apply`` of the model facade, embed and
+unembed.
 
-Layer kinds ported: ``mla``, ``global``, ``local``, ``chunked``; the
-recurrent kinds raise ``NotImplementedError`` naming their ROADMAP item.
+Layer kinds ported: ``mla``, ``global``, ``local``, ``chunked`` (the
+engines' decode halves) and ``ssd`` (the facade's full, prefill and
+decode modes); ``rglru`` raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -13,14 +16,14 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import mla, moe
+from repro_torch.models import mla, moe, ssd
 from repro_torch.models.common import (dense_init, dtype_of, ffn_init,
                                        rms_norm, rms_norm_init)
 
 Params = Dict[str, Any]
 
-_TODO_KINDS = ("layer kind {!r} is not ported yet (ROADMAP: GQA/local/"
-               "chunked attention and the other architectures)")
+_TODO_KINDS = ("layer kind {!r} is not ported yet (ROADMAP Queue 1 item 6: "
+               "the other attention modes and architectures)")
 GQA_KINDS = ("global", "local", "chunked")
 
 # Attention kinds whose decode KV grows with the sequence: these page
@@ -50,6 +53,9 @@ def moe_layer_ids(cfg):
 
 def block_init(gen, cfg, kind: str, is_moe: bool, dtype, device,
                expert_device=None) -> Params:
+    if kind == "ssd":                                # mamba block: no FFN
+        return {"ln1": rms_norm_init(cfg.d_model, dtype, device),
+                "ssd": ssd.ssd_init(gen, cfg, dtype, device)}
     if kind == "mla":
         a = mla.mla_init(gen, cfg, dtype, device)
     elif kind in GQA_KINDS:
@@ -72,7 +78,9 @@ def block_init(gen, cfg, kind: str, is_moe: bool, dtype, device,
 def block_cache_init(cfg, kind: str, batch: int, cache_len: int, dtype,
                      device):
     """Contiguous decode rows: ``batch`` rows of ``cache_len`` positions
-    (ring-sized for local/chunked)."""
+    (ring-sized for local/chunked); an ``ssd`` layer's O(1) state."""
+    if kind == "ssd":
+        return ssd.ssd_init_state(cfg, batch, dtype, device)
     if kind == "mla":
         return mla.mla_init_cache(cfg, batch, cache_len, dtype, device)
     if kind in GQA_KINDS:
@@ -159,10 +167,52 @@ def block_paged_copy(cfg, kind: str, cache, src: int, dst: int):
     raise ValueError(f"layer kind {kind!r} does not page")
 
 
+def block_apply(p, cfg, kind: str, x, mode: str, cache=None):
+    """One whole block in ``mode`` "full", "prefill" or "decode", as the
+    reference's ``block_apply``. Returns (x, new_cache). Only
+    ``ssd`` runs here (it reads neither positions nor ``pos``); the
+    attention kinds serve through the engines' halves above."""
+    if kind != "ssd":
+        raise NotImplementedError(
+            f"block_apply of layer kind {kind!r} in mode {mode!r}: ROADMAP "
+            "Queue 1 item 6 (full and prefill attention, the other "
+            "architectures)")
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if mode == "decode":
+        out, new_cache = ssd.ssd_step(p["ssd"], cfg, h, cache)
+    elif mode == "prefill":
+        out, new_cache = ssd.ssd_apply_full(p["ssd"], cfg, h,
+                                            return_state=True)
+    elif mode == "full":
+        out, new_cache = ssd.ssd_apply_full(p["ssd"], cfg, h), None
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return x + out, new_cache                        # no FFN sub-block
+
+
+def stack_cache_init(cfg, batch: int, cache_len: int, dtype, device) -> list:
+    """One decode cache per layer, in layer order."""
+    return [block_cache_init(cfg, kind, batch, cache_len, dtype, device)
+            for kind in cfg.layer_kinds()]
+
+
+def stack_apply(layers, cfg, x, mode: str, caches=None):
+    """Every layer in order (the reference scans its stacked groups).
+    Returns (x, new_caches): one cache per layer, None in "full" mode.
+    Prefill builds caches and reads none."""
+    new_caches = []
+    for i, kind in enumerate(cfg.layer_kinds()):
+        c = caches[i] if mode == "decode" else None
+        x, nc = block_apply(layers[i], cfg, kind, x, mode, c)
+        new_caches.append(nc)
+    return x, (None if mode == "full" else new_caches)
+
+
 def lm_init(gen: torch.Generator, cfg, device, expert_device=None) -> Params:
-    """{"tok_emb", "final_ln", "head", "layers": [per-layer params]}, plus
-    ``frontend_proj`` when ``cfg.frontend`` is set (the tree keys match the
-    reference's; serving is text-only, so nothing reads it yet)."""
+    """{"tok_emb", "final_ln", "layers": [per-layer params]}, plus
+    ``head`` unless ``cfg.tie_embeddings`` and ``frontend_proj`` when
+    ``cfg.frontend`` is set (the tree keys match the reference's; serving
+    is text-only, so nothing reads ``frontend_proj`` yet)."""
     dtype = dtype_of(cfg)
     kinds = cfg.layer_kinds()
     p: Params = {
@@ -175,11 +225,9 @@ def lm_init(gen: torch.Generator, cfg, device, expert_device=None) -> Params:
                               dtype, device, expert_device)
                    for i in range(cfg.num_layers)],
     }
-    if cfg.tie_embeddings:
-        raise NotImplementedError(
-            "tied embeddings: ROADMAP, GQA/local/chunked attention and the "
-            "other architectures")
-    p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype, device)
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype,
+                               device)
     if cfg.frontend is not None:
         p["frontend_proj"] = dense_init(gen, cfg.frontend_dim, cfg.d_model,
                                         dtype, device)
@@ -193,4 +241,17 @@ def embed(params, cfg, tokens):
 
 def unembed(params, cfg, x):
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return (x @ params["head"]).float()
+    w = params["tok_emb"].T if cfg.tie_embeddings else params["head"]
+    return (x @ w).float()
+
+
+def lm_apply(params, cfg, tokens, mode: str = "full", caches=None,
+             last_only: bool = False):
+    """Embed, every layer, unembed. Returns (logits, new_caches);
+    ``last_only`` unembeds the last position alone (logits (B, 1, V)),
+    which is all prefill returns."""
+    x, new_caches = stack_apply(params["layers"], cfg,
+                                embed(params, cfg, tokens), mode, caches)
+    if last_only:
+        x = x[:, -1:]
+    return unembed(params, cfg, x), new_caches

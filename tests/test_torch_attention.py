@@ -330,7 +330,7 @@ def test_build_model_takes_attention_moe_decoders_only():
     tcfg = torch_get_reduced(LLAMA4)
     assert torch_build_model(tcfg).cfg is tcfg
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_build_model(tcfg.replace(block_pattern=("ssd",)))
+        torch_build_model(tcfg.replace(block_pattern=("rglru",)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_build_model(tcfg.replace(moe=None))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

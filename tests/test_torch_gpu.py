@@ -12,7 +12,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.core.policies import NextLayerAllPolicy
 from repro_torch.kernels import (expert_ffn, flash_attention, launch_counts,
                                  paged_attention, reset_launch_counts,
-                                 topk_gating)
+                                 ssd_chunk, topk_gating)
 from repro_torch.models.model import build_model
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.scheduler import BatchedOffloadEngine
@@ -119,3 +119,89 @@ def test_engine_on_card_matches_cpu(cuda, arch, paged):
         + (("paged_flash_decode",) if paged else ()))
     counts = launch_counts()
     assert all(counts[k] > 0 for k in want), counts
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("g,h,l,n,p,slope", [
+    (4, 3, 32, 16, 64, 0.1), (2, 8, 128, 128, 64, 0.1),
+    (6, 1, 64, 32, 32, 0.1), (1, 24, 128, 32, 64, 0.1),
+    (2, 4, 128, 32, 64, 5.0)])   # steep: exp overflows above the diagonal
+def test_ssd_chunk_matches_plain_on_card(cuda, dtype, tol, g, h, l, n, p,
+                                         slope):
+    """``ssd_chunk`` against its plain version on the reference's kernel
+    grid, plus a decay steep enough that an exp taken before the mask
+    would give NaN (f32: summation order only; bf16: output rounding,
+    relative to the output's scale)."""
+    gen = torch.Generator(cuda).manual_seed(g * 100 + l)
+    c = (torch.randn(g, l, n, generator=gen, device=cuda) * .3).to(dtype)
+    b = (torch.randn(g, l, n, generator=gen, device=cuda) * .3).to(dtype)
+    x = (torch.randn(g, h, l, p, generator=gen, device=cuda) * .5).to(dtype)
+    a = -(torch.randn(g, h, l, generator=gen, device=cuda).abs()
+          .cumsum(-1) * slope)
+    before = ssd_chunk.LAUNCHES
+    y = ssd_chunk.ssd_chunk(c, b, x, a)
+    yp = ssd_chunk.ssd_chunk_plain(c, b, x, a)
+    torch.cuda.synchronize()
+    assert ssd_chunk.LAUNCHES == before + 1
+    assert y.dtype == dtype and torch.isfinite(y.float()).all()
+    scale = max(1.0, yp.float().abs().max().item())
+    assert (y.float() - yp.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("groups", [1, 2, 5])
+def test_ssd_chunk_head_groups_on_card(cuda, groups):
+    """``ssd_chunk`` at mamba2-130m's shapes (H 24, L 128, N 128, P 64,
+    f32) with as many chunks as make the wrapper put 24, 12 or 5 heads in
+    one CTA (the last of the 5-head groups short), as main run 3's
+    prefills do at G 256 and 128: every head group against the plain
+    version."""
+    slots = 2 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    g, h = slots // groups, 24
+    assert ssd_chunk._heads_per_cta(g, h, cuda) == -(-h // groups)
+    gen = torch.Generator(cuda).manual_seed(groups)
+    c = torch.randn(g, 128, 128, generator=gen, device=cuda) * .3
+    b = torch.randn(g, 128, 128, generator=gen, device=cuda) * .3
+    x = torch.randn(g, h, 128, 64, generator=gen, device=cuda) * .5
+    a = -(torch.rand(g, h, 128, generator=gen, device=cuda) * .2).cumsum(-1)
+    y = ssd_chunk.ssd_chunk(c, b, x, a)
+    yp = ssd_chunk.ssd_chunk_plain(c, b, x, a)
+    scale = max(1.0, yp.abs().max().item())
+    assert (y - yp).abs().max().item() <= 1e-4 * scale
+
+
+def test_mamba2_facade_on_card_matches_cpu(cuda):
+    """Reduced mamba2-130m (f32) through the facade on the card (the
+    ``ssd_chunk`` kernel, one launch per layer and prefill) and on the CPU
+    from identical weights: prefill of 45 tokens (padded to two chunks),
+    then 8 greedy decode steps; identical streams, logits within 1e-3."""
+    cfg = get_reduced("mamba2-130m")
+    model = build_model(cfg)
+    params = model.init(device="cpu")
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(cuda)
+
+    g = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 45), generator=g)
+    runs = {}
+    for dev, p in (("cpu", params), ("cuda", to(params))):
+        reset_launch_counts()
+        logits, state = model.prefill(p, {"tokens": prompt.to(dev)}, 64)
+        steps, stream = [logits.cpu()], []
+        for _ in range(8):
+            tok = logits.argmax(-1)
+            stream.append(tok.tolist())
+            logits, state = model.decode_step(p, state,
+                                              {"tokens": tok[:, None]})
+            steps.append(logits.cpu())
+        runs[dev] = (stream, torch.stack(steps), launch_counts())
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert (runs["cuda"][1] - runs["cpu"][1]).abs().max().item() <= 1e-3
+    assert runs["cpu"][2]["ssd_chunk"] == 0
+    assert runs["cuda"][2] == {**{k: 0 for k in runs["cuda"][2]},
+                               "ssd_chunk": cfg.num_layers}

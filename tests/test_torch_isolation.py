@@ -19,7 +19,8 @@ from repro_torch.serving.scheduler import BatchedOffloadEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
-ENTRY_POINTS = [Model.init, BatchedOffloadEngine.__init__,
+ENTRY_POINTS = [Model.init, Model.init_decode_state,
+                BatchedOffloadEngine.__init__,
                 OffloadEngine.__init__, DecodeCore.__init__, predictor_init,
                 convert.backbone_from_jax, convert.predictor_from_jax,
                 resolve_device]
@@ -67,6 +68,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     model = build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         model.init()
+    mamba = build_model(get_reduced("mamba2-130m"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mamba.init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mamba.init_decode_state(1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         predictor_init(torch.Generator().manual_seed(0), PredictorConfig())
     params = model.init(device="cpu")

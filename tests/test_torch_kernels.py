@@ -18,7 +18,7 @@ from repro.kernels.paged_attention import paged_flash_decode_pallas
 from repro.kernels.topk_gating import topk_gating as topk_gating_pallas
 from repro_torch.kernels import (expert_ffn, flash_attention, launch_counts,
                                  paged_attention, reset_launch_counts,
-                                 topk_gating)
+                                 ssd_chunk, topk_gating)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -204,5 +204,8 @@ def test_cpu_path_counts_no_launch():
         torch.zeros((1, 4, 8)), torch.zeros((2, 5, 2, 8)),
         torch.zeros((2, 5, 2, 8)), torch.ones(1, dtype=torch.int32),
         torch.ones(1, dtype=torch.int32))
+    ssd_chunk.ssd_chunk(torch.zeros((1, 16, 4)), torch.zeros((1, 16, 4)),
+                        torch.zeros((1, 2, 16, 8)), torch.zeros((1, 2, 16)))
     assert launch_counts() == {"paged_flash_decode": 0, "flash_decode": 0,
-                               "expert_ffn": 0, "topk_gating": 0}
+                               "expert_ffn": 0, "topk_gating": 0,
+                               "ssd_chunk": 0}

@@ -11,8 +11,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. build the five CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and identify the card;
 2. hold each kernel against its plain PyTorch version at the main runs'
-   full-width shapes (``paged_flash_decode`` in its MLA and its GQA
-   layout; ``ssd_chunk`` also at the reduced mamba2 shape), in bfloat16
+   full-width shapes (``paged_flash_decode`` in its MLA layout at decode
+   and at a prefill chunk, and in its GQA layout, two calls bit-identical;
+   ``ssd_chunk`` also at the reduced mamba2 shape), in bfloat16
    and float32, and time kernel, plain version and a PyTorch library
    yardstick with CUDA events: ``ms`` is device time (calls replayed from
    a CUDA graph), ``eager_ms`` the time per eager call, Python and launch
@@ -157,42 +158,72 @@ def bound(nbytes: float, ops: float, dtype: str):
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions at main-path shapes
 
+# paged_flash_decode's shapes on the main path, cache_len 128 (W 16, BS 8):
+# MLA shared page at decode (main run 1) and at a prefill chunk (8 tokens of
+# one request as 8 lanes sharing its table), GQA layout at decode (main
+# run 2's global layers)
+PAGED_SHAPES = {
+    "mla": dict(kvh=1, g=16, dk=576, dv=512, gqa=False),
+    "gqa": dict(kvh=8, g=5, dk=128, dv=128, gqa=True),
+    "prefill": dict(kvh=1, g=16, dk=576, dv=512, gqa=False,
+                    pos_list=tuple(range(56, 64)), shared_table=True),
+}
+
+
 def check_paged(torch, F, dev, gen):
-    """Both layouts at their main runs' shapes: the MLA shared page of
-    DeepSeek-V2-Lite (main run 1) and the GQA layout of Llama-4-Scout's
-    global layers (main run 2), decode with cache_len 128."""
+    """``paged_flash_decode`` at every shape of ``PAGED_SHAPES``."""
     from repro_torch.kernels import paged_attention as pa
-    out = paged_case(torch, F, dev, gen, pa, kvh=1, g=16, dk=576, dv=512,
-                     gqa=False)
-    out["gqa"] = paged_case(torch, F, dev, gen, pa, kvh=8, g=5, dk=128,
-                            dv=128, gqa=True)
+    out = paged_case(torch, F, dev, gen, pa, **PAGED_SHAPES["mla"])
+    out["gqa"] = paged_case(torch, F, dev, gen, pa, **PAGED_SHAPES["gqa"])
+    out["prefill"] = paged_case(torch, F, dev, gen, pa,
+                                **PAGED_SHAPES["prefill"])
     return out
 
 
-def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa):
-    n, bs, w = 4, 8, 16                              # decode, cache_len 128
+def paged_inputs(torch, dev, gen, dt, kvh, g, dk, dv, gqa,
+                 pos_list=(95, 90, 84, 71), shared_table=False):
+    """(args, keywords) of one call: decode lanes (prompt + decode
+    positions) with a table each, or the tokens of one prefill chunk as
+    lanes sharing one table; seeded random q and pools in type ``dt``."""
+    n, bs, w = len(pos_list), 8, 16
+    q = torch.randn(n, kvh, g, dk, generator=gen, device=dev).to(dt)
+    pool = torch.randn(n * w + 1, bs, kvh, dk, generator=gen,
+                       device=dev).to(dt)
+    v_pool = (torch.randn(n * w + 1, bs, kvh, dv, generator=gen,
+                          device=dev).to(dt) if gqa else None)
+    tables = (1 + torch.randperm(n * w, generator=gen, device=dev)
+              ).to(torch.int32).reshape(n, w)
+    if shared_table:
+        tables = tables[:1].expand(n, w).contiguous()
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     scale = (192 if not gqa else dk) ** -0.5
-    pos_list = [95, 90, 84, 71]                      # prompt + decode
+    return (q, pool, v_pool, tables, pos), {"scale": scale, "dv": dv}
+
+
+def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa,
+               pos_list=(95, 90, 84, 71), shared_table=False):
+    """One shape in f32 and bf16 against the plain version; two calls on
+    the same inputs must be bit-identical; bf16 timed."""
+    n, bs, w = len(pos_list), 8, 16
+    pos_list = list(pos_list)
+    label = (f"paged_flash_decode ({'GQA' if gqa else 'MLA'} layout, "
+             f"{n} lanes)")
     out = {}
     for dtype in ("float32", "bfloat16"):
-        dt = getattr(torch, dtype)
-        q = torch.randn(n, kvh, g, dk, generator=gen, device=dev).to(dt)
-        pool = torch.randn(n * w + 1, bs, kvh, dk, generator=gen,
-                           device=dev).to(dt)
-        v_pool = (torch.randn(n * w + 1, bs, kvh, dv, generator=gen,
-                              device=dev).to(dt) if gqa else None)
-        tables = (1 + torch.randperm(n * w, generator=gen, device=dev)
-                  ).to(torch.int32).reshape(n, w)
-        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
-        args = (q, pool, v_pool, tables, pos)
-        o = pa.paged_flash_decode(*args, scale=scale, dv=dv)
-        op = pa.paged_flash_decode_plain(*args, scale=scale, dv=dv)
+        args, kw = paged_inputs(torch, dev, gen, getattr(torch, dtype), kvh,
+                                g, dk, dv, gqa, pos_list, shared_table)
+        q, pool, v_pool, tables, pos = args
+        scale = kw["scale"]
+        o = pa.paged_flash_decode(*args, **kw)
+        o2 = pa.paged_flash_decode(*args, **kw)
+        op = pa.paged_flash_decode_plain(*args, **kw)
         torch.cuda.synchronize()
+        if not torch.equal(o, o2):
+            fail(f"{label} {dtype}: two calls on the same inputs differ")
         err = (o.float() - op.float()).abs().max().item()
         tol = 1e-4 if dtype == "float32" else 3e-2
         if not err <= tol:
-            fail(f"paged_flash_decode ({'GQA' if gqa else 'MLA'} layout) "
-                 f"{dtype}: max abs err {err} > {tol}")
+            fail(f"{label} {dtype}: max abs err {err} > {tol}")
         out[dtype] = err
         if dtype != "bfloat16":
             continue
@@ -217,11 +248,12 @@ def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa):
                 q.reshape(n, h, 1, dk), k.transpose(1, 2),
                 v.transpose(1, 2), attn_mask=mask, scale=scale)
         out.update(timings(
-            torch, lambda: pa.paged_flash_decode(*args, scale=scale, dv=dv),
-            lambda: pa.paged_flash_decode_plain(*args, scale=scale, dv=dv),
-            library))
+            torch, lambda: pa.paged_flash_decode(*args, **kw),
+            lambda: pa.paged_flash_decode_plain(*args, **kw), library))
         keys = sum(p + 1 for p in pos_list)
-        pages = sum(p // bs + 1 for p in pos_list)
+        rows = tables.tolist()      # distinct live pages, each read once
+        pages = len({rows[i][j] for i, p in enumerate(pos_list)
+                     for j in range(p // bs + 1)})
         el = 2
         page_bytes = bs * kvh * (dk + (dv if gqa else 0)) * el
         nbytes = (pages * page_bytes + q.numel() * el + n * h * dv * el
@@ -230,8 +262,9 @@ def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa):
         b_ms, b_by = bound(nbytes, ops, "bfloat16")
         pools = (f"K/V pools ({n * w + 1},{bs},{kvh},{dk}) each" if gqa
                  else f"pool ({n * w + 1},{bs},1,{dk}), dv {dv}")
-        out.update(bound_ms=b_ms, bound_by=b_by,
-                   shape=f"q ({n},{kvh},{g},{dk}) bf16, {pools}, tables "
+        tabs = "one table shared by the lanes" if shared_table else "tables"
+        out.update(bound_ms=b_ms, bound_by=b_by, bit_identical=True,
+                   shape=f"q ({n},{kvh},{g},{dk}) bf16, {pools}, {tabs} "
                          f"({n},{w}), pos {pos_list}")
     return out
 
@@ -961,6 +994,11 @@ def main() -> None:
                 "max_abs_err": extra.get("bfloat16", extra["float32"]),
                 "max_abs_err_f32": extra["float32"],
                 **{k: extra[k] for k in TIMING_KEYS}}
+        if "prefill" in c:      # the MLA layout at a prefill chunk
+            entry["mla_prefill_chunk_shape"] = {
+                "max_abs_err": c["prefill"]["bfloat16"],
+                "max_abs_err_f32": c["prefill"]["float32"],
+                **{k: c["prefill"][k] for k in TIMING_KEYS}}
         for shape in ("long", "reduced"):   # ssd_chunk's other shapes
             if shape in c:
                 entry[f"{shape}_shape_max_abs_err"] = c[shape]

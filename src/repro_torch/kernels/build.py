@@ -26,8 +26,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
-    "paged_flash_decode_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _F, _I, _P],
+    "paged_flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "expert_ffn_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _P],
     "topk_gating_launch": [_P, _P, _P, _I, _I, _I, _P],

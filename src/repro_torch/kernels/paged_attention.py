@@ -14,11 +14,15 @@ block 0 and pad lanes all fall under that one mask); the output is
 
 A CUDA tensor goes to ``csrc/paged_attention.cu``; a CPU tensor to
 :func:`paged_flash_decode_plain`, the dense gather-and-softmax oracle.
+The kernel splits each lane's table walk over CTAs (:func:`split_plan`)
+and merges the splits' partials in a second launch, so one call is two
+CUDA launches and counts as one in ``LAUNCHES``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -27,8 +31,40 @@ from repro_torch.kernels.runtime import check_status
 
 LAUNCHES = 0
 NEG = -1e30
-MAX_DV = 1024            # 4 output columns per thread of 256
+MAX_D = 1024             # dk and dv: 8 four-element chunks per warp lane
+MAX_HEADS = 8            # query heads per CTA, one warp each
+MAX_SPLITS = 32          # bounds the f32 workspace of partials
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class SplitPlan(NamedTuple):
+    """How the kernel cuts one call: ``splits`` contiguous ranges of
+    ``pages`` table entries per lane (the last may be short), and
+    ``heads`` query heads per CTA."""
+    splits: int
+    pages: int
+    heads: int
+
+    def ranges(self, w: int):
+        """The table entries [start, stop) that each split walks."""
+        return [(s * self.pages, min((s + 1) * self.pages, w))
+                for s in range(self.splits)]
+
+
+def split_plan(n: int, kvh: int, g: int, w: int, sm_count: int) -> SplitPlan:
+    """Split each lane's ``w`` table entries so that the grid (split, lane,
+    kv head x head group) holds about twice ``sm_count`` CTAs; no split is
+    without a table entry, and there are at most ``MAX_SPLITS``."""
+    groups = -(-g // MAX_HEADS)
+    heads = -(-g // groups)
+    want = -(-2 * sm_count // (n * kvh * groups))
+    pages = -(-w // max(1, min(want, w, MAX_SPLITS)))
+    return SplitPlan(-(-w // pages), pages, heads)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_flash_decode_plain(q, k_pool, v_pool, tables, pos,
@@ -73,11 +109,15 @@ def paged_flash_decode(q, k_pool, v_pool, tables, pos,
     dvp = dk if v_pool is None else v_pool.shape[-1]
     dv = dvp if dv is None else dv
     scale = dk ** -0.5 if scale is None else scale
-    if kvh2 != kvh or dk2 != dk or not 0 < dv <= min(dvp, MAX_DV):
+    if kvh2 != kvh or dk2 != dk or not 0 < dv <= min(dvp, MAX_D):
         raise ValueError("paged_flash_decode: q "
                          f"{tuple(q.shape)} does not match k_pool "
                          f"{tuple(k_pool.shape)} (dv={dv}, at most "
-                         f"{MAX_DV})")
+                         f"{MAX_D})")
+    if dk > MAX_D or dk % 8 or dvp % 8 or dv % 4:
+        raise ValueError(f"paged_flash_decode: dk {dk} and the V pool's "
+                         f"width {dvp} must be multiples of 8 (dk at most "
+                         f"{MAX_D}), dv {dv} a multiple of 4")
     if v_pool is not None and tuple(v_pool.shape[:3]) != (nb, bs, kvh):
         raise ValueError("paged_flash_decode: v_pool "
                          f"{tuple(v_pool.shape)} does not match k_pool")
@@ -98,15 +138,25 @@ def paged_flash_decode(q, k_pool, v_pool, tables, pos,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_flash_decode: all tensors must be "
                          "contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)
+           if t is not None):
+        raise ValueError("paged_flash_decode: q and pools must start on a "
+                         "16-byte boundary")
     out = torch.empty((n, kvh, g, dv), dtype=q.dtype, device=q.device)
     if n == 0:
         return out
+    w = tables.shape[1]
+    plan = split_plan(n, kvh, g, w, _sm_count(q.device.index))
+    # per (lane, kv head, head, split): acc[dv], then (m, l)
+    ws = torch.empty(n * kvh * g * plan.splits * (dv + 2),
+                     dtype=torch.float32, device=q.device)
     status = build.library().paged_flash_decode_launch(
         q.data_ptr(), k_pool.data_ptr(),
         None if v_pool is None else v_pool.data_ptr(),
-        tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        n, kvh, g, dk, dv, dvp, bs, tables.shape[1], float(scale),
-        _DTYPES[q.dtype], ctypes.c_void_p(build.stream_ptr(q.device)))
+        tables.data_ptr(), pos.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        n, kvh, g, dk, dv, dvp, bs, w, plan.splits, plan.pages, plan.heads,
+        float(scale), _DTYPES[q.dtype],
+        ctypes.c_void_p(build.stream_ptr(q.device)))
     check_status(status, "paged_flash_decode")
     LAUNCHES += 1
     return out

@@ -90,6 +90,95 @@ def test_gqa_attention_kernels_match_plain_on_card(cuda, dtype, tol):
     assert (o.float() - op.float()).abs().max().item() <= tol
 
 
+def _paged_inputs(cuda, dtype, layout, n, g, w, pos, kvh=1, dk=576, dv=512,
+                  shared=False, seed=0):
+    """Random pools and q; lane tables drawn without repeats (or one table
+    shared by all lanes, as a prefill chunk's tokens share theirs), the
+    entries past each lane's last live page pointing at scratch block 0."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    nb, bs = n * w + 1, 8
+    q = torch.randn(n, kvh, g, dk, generator=gen, device=cuda).to(dtype)
+    kp = torch.randn(nb, bs, kvh, dk, generator=gen, device=cuda).to(dtype)
+    vp = (torch.randn(nb, bs, kvh, dv, generator=gen, device=cuda).to(dtype)
+          if layout == "gqa" else None)
+    tab = (1 + torch.randperm(n * w, generator=gen, device=cuda)).reshape(n, w)
+    if shared:
+        tab = tab[:1].expand(n, w)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    dead = torch.arange(w, device=cuda)[None, :] > (pos_t[:, None] // bs)
+    tab = torch.where(dead, 0, tab).to(torch.int32).contiguous()
+    scale = 192 ** -0.5 if layout == "mla" else dk ** -0.5
+    return (q, kp, vp, tab, pos_t), dict(scale=scale, dv=dv)
+
+
+# (layout, lanes, heads, table width, pos, kv heads, dk, dv, shared table)
+PAGED_CASES = {
+    "mla-more-splits-than-pages": ("mla", 4, 16, 16, [3, 10, 0, 17], 1, 576,
+                                   512, False),
+    "mla-one-lane": ("mla", 1, 16, 16, [95], 1, 576, 512, False),
+    "mla-pos-0": ("mla", 4, 16, 16, [0, 0, 0, 0], 1, 576, 512, False),
+    "mla-full-table": ("mla", 4, 16, 16, [127, 127, 120, 64], 1, 576, 512,
+                       False),
+    "mla-prefill-chunk": ("mla", 8, 16, 16, list(range(56, 64)), 1, 576,
+                          512, True),
+    "gqa-more-splits-than-pages": ("gqa", 4, 5, 16, [3, 10, 0, 17], 8, 128,
+                                   128, False),
+    "gqa-one-lane": ("gqa", 1, 5, 16, [95], 8, 128, 128, False),
+    "gqa-pos-0": ("gqa", 4, 5, 16, [0, 0, 0, 0], 8, 128, 128, False),
+    "gqa-full-table": ("gqa", 4, 5, 16, [127, 127, 120, 64], 8, 128, 128,
+                       False),
+    "gqa-shared-table": ("gqa", 8, 5, 16, list(range(56, 64)), 8, 128, 128,
+                         True),
+    "gqa-g1": ("gqa", 4, 1, 16, [95, 90, 84, 71], 8, 128, 128, False),
+    # 16 lanes over 64-entry tables: a split's pages exceed the kernel's
+    # shared-memory stage, so each CTA stages them in turns
+    "mla-long-table-stages": ("mla", 16, 16, 64,
+                              [511, 500, 400, 300, 257, 256, 200, 130, 129,
+                               128, 100, 64, 63, 17, 8, 0], 1, 576, 512,
+                              False),
+    "gqa-long-table-stages": ("gqa", 16, 5, 64,
+                              [511, 500, 400, 300, 257, 256, 200, 130, 129,
+                               128, 100, 64, 63, 17, 8, 0], 8, 128, 128,
+                              False),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_paged_flash_decode_splits_match_plain_on_card(cuda, case, dtype,
+                                                       tol):
+    """The split-K ``paged_flash_decode`` against its plain version in both
+    layouts at full width (MLA: G 16, dk 576, dv 512; GQA: KVH 8, G 5 or
+    1, dk = dv = 128): more splits than live pages, one lane, pos 0, a
+    full 16-entry table, 8 lanes sharing one table, and 64-entry tables
+    whose splits are staged in turns. One call is one count in
+    ``LAUNCHES`` (f32: summation order only; bf16: output rounding)."""
+    layout, n, g, w, pos, kvh, dk, dv, shared = PAGED_CASES[case]
+    args, kw = _paged_inputs(cuda, dtype, layout, n, g, w, pos, kvh, dk, dv,
+                             shared)
+    before = paged_attention.LAUNCHES
+    o = paged_attention.paged_flash_decode(*args, **kw)
+    op = paged_attention.paged_flash_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.LAUNCHES == before + 1
+    assert o.shape == (n, kvh, g, dv) and o.dtype == dtype
+    assert (o.float() - op.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("layout", ["mla", "gqa"])
+def test_paged_flash_decode_is_deterministic_on_card(cuda, layout):
+    """Two calls on the same inputs give bit-identical outputs: the
+    splits are merged in a fixed order, with no atomics."""
+    dk, dv, kvh, g = (576, 512, 1, 16) if layout == "mla" else (128, 128, 8,
+                                                                5)
+    args, kw = _paged_inputs(cuda, torch.bfloat16, layout, 4, g, 16,
+                             [95, 90, 84, 71], kvh, dk, dv, seed=3)
+    first = paged_attention.paged_flash_decode(*args, **kw)
+    again = paged_attention.paged_flash_decode(*args, **kw)
+    assert torch.equal(first, again)
+
+
 @pytest.mark.parametrize("arch,paged", [("deepseek-v2-lite", True),
                                         ("llama4-scout-17b-a16e", True),
                                         ("llama4-scout-17b-a16e", False)])

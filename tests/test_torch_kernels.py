@@ -117,6 +117,98 @@ def test_paged_flash_decode_scratch_invariance():
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("sm_count", [1, 132])
+@pytest.mark.parametrize("w", [1, 3, 16])
+@pytest.mark.parametrize("n,kvh,g", [(4, 1, 16), (8, 1, 16), (4, 8, 5),
+                                     (1, 1, 1), (1, 2, 2)])
+def test_split_plan_covers_each_table_entry_once(n, kvh, g, w, sm_count):
+    """The kernel's split plan: every table entry in exactly one split, no
+    split without an entry, at most ``MAX_SPLITS`` splits, and head groups
+    of at most ``MAX_HEADS`` that cover every head."""
+    plan = paged_attention.split_plan(n, kvh, g, w, sm_count)
+    ranges = plan.ranges(w)
+    assert len(ranges) == plan.splits <= paged_attention.MAX_SPLITS
+    assert all(start < stop for start, stop in ranges)
+    assert [e for start, stop in ranges for e in range(start, stop)] == \
+        list(range(w))
+    assert 1 <= plan.heads <= paged_attention.MAX_HEADS
+    assert plan.heads * -(-g // plan.heads) >= g
+    if n * kvh * -(-g // plan.heads) >= 2 * sm_count:   # the SMs are full
+        assert plan.splits == 1
+
+
+def _split_then_merge(q, k_pool, v_pool, tables, pos, scale, dv, plan,
+                      read_dead):
+    """The kernel's arithmetic in plain PyTorch: a partial (m, l, acc) per
+    split of each lane's table, then the splits merged in a fixed order.
+    ``read_dead=False`` does what the kernel does: a split past the lane's
+    last live page is an empty partial (m = -1e30, l = 0, acc never
+    written: NaN here) and reads nothing. ``read_dead=True`` walks every
+    page, so splits whose keys are all masked are merged too."""
+    n, kvh, g, dk = q.shape
+    bs, w = k_pool.shape[1], tables.shape[1]
+    out = torch.empty(n, kvh, g, dv)
+    for i in range(n):
+        p = int(pos[i])
+        ms, ls, accs = [], [], []
+        for start, stop in plan.ranges(w):
+            stop = stop if read_dead else min(stop, p // bs + 1)
+            if stop <= start:
+                ms.append(torch.full((kvh, g), paged_attention.NEG))
+                ls.append(torch.zeros(kvh, g))
+                accs.append(torch.full((kvh, g, dv), float("nan")))
+                continue
+            ids = tables[i, start:stop].long()
+            k = k_pool[ids].reshape(-1, kvh, dk)
+            v = (k[..., :dv] if v_pool is None
+                 else v_pool[ids].reshape(-1, kvh, v_pool.shape[-1])[..., :dv])
+            s = torch.einsum("jgd,sjd->jgs", q[i], k) * scale
+            kpos = torch.arange(start * bs, stop * bs)
+            s = torch.where(kpos <= p, s, torch.tensor(paged_attention.NEG))
+            m = s.amax(-1)
+            e = torch.exp(s - m[..., None])
+            ms.append(m)
+            ls.append(e.sum(-1))
+            accs.append(torch.einsum("jgs,sjd->jgd", e, v))
+        m_all, l_all = torch.stack(ms), torch.stack(ls)
+        live = l_all > 0
+        mx = torch.where(live, m_all, torch.tensor(paged_attention.NEG))
+        wts = torch.where(live, torch.exp(m_all - mx.amax(0)), 0.0)
+        acc = torch.zeros(kvh, g, dv)
+        for wt, a in zip(wts, accs):                      # fixed order
+            acc = acc + torch.where(wt[..., None] > 0, wt[..., None] * a, 0.0)
+        out[i] = acc / torch.clamp((wts * l_all).sum(0), min=1e-30)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("read_dead", [False, True])
+@pytest.mark.parametrize("sm_count", [1, 2, 132])
+@pytest.mark.parametrize("layout", ["gqa", "mla"])
+def test_split_partials_merge_to_plain(layout, sm_count, read_dead):
+    """Partials per split, then the fixed-order merge, equal the dense
+    plain version within 1e-6 in f32: lanes at pos 0, mid-block and at
+    the table's end; scratch-padded table tails; splits that are empty
+    (more splits than live pages) or, with ``read_dead``, hold only
+    masked keys."""
+    bs, kvh, g, dk, w = 8, (2 if layout == "gqa" else 1), 3, 48, 5
+    q, kp, vp, tables, pos = _paged_case(bs, kvh, g, dk, w, n=4, seed=11,
+                                         pad_w=3)
+    pos[1], pos[2] = 0, 9                 # one key; two pages of w + 3
+    dv = 32 if layout == "mla" else dk
+    scale = 0.15
+    args = (torch.from_numpy(q), torch.from_numpy(kp),
+            None if layout == "mla" else torch.from_numpy(vp),
+            torch.from_numpy(tables), torch.from_numpy(pos))
+    plan = paged_attention.split_plan(4, kvh, g, tables.shape[1], sm_count)
+    got = _split_then_merge(*args, scale=scale, dv=dv, plan=plan,
+                            read_dead=read_dead)
+    want = paged_attention.paged_flash_decode_plain(*args, scale=scale,
+                                                    dv=dv)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_expert_ffn_plain_matches_pallas(dtype):
     """One lane through the slot-indexed plain version equals the TPU

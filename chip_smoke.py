@@ -12,8 +12,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``nvcc`` per source, all started together) and identify the card;
 2. hold each kernel against its plain PyTorch version at the main runs'
    full-width shapes (``paged_flash_decode`` in its MLA layout at decode
-   and at a prefill chunk, and in its GQA layout, two calls bit-identical;
-   ``ssd_chunk`` also at the reduced mamba2 shape), in bfloat16
+   and at a prefill chunk, and in its GQA layout; ``flash_decode`` on the
+   8192-slot ring and a 128-slot row; ``expert_ffn`` at main run 1's
+   decode and prefill-chunk shapes and main run 2's; for these three, two
+   calls on the same inputs must be bit-identical; ``ssd_chunk`` also at
+   the reduced mamba2 shape), in bfloat16
    and float32, and time kernel, plain version and a PyTorch library
    yardstick with CUDA events: ``ms`` is device time (calls replayed from
    a CUDA graph), ``eager_ms`` the time per eager call, Python and launch
@@ -269,28 +272,45 @@ def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa,
     return out
 
 
-def check_flash(torch, F, dev, gen):
-    """``flash_decode`` at main run 2's shapes: 4 lanes of 40 query heads
-    over 8 kv heads, hd 128, against rows of the chunked ring (S = 8192,
-    the timed case) and of a global row (S = cache_len = 128)."""
-    from repro_torch.kernels import flash_attention as fa
+# flash_decode's shapes on main run 2 (Llama-4-Scout's chunked layers): 4
+# lanes of 40 query heads over 8 kv heads, hd 128, valid_len up to 96 of
+# a row of the chunked ring (S = 8192, the timed case) or of a global row
+# (S = cache_len = 128)
+FLASH_SHAPES = {"ring": dict(s_len=8192), "global": dict(s_len=128)}
+
+
+def flash_inputs(torch, dev, gen, dt, s_len, vl_list=(96, 90, 84, 71)):
+    """(q, k_cache, v_cache, rows, valid_len) of one call: 5 cache rows,
+    lanes on rows 3, 0, 2, 1; seeded random q and caches in type ``dt``."""
     n, h, kvh, hd, r = 4, 40, 8, 128, 5
-    vl_list = [96, 90, 84, 71]
+    q = torch.randn(n, h, hd, generator=gen, device=dev).to(dt)
+    kc = torch.randn(r, s_len, kvh, hd, generator=gen, device=dev).to(dt)
+    vc = torch.randn(r, s_len, kvh, hd, generator=gen, device=dev).to(dt)
+    rows = torch.tensor([3, 0, 2, 1], dtype=torch.int32, device=dev)
+    vl = torch.tensor(vl_list, dtype=torch.int32, device=dev)
+    return q, kc, vc, rows, vl
+
+
+def check_flash(torch, F, dev, gen):
+    """``flash_decode`` at every shape of ``FLASH_SHAPES`` in f32 and bf16
+    against its plain version; two calls on the same inputs must be
+    bit-identical; bf16 at S = 8192 timed."""
+    from repro_torch.kernels import flash_attention as fa
     out = {}
-    for s_len in (128, 8192):
+    for s_len in (FLASH_SHAPES["global"]["s_len"],
+                  FLASH_SHAPES["ring"]["s_len"]):
         for dtype in ("float32", "bfloat16"):
-            dt = getattr(torch, dtype)
-            q = torch.randn(n, h, hd, generator=gen, device=dev).to(dt)
-            kc = torch.randn(r, s_len, kvh, hd, generator=gen,
-                             device=dev).to(dt)
-            vc = torch.randn(r, s_len, kvh, hd, generator=gen,
-                             device=dev).to(dt)
-            rows = torch.tensor([3, 0, 2, 1], dtype=torch.int32, device=dev)
-            vl = torch.tensor(vl_list, dtype=torch.int32, device=dev)
-            args = (q, kc, vc, rows, vl)
+            args = flash_inputs(torch, dev, gen, getattr(torch, dtype), s_len)
+            q, kc, vc, rows, vl = args
+            n, h, hd = q.shape
+            kvh = kc.shape[2]
             o = fa.flash_decode(*args)
+            o2 = fa.flash_decode(*args)
             op = fa.flash_decode_plain(*args)
             torch.cuda.synchronize()
+            if not torch.equal(o, o2):
+                fail(f"flash_decode S={s_len} {dtype}: two calls on the same "
+                     "inputs differ")
             err = (o.float() - op.float()).abs().max().item()
             tol = 1e-4 if dtype == "float32" else 3e-2
             if not err <= tol:
@@ -299,6 +319,7 @@ def check_flash(torch, F, dev, gen):
             out[dtype if s_len == 8192 else f"{dtype}_S{s_len}"] = err
             if dtype != "bfloat16" or s_len != 8192:
                 continue
+            vl_list = vl.tolist()
             vmax = max(vl_list)
             mask = (torch.arange(vmax, device=dev)[None, :]
                     < vl[:, None].long())[:, None, None, :]
@@ -323,53 +344,87 @@ def check_flash(torch, F, dev, gen):
             ops = keys * h * 4 * hd
             out["bound_ms"], out["bound_by"] = bound(nbytes, ops,
                                                      "bfloat16")
+            out["bit_identical"] = True
             out["shape"] = (f"q ({n},{h},{hd}) bf16, K/V rows "
-                            f"({r},{s_len},{kvh},{hd}) each, rows "
+                            f"({kc.shape[0]},{s_len},{kvh},{hd}) each, rows "
                             f"{rows.tolist()}, valid_len {vl_list}")
     return out
 
 
+# expert_ffn's shapes on the main path: main run 1's decode (DeepSeek-V2-Lite:
+# 4 lanes, top-6, D 2048, F 1408, 166 slots) and prefill chunk (8 tokens
+# whose 48 pairs name PREFILL_DISTINCT_SLOTS distinct slots: the mean per
+# call, 18.7, that main run 1 showed on an H100, which main_run reports as
+# `distinct_slots_per_expert_call`), and main run 2's (Llama-4-Scout: top-1,
+# D 5120, F 8192, 12 slots)
+PREFILL_DISTINCT_SLOTS = 19
+EXPERT_SHAPES = {
+    "deepseek": dict(n=4, k=6, d=2048, f=1408, slots=166),
+    "llama4": dict(n=4, k=1, d=5120, f=8192, slots=12),
+    "prefill": dict(n=8, k=6, d=2048, f=1408, slots=166,
+                    distinct=PREFILL_DISTINCT_SLOTS),
+}
+
+
 def check_expert(torch, dev, gen):
-    """Main run 1's shapes (DeepSeek-V2-Lite: top-6, D 2048, F 1408, 166
-    slots), then main run 2's (Llama-4-Scout: top-1, D 5120, F 8192, 12
-    slots)."""
-    out = expert_case(torch, dev, gen, 4, 6, 2048, 1408, 166)
-    out["llama4"] = expert_case(torch, dev, gen, 4, 1, 5120, 8192, 12)
+    """``expert_ffn`` at every shape of ``EXPERT_SHAPES``."""
+    out = expert_case(torch, dev, gen, **EXPERT_SHAPES["deepseek"])
+    for name in ("llama4", "prefill"):
+        out[name] = expert_case(torch, dev, gen, **EXPERT_SHAPES[name])
     return out
 
 
-def expert_case(torch, dev, gen, n, k, d, f, slots):
+def expert_inputs(torch, dev, gen, dt, n, k, d, f, slots, distinct=None):
+    """(x, weights, slot_idx, wg, wu, wd) of one call: seeded random slot
+    buffers, x and weights in type ``dt``; the n*k pairs name ``distinct``
+    slots (all different when None), each used in turn, so a row's k slots
+    are distinct as top-k makes them and the first pairs' slots recur."""
+    bufs = [(torch.randn(slots, *shape, generator=gen, device=dev)
+             * 0.02).to(dt) for shape in ((d, f), (d, f), (f, d))]
+    x = torch.randn(n, d, generator=gen, device=dev).to(dt)
+    w = torch.rand(n, k, generator=gen, device=dev).to(dt)
+    distinct = n * k if distinct is None else distinct
+    pool = torch.randperm(slots, generator=gen, device=dev)[:distinct]
+    sl = pool[torch.arange(n * k, device=dev) % distinct].to(
+        torch.int32).reshape(n, k)
+    return x, w, sl, *bufs
+
+
+def expert_case(torch, dev, gen, n, k, d, f, slots, distinct=None):
+    """One shape in f32 and bf16 against the plain version; two calls on
+    the same inputs must be bit-identical; bf16 timed."""
     from repro_torch.kernels import expert_ffn as ef
     out = {}
     for dtype in ("float32", "bfloat16"):
-        dt = getattr(torch, dtype)
-        bufs = [(torch.randn(slots, *shape, generator=gen, device=dev)
-                 * 0.02).to(dt) for shape in ((d, f), (d, f), (f, d))]
-        x = torch.randn(n, d, generator=gen, device=dev).to(dt)
-        w = torch.rand(n, k, generator=gen, device=dev).to(dt)
-        sl = torch.randperm(slots, generator=gen, device=dev)[: n * k] \
-            .to(torch.int32).reshape(n, k)
-        y = ef.expert_ffn(x, w, sl, *bufs)
-        yp = ef.expert_ffn_plain(x, w, sl, *bufs)
+        args = expert_inputs(torch, dev, gen, getattr(torch, dtype), n, k, d,
+                             f, slots, distinct)
+        sl = args[2]
+        y = ef.expert_ffn(*args)
+        y2 = ef.expert_ffn(*args)
+        yp = ef.expert_ffn_plain(*args)
         torch.cuda.synchronize()
+        if not torch.equal(y, y2):
+            fail(f"expert_ffn ({n},{k},{d},{f}) {dtype}: two calls on the "
+                 "same inputs differ")
         err = (y.float() - yp.float()).abs().max().item()
         scale = max(1.0, yp.float().abs().max().item())
         tol = (1e-4 if dtype == "float32" else 2e-2) * scale
         if not err <= tol:
-            fail(f"expert_ffn {dtype}: max abs err {err} > {tol}")
+            fail(f"expert_ffn ({n},{k},{d},{f}) {dtype}: max abs err {err} "
+                 f"> {tol}")
         out[dtype] = err
         if dtype == "bfloat16":
-            out.update(timings(
-                torch, lambda: ef.expert_ffn(x, w, sl, *bufs),
-                lambda: ef.expert_ffn_plain(x, w, sl, *bufs)))
-            distinct = len(set(sl.reshape(-1).tolist()))
-            nbytes = distinct * 3 * d * f * 2 + 2 * n * d * 2 + n * k * 6
+            out.update(timings(torch, lambda: ef.expert_ffn(*args),
+                               lambda: ef.expert_ffn_plain(*args)))
+            n_distinct = len(set(sl.reshape(-1).tolist()))
+            nbytes = n_distinct * 3 * d * f * 2 + 2 * n * d * 2 + n * k * 6
             ops = n * k * 6 * d * f
             out["bound_ms"], out["bound_by"] = bound(nbytes, ops, "bfloat16")
+            out["bit_identical"] = True
             out["shape"] = (f"x ({n},{d}) bf16, k {k}, slot buffers "
                             f"({slots},{d},{f})/({slots},{f},{d}), "
-                            f"{distinct} distinct slots")
-        del bufs
+                            f"{n_distinct} distinct slots")
+        del args
     return out
 
 
@@ -476,8 +531,10 @@ def ssd_case(torch, dev, gen, g, h, l, n, p, timed=False):
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the engine
 
-def record_routes(core, check_finite: bool = False):
-    """Wrap a DecodeCore so each step/chunk logs its routed expert ids."""
+def record_routes(core, check_finite: bool = False, kinds=None):
+    """Wrap a DecodeCore so each step/chunk logs its routed expert ids: a
+    step's per request and MoE layer, a chunk's per MoE layer and token.
+    With ``kinds`` (a list), each entry's kind is appended to it too."""
     import numpy as np
     log_ = []
     step, chunk = core.step, core.prefill_chunk
@@ -487,6 +544,8 @@ def record_routes(core, check_finite: bool = False):
         if check_finite and not np.isfinite(out[0]).all():
             fail("non-finite logits in a decode step")
         log_.append([[sorted(int(e) for e in g) for g in r] for r in out[2]])
+        if kinds is not None:
+            kinds.append("decode")
         return out
 
     def rec_chunk(*a, **kw):
@@ -494,10 +553,25 @@ def record_routes(core, check_finite: bool = False):
         if check_finite and not np.isfinite(out[0]).all():
             fail("non-finite logits in a prefill chunk")
         log_.append([[sorted(int(e) for e in g) for g in r] for r in out[2]])
+        if kinds is not None:
+            kinds.append("prefill_chunk")
         return out
 
     core.step, core.prefill_chunk = rec_step, rec_chunk
     return log_
+
+
+def distinct_slots(routes, kinds) -> dict:
+    """Mean distinct experts (so distinct slots) per ``expert_ffn`` call, by
+    call kind, from ``record_routes``'s log: one call per MoE layer of a
+    decode step (the union over its lanes) or of a prefill chunk (over its
+    tokens). Pad lanes are not logged; they name slot 0."""
+    per = {}
+    for entry, kind in zip(routes, kinds):
+        layers = (zip(*entry) if kind == "decode" else entry)
+        for sets in layers:
+            per.setdefault(kind, []).append(len(set().union(*map(set, sets))))
+    return {kind: sum(v) / len(v) for kind, v in per.items()}
 
 
 def predictor_config(PredictorConfig, cfg):
@@ -582,7 +656,8 @@ def main_run(torch, np, dev, arch):
     prompts = [rng.integers(0, cfg.vocab_size, prompt_len).tolist()
                for _ in range(4)]
     max_new, cache_len = 32, 128
-    record_routes(eng.core, check_finite=True)
+    kinds = []
+    routes = record_routes(eng.core, check_finite=True, kinds=kinds)
     reset_launch_counts()
     t1 = time.perf_counter()
     outs = eng.generate(prompts, max_new, cache_len)
@@ -619,6 +694,7 @@ def main_run(torch, np, dev, arch):
         "fallback_prefill_tokens": st.fallback_prefill_tokens,
         "sim_stall_s": st.sim_stall_s, "launches": launches,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "distinct_slots_per_expert_call": distinct_slots(routes, kinds),
     }
     del eng, params, pp
     return result, launches
@@ -994,8 +1070,9 @@ def main() -> None:
                 "max_abs_err": extra.get("bfloat16", extra["float32"]),
                 "max_abs_err_f32": extra["float32"],
                 **{k: extra[k] for k in TIMING_KEYS}}
-        if "prefill" in c:      # the MLA layout at a prefill chunk
-            entry["mla_prefill_chunk_shape"] = {
+        if "prefill" in c:      # main run 1's prefill-chunk shape
+            entry[("mla_" if name == "paged_flash_decode" else "")
+                  + "prefill_chunk_shape"] = {
                 "max_abs_err": c["prefill"]["bfloat16"],
                 "max_abs_err_f32": c["prefill"]["float32"],
                 **{k: c["prefill"][k] for k in TIMING_KEYS}}

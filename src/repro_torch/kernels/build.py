@@ -29,10 +29,10 @@ SIGNATURES = {
     "paged_flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "expert_ffn_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _P],
+                          _I, _I, _I, _P],
     "topk_gating_launch": [_P, _P, _P, _I, _I, _I, _P],
-    "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                            _I, _P],
+    "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _F, _I, _P],
     "ssd_chunk_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 

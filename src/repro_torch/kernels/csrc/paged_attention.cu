@@ -34,10 +34,11 @@
 //      past pos are masked and pages wholly past pos are never read, so
 //      scratch-padded table tails stay harmless. It writes the partial
 //      (m, l, acc[dv]) in f32 to the wrapper's workspace.
-//   2. `paged_combine_kernel`, one thread per (lane, kv head, head, 4 output
-//      columns): merges the live splits in a fixed order and writes
-//      acc / max(l, 1e-30) in q's dtype. Fixed orders everywhere and no
-//      atomics make two calls on the same inputs bit-identical.
+//   2. `split_combine_kernel` (split_k.cuh, shared with flash_decode.cu),
+//      one thread per (lane, kv head, head, 4 output columns): merges the
+//      live splits in a fixed order and writes acc / max(l, 1e-30) in q's
+//      dtype. Fixed orders everywhere and no atomics make two calls on the
+//      same inputs bit-identical.
 // What held the time, measured on an H100: a CTA's work is a chain of
 // dependent latencies, not bytes. Runtime guards inside the unrolled key
 // and chunk loops put every shared-memory load behind a branch, one after
@@ -50,6 +51,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "split_k.cuh"
 
 namespace {
 
@@ -59,48 +61,6 @@ constexpr int kKeys = 8;         // keys scored together
 constexpr int kMaxSplits = 32;   // bounds the workspace
 constexpr int kStageBytes = 64 * 1024;
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = b.x;
-  v[3] = b.y;
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  uint2 x;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
-  h[0] = __floats2bfloat162_rn(v[0], v[1]);
-  h[1] = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = x;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
 
 // Copy `pieces` 16-byte pieces of one row, the warp's lanes side by side.
 __device__ __forceinline__ void stage_row(void* dst, const void* src,
@@ -261,46 +221,6 @@ __global__ void __launch_bounds__(32 * kMaxHeads) paged_split_kernel(
     if (wl + 32 * i < nv) store4(ap + 4 * cv[i], acc[i]);
 }
 
-// One thread per (output row, 4-column chunk): the partials are read by
-// every SM's worth of threads at once, each load stream in flight.
-template <typename T>
-__global__ void __launch_bounds__(128) paged_combine_kernel(
-    const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
-    T* __restrict__ out, int rows, int S, int DV) {
-  const int nv = DV / 4;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= rows * nv) return;
-  const int row = t / nv, c = t - row * nv;
-  const float2* ml = reinterpret_cast<const float2*>(ws_ml) + (size_t)row * S;
-  // a split is live iff its range starts at or before pos / BS: the live
-  // splits are a prefix, and an empty partial (l = 0) has no acc written
-  float mx = kNeg;
-  int n_live = 0;
-  for (int s = 0; s < S; ++s) {
-    const float2 v = ml[s];
-    if (v.y > 0.f) {
-      mx = fmaxf(mx, v.x);
-      ++n_live;
-    }
-  }
-  float lsum = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
-  const float* ap = ws_acc + (size_t)row * S * DV + 4 * c;
-#pragma unroll 4
-  for (int s = 0; s < n_live; ++s) {     // fixed order
-    const float2 v = ml[s];
-    const float w = expf(v.x - mx);
-    float x[4];
-    load4(ap + (size_t)s * DV, x);
-    lsum += w * v.y;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[e] += w * x[e];
-  }
-  const float den = fmaxf(lsum, 1e-30f);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] /= den;
-  store4(out + (size_t)row * DV + 4 * c, acc);
-}
-
 template <typename T, int NS>
 cudaError_t split_launch(dim3 grid, int threads, size_t smem, cudaStream_t st,
                          const void* q, const void* k_pool, const void* v_pool,
@@ -360,9 +280,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       return (int)cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return (int)e;
-  paged_combine_kernel<T><<<(rows * (DV / 4) + 127) / 128, 128, 0, st>>>(
-      ws_acc, ws_ml, (T*)out, rows, S, DV);
-  return (int)cudaGetLastError();
+  return (int)launch_split_combine<T>(ws_acc, ws_ml, out, rows, S, DV, st);
 }
 
 }  // namespace

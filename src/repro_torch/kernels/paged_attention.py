@@ -21,13 +21,12 @@ CUDA launches and counts as one in ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.runtime import check_status
+from repro_torch.kernels.runtime import check_status, device_sm_count
 
 LAUNCHES = 0
 NEG = -1e30
@@ -60,11 +59,6 @@ def split_plan(n: int, kvh: int, g: int, w: int, sm_count: int) -> SplitPlan:
     want = -(-2 * sm_count // (n * kvh * groups))
     pages = -(-w // max(1, min(want, w, MAX_SPLITS)))
     return SplitPlan(-(-w // pages), pages, heads)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_flash_decode_plain(q, k_pool, v_pool, tables, pos,
@@ -146,7 +140,7 @@ def paged_flash_decode(q, k_pool, v_pool, tables, pos,
     if n == 0:
         return out
     w = tables.shape[1]
-    plan = split_plan(n, kvh, g, w, _sm_count(q.device.index))
+    plan = split_plan(n, kvh, g, w, device_sm_count(q.device.index))
     # per (lane, kv head, head, split): acc[dv], then (m, l)
     ws = torch.empty(n * kvh * g * plan.splits * (dv + 2),
                      dtype=torch.float32, device=q.device)

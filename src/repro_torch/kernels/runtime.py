@@ -5,6 +5,8 @@ present instead of quietly running on the CPU; tests pass ``"cpu"``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -21,3 +23,9 @@ def check_status(status: int, name: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a kernel entry."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
+
+
+@functools.lru_cache(maxsize=None)
+def device_sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (read once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -21,8 +21,8 @@ dispatch, learned replacement, telemetry and the ``"roofline"``/
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,7 +34,7 @@ from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ffn_apply, rms_norm
-from repro_torch.serving.offload import (ROUTED, HostExpertStore,
+from repro_torch.serving.offload import (ROUTED, TIER_HOST, HostExpertStore,
                                          OverlapTracker, make_offload_cache)
 
 
@@ -81,6 +81,15 @@ class EngineStats:
         (or ``paged=False``) stream prompts token by token.
       * ``rejected_requests`` — requests refused at admission because
         their worst case exceeds the whole KV pool.
+      * ``fetches_by_tier`` / ``fetch_bytes_by_tier`` — slot fills and
+        their bytes per source tier: ``{TIER_HOST: ...}`` once anything was
+        fetched (the port has one host tier), as the reference reports it.
+      * ``deep_prefetch_hits`` — accesses served by an entry prefetched
+        more than one MoE layer ahead (the cache's counter).
+      * ``fetches_deduped`` — fills that rode a transfer already in flight
+        (the tracker's counter).
+      * ``evictions_learned`` / ``evictions_lru`` — learned-replacement
+        victim provenance (the cache's counters; 0 under LRU).
       * ``latency`` — the latest run's :class:`LatencyStats`, or None.
     """
     tokens: int = 0
@@ -95,6 +104,12 @@ class EngineStats:
     prefill_chunks: int = 0
     fallback_prefill_tokens: int = 0
     rejected_requests: int = 0
+    fetches_by_tier: Dict[int, int] = field(default_factory=dict)
+    fetch_bytes_by_tier: Dict[int, int] = field(default_factory=dict)
+    deep_prefetch_hits: int = 0
+    fetches_deduped: int = 0
+    evictions_learned: int = 0
+    evictions_lru: int = 0
     latency: Optional[LatencyStats] = None
 
     @property
@@ -274,6 +289,14 @@ class DecodeCore:
         self.stats.sim_stall_s = self.tracker.stall_s
         self.stats.blocking_stall_s = self.slots.sim_fetch_s
         self.stats.overlapped_s = self.tracker.overlapped_s
+        self.stats.deep_prefetch_hits = self.cache.stats.deep_prefetch_hits
+        self.stats.fetches_deduped = self.tracker.fetches_deduped
+        self.stats.evictions_learned = self.cache.stats.evictions_learned
+        self.stats.evictions_lru = self.cache.stats.evictions_lru
+        if self.slots.fetch_count:
+            self.stats.fetches_by_tier = {TIER_HOST: self.slots.fetch_count}
+            self.stats.fetch_bytes_by_tier = {TIER_HOST:
+                                              self.slots.fetch_bytes}
 
     @torch.no_grad()
     def step(self, caches, rows: Sequence[int], pos: Sequence[int],

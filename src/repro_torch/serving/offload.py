@@ -27,6 +27,8 @@ from repro_torch.core.cache import ExpertCache
 
 Key = Tuple[int, int]  # (moe_layer_index, expert_id)
 
+TIER_HOST = 1          # the reference's tier number of local host memory
+
 ROUTED = ("w_gate", "w_up", "w_down")
 
 
@@ -151,6 +153,7 @@ class SlotBuffer:
         self.slot_of: Dict[Key, int] = {}
         self._free = list(range(n_slots))
         self.fetch_bytes = 0         # not counting fills that rode a transfer
+        self.fetch_count = 0         # fills that put bytes on the wire
         self.sim_fetch_s = 0.0       # blocking model: every fetch stalls
 
     # --- control-plane callbacks wired into ExpertCache -------------------
@@ -173,6 +176,7 @@ class SlotBuffer:
                      and self.tracker.submit(key, nbytes))
         if not coalesced:
             self.fetch_bytes += nbytes
+            self.fetch_count += 1
         self.sim_fetch_s += nbytes / self.host_bw
 
 

@@ -35,7 +35,9 @@ CACHE_LEN = 24
 LAYER_S = 1e-6        # modeled compute per layer half: partial overlap
 COUNTERS = ("tokens", "hits", "misses", "fetch_bytes", "steps",
             "prefill_tokens", "prefill_chunks", "fallback_prefill_tokens",
-            "rejected_requests")
+            "rejected_requests", "fetches_by_tier", "fetch_bytes_by_tier",
+            "deep_prefetch_hits", "fetches_deduped", "evictions_learned",
+            "evictions_lru")
 TIMES = ("sim_stall_s", "blocking_stall_s", "overlapped_s")
 
 
@@ -158,6 +160,8 @@ def test_batched_engine_matches_reference(policy, max_batch, block_size, cap,
         assert abs(getattr(eng.stats, name) - getattr(ref.stats, name)) \
             <= 1e-12, name
     assert eng.stats.misses > 0
+    assert eng.stats.fetches_by_tier == {1: eng.core.slots.fetch_count}
+    assert eng.core.cache.stats.as_dict() == ref.core.cache.stats.as_dict()
     if cap == "tight":
         assert eng.core.cache.stats.evictions > 0
     eng.pool.check_leaks(expected_in_use=0)

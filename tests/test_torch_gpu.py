@@ -179,6 +179,77 @@ def test_paged_flash_decode_is_deterministic_on_card(cuda, layout):
     assert torch.equal(first, again)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("s_len", [70, 128, 8192])
+def test_flash_decode_splits_match_plain_on_card(cuda, s_len, dtype, tol):
+    """The split-K ``flash_decode`` at full width (40 query heads over 8 kv
+    heads, hd 128) against its plain version, lanes at valid_len 1, 7, 8,
+    9, 96 and S (capped at S): one key, key groups cut short and exact,
+    a whole row. Two calls are bit-identical, and one call is one count in
+    ``LAUNCHES`` (f32: summation order only; bf16: output rounding)."""
+    gen = torch.Generator(cuda).manual_seed(4)
+    vls = [min(v, s_len) for v in (1, 7, 8, 9, 96, s_len)]
+    n, h, kvh, hd, r = len(vls), 40, 8, 128, 7
+    q = torch.randn(n, h, hd, generator=gen, device=cuda).to(dtype)
+    kc = torch.randn(r, s_len, kvh, hd, generator=gen, device=cuda).to(dtype)
+    vc = torch.randn(r, s_len, kvh, hd, generator=gen, device=cuda).to(dtype)
+    rows = torch.randperm(r, generator=gen, device=cuda)[:n].to(torch.int32)
+    vl = torch.tensor(vls, dtype=torch.int32, device=cuda)
+    before = flash_attention.LAUNCHES
+    o = flash_attention.flash_decode(q, kc, vc, rows, vl)
+    again = flash_attention.flash_decode(q, kc, vc, rows, vl)
+    op = flash_attention.flash_decode_plain(q, kc, vc, rows, vl)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + 2
+    assert o.shape == (n, h, hd) and o.dtype == dtype
+    assert torch.equal(o, again)
+    assert (o.float() - op.float()).abs().max().item() <= tol
+
+
+# (lanes, k, D, F, slots, slot_idx): slots shared across rows, a slot
+# named by more pairs than one CTA computes together, pad units (every k at
+# slot 0), at the reduced and the full widths
+EXPERT_CASES = {
+    "k1-reduced": (6, 1, 256, 256, 4, [[2], [0], [2], [2], [2], [2]]),
+    "k6-reduced-pads": (8, 6, 128, 128, 16,
+                        [[1, 2, 3, 4, 5, 6], [2, 3, 4, 5, 6, 7],
+                         [9, 8, 7, 6, 5, 4], [1, 3, 5, 7, 9, 11],
+                         [15, 14, 13, 12, 11, 10], [0, 1, 2, 3, 4, 5],
+                         [0] * 6, [0] * 6]),
+    "k6-full": (8, 6, 2048, 1408, 40,
+                [[(6 * r + j) % 30 + 1 for j in range(6)] for r in range(8)]),
+    "k1-full": (4, 1, 5120, 8192, 4, [[1], [3], [1], [0]]),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(EXPERT_CASES))
+def test_expert_ffn_shared_slots_match_plain_on_card(cuda, case, dtype, tol):
+    """``expert_ffn``, which reads each slot once for every pair naming it,
+    against its plain version (tolerance times the output's scale, as
+    ``chip_smoke.py`` sets it); two calls are bit-identical and one call is
+    one count in ``LAUNCHES``."""
+    n, k, d, f, s, slots = EXPERT_CASES[case]
+    gen = torch.Generator(cuda).manual_seed(5)
+    bufs = [(torch.randn(s, *shape, generator=gen, device=cuda) * 0.02
+             ).to(dtype) for shape in ((d, f), (d, f), (f, d))]
+    x = torch.randn(n, d, generator=gen, device=cuda).to(dtype)
+    w = torch.rand(n, k, generator=gen, device=cuda).to(dtype)
+    sl = torch.tensor(slots, dtype=torch.int32, device=cuda)
+    before = expert_ffn.LAUNCHES
+    y = expert_ffn.expert_ffn(x, w, sl, *bufs)
+    again = expert_ffn.expert_ffn(x, w, sl, *bufs)
+    yp = expert_ffn.expert_ffn_plain(x, w, sl, *bufs)
+    torch.cuda.synchronize()
+    assert expert_ffn.LAUNCHES == before + 2
+    assert y.shape == (n, d) and y.dtype == dtype
+    assert torch.equal(y, again)
+    scale = max(1.0, yp.float().abs().max().item())
+    assert (y.float() - yp.float()).abs().max().item() <= tol * scale
+
+
 @pytest.mark.parametrize("arch,paged", [("deepseek-v2-lite", True),
                                         ("llama4-scout-17b-a16e", True),
                                         ("llama4-scout-17b-a16e", False)])

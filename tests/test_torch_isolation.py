@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or the reference package, and the entry
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py`` and not the port's tools import JAX or the reference
+package, and the entry
 points default to the card and refuse to run without one."""
 import ast
 import inspect
@@ -27,7 +28,9 @@ ENTRY_POINTS = [Model.init, Model.init_decode_state,
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tools", n)
+        for n in ("kernel_phase2.py", "profile_mamba_torch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files

@@ -46,7 +46,9 @@ CACHE_LEN = 72
 LAYER_S = 1e-6        # modeled compute per layer half: partial overlap
 COUNTERS = ("tokens", "hits", "misses", "fetch_bytes", "steps",
             "prefill_tokens", "prefill_chunks", "fallback_prefill_tokens",
-            "rejected_requests")
+            "rejected_requests", "fetches_by_tier", "fetch_bytes_by_tier",
+            "deep_prefetch_hits", "fetches_deduped", "evictions_learned",
+            "evictions_lru")
 TIMES = ("sim_stall_s", "blocking_stall_s", "overlapped_s")
 
 
@@ -141,6 +143,7 @@ def _record(core):
 def _same_stats(eng, ref):
     for name in COUNTERS:
         assert getattr(eng.stats, name) == getattr(ref.stats, name), name
+    assert eng.core.cache.stats.as_dict() == ref.core.cache.stats.as_dict()
     for name in TIMES:
         assert abs(getattr(eng.stats, name) - getattr(ref.stats, name)) \
             <= 1e-12, name

@@ -14,13 +14,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    full-width shapes (``paged_flash_decode`` in its MLA layout at decode
    and at a prefill chunk, and in its GQA layout; ``flash_decode`` on the
    8192-slot ring and a 128-slot row; ``expert_ffn`` at main run 1's
-   decode and prefill-chunk shapes and main run 2's; for these three, two
-   calls on the same inputs must be bit-identical; ``ssd_chunk`` also at
-   the reduced mamba2 shape), in bfloat16
-   and float32, and time kernel, plain version and a PyTorch library
-   yardstick with CUDA events: ``ms`` is device time (calls replayed from
-   a CUDA graph), ``eager_ms`` the time per eager call, Python and launch
-   overhead included;
+   decode and prefill-chunk shapes and main run 2's; ``ssd_chunk`` at
+   both of main run 3's shapes, G 128 and G 256, and the reduced mamba2
+   shape; for these four, two calls on the same inputs must be
+   bit-identical), in bfloat16 and float32, and time kernel, plain version
+   and a PyTorch library yardstick with CUDA events: ``ms`` is device time
+   (calls replayed from a CUDA graph), ``eager_ms`` the time per eager
+   call, Python and launch overhead included; ``launch_floor_ms`` is one
+   trivial launch timed the same way;
 3. main run: full-width DeepSeek-V2-Lite in bfloat16 (seeded random
    weights, routed experts in pinned host memory, 28.8 GB) served by
    ``BatchedOffloadEngine`` with the paper's learned prefetch policy at a
@@ -56,7 +57,8 @@ experts for parity run 2. The last stdout line is ``{"ok": true,
 before that the ``{"kernels": [...]}`` line, whose ``launches`` are the
 counts of the main run that drives each kernel (Llama-4-Scout's for the
 four attention and MoE kernels, mamba2's for ``ssd_chunk``;
-``launches_by_run`` has every main run's). Details go to
+``launches_by_run`` has every main run's), and before that
+``{"launch_floor_ms": ...}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 This script imports nothing of JAX or of the reference package.
 """
@@ -459,42 +461,63 @@ def topk_case(torch, dev, gen, t, e, k, tie):
                       lambda: tg.topk_gating_plain(logits, k), library)}
 
 
-def check_ssd(torch, dev, gen):
-    """``ssd_chunk`` at every shape main run 3 gives it: mamba2-130m's H 24,
-    L 128, N 128, P 64, and G = requests x chunks per prompt for each part
-    of ``MAMBA_PARTS`` (4 x 32 and 1 x 256, which the wrapper splits over
-    CTAs in different head groups), the first part's timed in float32 as
-    the model path calls it; then the reduced config's shape (L 32, N 32,
-    8 heads)."""
+def ssd_shapes() -> dict:
+    """(G, H, L, N, P) of every ``ssd_chunk`` call main run 3 makes, by
+    part of ``MAMBA_PARTS`` (G = requests x chunks per prompt: 4 x 32 and
+    1 x 256), then the reduced config's (L 32, N 32, 8 heads)."""
     from repro_torch.configs import get_config
     from repro_torch.models.ssd import ssd_dims
     cfg = get_config(MAMBA2)
     heads = ssd_dims(cfg)[1]
     l, n, p = cfg.ssm.chunk, cfg.ssm.d_state, cfg.ssm.headdim
+    shapes = {name: (batch * -(-prompt_len // l), heads, l, n, p)
+              for name, batch, prompt_len, _ in MAMBA_PARTS}
+    shapes["reduced"] = (2 * 8, 8, 32, 32, 64)
+    return shapes
+
+
+def check_ssd(torch, dev, gen):
+    """``ssd_chunk`` at every shape of ``ssd_shapes``, the first part's
+    case at the top level; main run 3's shapes timed in float32, as the
+    model path calls them."""
     out = {}
-    for i, (name, batch, prompt_len, _) in enumerate(MAMBA_PARTS):
-        case = ssd_case(torch, dev, gen, batch * -(-prompt_len // l), heads,
-                        l, n, p, timed=i == 0)
+    for i, (name, shape) in enumerate(ssd_shapes().items()):
+        case = ssd_case(torch, dev, gen, *shape, timed=name != "reduced")
         if i == 0:
             out.update(case)
         else:
             out[name] = case
-    out["reduced"] = ssd_case(torch, dev, gen, 2 * 8, 8, 32, 32, 64)
     return out
 
 
+def ssd_inputs(torch, dev, gen, dt, g, h, l, n, p):
+    """(c, b, xdt, a_cum) of one call: seeded random, a_cum a decreasing
+    float32 cumulative sum."""
+    c = (torch.randn(g, l, n, generator=gen, device=dev) * 0.3).to(dt)
+    b = (torch.randn(g, l, n, generator=gen, device=dev) * 0.3).to(dt)
+    x = (torch.randn(g, h, l, p, generator=gen, device=dev) * 0.5).to(dt)
+    a = -(torch.rand(g, h, l, generator=gen, device=dev) * 0.2).cumsum(-1)
+    return c, b, x, a
+
+
 def ssd_case(torch, dev, gen, g, h, l, n, p, timed=False):
+    """One shape in f32 and bf16 against the plain version; two calls on
+    the same inputs must be bit-identical; f32 timed when ``timed``."""
     from repro_torch.kernels import ssd_chunk as sc
-    out = {"G": g, "heads_per_cta": sc._heads_per_cta(g, h, dev)}
+    from repro_torch.kernels.runtime import device_sm_count
+    plan = getattr(sc, "cta_heads", None)   # absent in older checkouts
+    out = {"G": g, "heads_per_cta": plan(g, h, device_sm_count(dev.index))
+           if plan else None}
     for dtype in ("float32", "bfloat16"):
-        dt = getattr(torch, dtype)
-        c = (torch.randn(g, l, n, generator=gen, device=dev) * 0.3).to(dt)
-        b = (torch.randn(g, l, n, generator=gen, device=dev) * 0.3).to(dt)
-        x = (torch.randn(g, h, l, p, generator=gen, device=dev) * 0.5).to(dt)
-        a = -(torch.rand(g, h, l, generator=gen, device=dev) * 0.2).cumsum(-1)
+        c, b, x, a = ssd_inputs(torch, dev, gen, getattr(torch, dtype), g, h,
+                                l, n, p)
         y = sc.ssd_chunk(c, b, x, a)
+        y2 = sc.ssd_chunk(c, b, x, a)
         yp = sc.ssd_chunk_plain(c, b, x, a)
         torch.cuda.synchronize()
+        if not torch.equal(y, y2):
+            fail(f"ssd_chunk ({g},{h},{l},{n},{p}) {dtype}: two calls on the "
+                 "same inputs differ")
         err = (y.float() - yp.float()).abs().max().item()
         scale = max(1.0, yp.float().abs().max().item())
         tol = (1e-4 if dtype == "float32" else 1e-2) * scale
@@ -503,6 +526,7 @@ def ssd_case(torch, dev, gen, g, h, l, n, p, timed=False):
                  f"> {tol}")
         out[dtype] = err
         out[f"{dtype}_out_abs_max"] = scale
+        out["bit_identical"] = True
         if dtype != "float32" or not timed:
             continue
         mask = torch.ones(l, l, dtype=torch.bool, device=dev).tril()
@@ -526,6 +550,14 @@ def ssd_case(torch, dev, gen, g, h, l, n, p, timed=False):
         out["shape"] = (f"c, b ({g},{l},{n}), xdt ({g},{h},{l},{p}), a_cum "
                         f"({g},{h},{l}) f32")
     return out
+
+
+def launch_floor_ms(torch, dev) -> float:
+    """Device time of one trivial launch (an in-place add on a one-element
+    tensor), replayed from a CUDA graph as ``device_ms`` times kernels: the
+    least a kernel of the port can take."""
+    x = torch.zeros(1, device=dev)
+    return device_ms(torch, lambda: x.add_(1.0))
 
 
 # ---------------------------------------------------------------------------
@@ -1028,6 +1060,7 @@ def main() -> None:
               "topk_gating": check_topk(torch, dev, gen),
               "flash_decode": check_flash(torch, F, dev, gen),
               "ssd_chunk": check_ssd(torch, dev, gen)}
+    floor_ms = launch_floor_ms(torch, dev)
     phase_s["kernel_checks"] = time.perf_counter() - t
     release_host_memory(torch)
     log(f"kernel checks passed in {phase_s['kernel_checks']:.1f} s")
@@ -1081,6 +1114,7 @@ def main() -> None:
                 entry[f"{shape}_shape_max_abs_err"] = c[shape]
         kernels.append(entry)
     report = {"gpu": ident, "build_s": build_s, "phase_s": phase_s,
+              "launch_floor_ms": floor_ms,
               "kernels": kernels, "checks": checks, **runs,
               "ptxas": [ln for ln in build.BUILD_LOG.splitlines()
                         if "ptxas info" in ln]}
@@ -1093,6 +1127,7 @@ def main() -> None:
     print(json.dumps({"parity_run_3": {k: runs["parity_run_3"][k] for k in (
         "max_abs_logit_err", "tolerance", "identical_streams")}}),
         flush=True)
+    print(json.dumps({"launch_floor_ms": floor_ms}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ident, flush=True)
     print(json.dumps({"ok": True, "device": {

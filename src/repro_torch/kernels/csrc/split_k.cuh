@@ -1,6 +1,5 @@
-// Shared pieces of the split-K decode-attention kernels (paged_attention.cu,
-// flash_decode.cu): 4-element loads and stores, 16-byte cp.async staging,
-// and the fixed-order merge of the splits' partials.
+// Shared piece of the split-K decode-attention kernels (paged_attention.cu,
+// flash_decode.cu): the fixed-order merge of the splits' partials.
 //
 // A split kernel writes, per output row (lane, kv head, query head) and
 // split, the partial (m, l) to `ws_ml` and acc[DV] to `ws_acc` (f32); a
@@ -15,48 +14,6 @@
 namespace {
 
 constexpr float kSplitNeg = -1e30f;
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = b.x;
-  v[3] = b.y;
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  uint2 x;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
-  h[0] = __floats2bfloat162_rn(v[0], v[1]);
-  h[1] = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = x;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
 
 // One thread per (output row, 4-column chunk): merges the live splits of
 // its row in a fixed order (no atomics, so two calls on the same inputs

@@ -19,11 +19,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.runtime import check_status
+from repro_torch.kernels.runtime import check_status, device_sm_count
 
 LAUNCHES = 0
-MAX_L = 128              # rows per tile: 16 row groups of at most 8 rows
-MAX_P = 64               # head width: 16 column groups of at most 4
+MAX_L = 128              # rows per tile: 16 warps of one row octet
+MAX_P = 64               # head width: 8 lanes of 2 x 4 columns
+THREADS = 512            # one CTA per SM
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -40,13 +41,94 @@ def ssd_chunk_plain(c, b, xdt, a_cum):
     return torch.einsum("ghls,ghsp->ghlp", m, xf).to(xdt.dtype)
 
 
-def _heads_per_cta(g: int, h: int, device) -> int:
-    """Heads one CTA walks: as many as lets the grid fill the card's
-    resident slots (two CTAs per SM), so C B^T is formed as few times as
-    the card's width allows."""
-    slots = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-    groups = max(1, min(h, slots // max(g, 1)))
+def cta_heads(g: int, h: int, sm_count: int) -> int:
+    """Heads one CTA walks. The kernel holds one CTA per SM (512 threads,
+    172 KB of shared memory at L 128, P 64, f32), so when the G chunks
+    fill the SMs a CTA takes all H heads of its chunk and forms C B^T
+    once; otherwise the heads are cut into as many groups as fill the
+    SMs."""
+    groups = max(1, min(h, sm_count // max(g, 1)))
     return -(-h // groups)
+
+
+# The CUDA kernel's layout and thread-to-work maps (``csrc/ssd_chunk.cu``),
+# the same formulas, so that the CPU tests can check that they cover the
+# work once.
+
+def row_base(s: int, l: int) -> int:
+    """Offset (floats) of row s of the packed lower triangle of S^T and
+    M^T, such that the quad of rows 4 rq..4 rq+3 sits at row_base + 4 rq:
+    rows s and L-1-s share a stretch of L/4 + 2 quads, the quads of the
+    row octets that touch s <= r."""
+    nq, p = l // 4, min(s, l - 1 - s)
+    j0 = 0 if s < l // 2 else nq - 2 * (p // 8)
+    return 4 * (p * (nq + 2) + j0 - 2 * (s // 8))
+
+
+def score_tile(tid: int, l: int):
+    """(row quad, column octet) of the 4 x 8 tile of S = C B^T that thread
+    ``tid`` computes, or None: the tiles that a row octet touching the
+    lower triangle needs (rq >= 2 so), numbered by column octet, then row
+    quad."""
+    nq, rem = l // 4, tid
+    for so in range(l // 8):
+        if rem < nq - 2 * so:
+            return 2 * so + rem, so
+        rem -= nq - 2 * so
+    return None
+
+
+def decay_items(tid: int, l: int):
+    """The (s, row quad) entries of M^T that thread ``tid`` writes: the
+    quads of every row octet that touches s <= r, 8 threads to each pair
+    of rows (s, L-1-s), which holds L/4 + 2 quads."""
+    nq = l // 4
+    sp, sub = divmod(tid, 8)
+    if sp >= l // 2:
+        return []
+    nlo = nq - 2 * (sp // 8)
+    out = []
+    for j in range(sub, nq + 2, 8):
+        s = sp if j < nlo else l - 1 - sp
+        out.append((s, 2 * (sp // 8) + j if j < nlo
+                    else 2 * (s // 8) + j - nlo))
+    return out
+
+
+def warp_octet(w: int, no: int) -> int:
+    """Row octet that warp w multiplies. At L 128 (16 octets) the four
+    warps of each SM sub-partition (w, w+4, w+8, w+12) take octets j,
+    15-j, 4+j and 11-j, whose lower-triangle rows add up to the same
+    length for every j."""
+    if no != 16:
+        return w
+    j, q = w & 3, w >> 2
+    return (j, 15 - j, 4 + j, 11 - j)[q]
+
+
+def product_tile(tid: int, l: int, p: int):
+    """What thread ``tid`` does in the product y = M xdt, or None: its row
+    octet's rows, the s values it sums over (every 4th of [0, 8o+8) from
+    its s-group), the two rows it stores after the sum over the warp's
+    s-groups, and its output columns (c..c+3 and c+32..c+35 below P)."""
+    warp, lane = divmod(tid, 32)
+    o = warp_octet(warp, l // 8)
+    if o >= l // 8:
+        return None
+    c0, sg = 4 * (lane & 7), lane >> 3
+    b1, b0 = sg >> 1, sg & 1
+    ra = 8 * o + 4 * b1 + 2 * b0
+    cols = tuple(c for c in (*range(c0, c0 + 4), *range(c0 + 32, c0 + 36))
+                 if c < p)
+    return (tuple(range(8 * o, 8 * o + 8)),
+            tuple(range(sg, 8 * o + 8, 4)), (ra, ra + 1), cols)
+
+
+def smem_bytes(l: int, p: int, itemsize: int) -> int:
+    """Shared memory of one CTA: S^T and two heads' M^T as packed
+    triangles, two xdt tiles, three a_cum rows, the row offsets."""
+    tri = (l // 2) * (l // 4 + 2) * 4 * 4
+    return 3 * tri + 2 * l * p * itemsize + 3 * l * 4 + l * 4
 
 
 def ssd_chunk(c, b, xdt, a_cum):
@@ -85,9 +167,13 @@ def ssd_chunk(c, b, xdt, a_cum):
     out = torch.empty_like(xdt)
     if g == 0 or h == 0:
         return out
+    # the kernel reads its inputs 8 and 16 bytes at a time
+    c, b, xdt, a_cum = (t if t.data_ptr() % 16 == 0 else t.clone()
+                        for t in tensors)
     status = build.library().ssd_chunk_launch(
         c.data_ptr(), b.data_ptr(), xdt.data_ptr(), a_cum.data_ptr(),
-        out.data_ptr(), g, h, l, n, p, _heads_per_cta(g, h, c.device),
+        out.data_ptr(), g, h, l, n, p,
+        cta_heads(g, h, device_sm_count(c.device.index)),
         _DTYPES[c.dtype], ctypes.c_void_p(build.stream_ptr(c.device)))
     check_status(status, "ssd_chunk")
     LAUNCHES += 1

@@ -312,13 +312,13 @@ def test_ssd_chunk_matches_plain_on_card(cuda, dtype, tol, g, h, l, n, p,
 @pytest.mark.parametrize("groups", [1, 2, 5])
 def test_ssd_chunk_head_groups_on_card(cuda, groups):
     """``ssd_chunk`` at mamba2-130m's shapes (H 24, L 128, N 128, P 64,
-    f32) with as many chunks as make the wrapper put 24, 12 or 5 heads in
+    f32) with as many chunks as make the plan put 24, 12 or 5 heads in
     one CTA (the last of the 5-head groups short), as main run 3's
-    prefills do at G 256 and 128: every head group against the plain
-    version."""
-    slots = 2 * torch.cuda.get_device_properties(cuda).multi_processor_count
-    g, h = slots // groups, 24
-    assert ssd_chunk._heads_per_cta(g, h, cuda) == -(-h // groups)
+    prefills do at G 128 and 256 (24 heads): every head group against the
+    plain version."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g, h = sms // groups, 24
+    assert ssd_chunk.cta_heads(g, h, sms) == -(-h // groups)
     gen = torch.Generator(cuda).manual_seed(groups)
     c = torch.randn(g, 128, 128, generator=gen, device=cuda) * .3
     b = torch.randn(g, 128, 128, generator=gen, device=cuda) * .3
@@ -328,6 +328,68 @@ def test_ssd_chunk_head_groups_on_card(cuda, groups):
     yp = ssd_chunk.ssd_chunk_plain(c, b, x, a)
     scale = max(1.0, yp.abs().max().item())
     assert (y - yp).abs().max().item() <= 1e-4 * scale
+
+
+def _ssd_inputs(cuda, dtype, g, h, l, n, p, slope=0.2, seed=0):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    c = (torch.randn(g, l, n, generator=gen, device=cuda) * .3).to(dtype)
+    b = (torch.randn(g, l, n, generator=gen, device=cuda) * .3).to(dtype)
+    x = (torch.randn(g, h, l, p, generator=gen, device=cuda) * .5).to(dtype)
+    a = -(torch.rand(g, h, l, generator=gen, device=cuda) * slope).cumsum(-1)
+    return c, b, x, a
+
+
+def _ssd_err(y, yp):
+    scale = max(1.0, yp.float().abs().max().item())
+    return (y.float() - yp.float()).abs().max().item() / scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_is_deterministic_on_card(cuda, dtype):
+    """Two calls on the same inputs are bit-identical (every sum in a
+    fixed order, no atomics), at mamba2-130m's widths."""
+    args = _ssd_inputs(cuda, dtype, 8, 24, 128, 128, 64)
+    y = ssd_chunk.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ssd_chunk.ssd_chunk(*args))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("l", [16, 32, 64, 128])
+@pytest.mark.parametrize("p", [32, 64])
+def test_ssd_chunk_chunk_lengths_on_card(cuda, l, p, dtype, tol):
+    """Every chunk length the kernel takes on the way to 128 (row octets
+    1 to 16, the balanced octet order only at 16) and both head widths of
+    the tests, against the plain version."""
+    args = _ssd_inputs(cuda, dtype, 6, 5, l, 32, p, seed=l + p)
+    y = ssd_chunk.ssd_chunk(*args)
+    assert y.dtype == dtype
+    assert _ssd_err(y, ssd_chunk.ssd_chunk_plain(*args)) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_ssd_chunk_long_prompt_on_card(cuda, dtype, tol):
+    """Main run 3's second shape: G 256 (a 32,768-token prompt) at
+    mamba2-130m's widths, two CTA waves on an H100."""
+    args = _ssd_inputs(cuda, dtype, 256, 24, 128, 128, 64, seed=3)
+    assert _ssd_err(ssd_chunk.ssd_chunk(*args),
+                    ssd_chunk.ssd_chunk_plain(*args)) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_ssd_chunk_steep_decay_stays_finite_on_card(cuda, dtype, tol):
+    """A decay steep enough that exp(a[l] - a[s]) overflows to inf above
+    the diagonal (an exp taken before the mask would give inf * 0 = NaN),
+    at mamba2-130m's widths."""
+    args = _ssd_inputs(cuda, dtype, 4, 24, 128, 128, 64, slope=10.0, seed=5)
+    a = args[3]
+    assert torch.isinf(torch.exp(a[..., :1] - a[..., -1:])).all()
+    y = ssd_chunk.ssd_chunk(*args)
+    assert torch.isfinite(y.float()).all()
+    assert _ssd_err(y, ssd_chunk.ssd_chunk_plain(*args)) <= tol
 
 
 def test_mamba2_facade_on_card_matches_cpu(cuda):

@@ -28,6 +28,7 @@ from repro.models import ssd as jssd
 from repro.serving.engine import unstack_layers
 from repro_torch import convert
 from repro_torch.configs import get_reduced as torch_get_reduced
+from repro_torch.kernels import ssd_chunk as sc
 from repro_torch.kernels.ssd_chunk import ssd_chunk_plain
 from repro_torch.models import ssd as tssd
 from repro_torch.models import transformer as tT
@@ -85,6 +86,167 @@ def test_ssd_chunk_masks_before_exp():
     with np.errstate(over="ignore"):
         assert np.isinf(np.exp(a[..., :1] - a[..., -1:])).all()
     _check_chunk(c, b, x, a, jnp.float32, torch.float32, 5e-4)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's plan, layout and thread maps (csrc/ssd_chunk.cu), which
+# the card alone runs: the same formulas in Python, held here
+
+# (G, H) that main run 3 (G 128 and 256 at H 24), the reduced config and
+# the card tests give the kernel, and the SM counts of an H100 SXM (132)
+# and PCIe (114), and of one SM
+PLAN_GH = [(128, 24), (256, 24), (16, 8), (4, 3), (2, 8), (6, 1), (1, 24),
+           (2, 4), (132, 24), (66, 24), (26, 24), (8, 24), (6, 5)]
+CHUNK_LENGTHS = list(range(16, 129, 16))
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("g,h", PLAN_GH)
+def test_ssd_cta_plan_covers_each_chunk_head_once(g, h, sms):
+    """The grid (G, ceil(H / heads)) walks every (chunk, head) exactly
+    once, no CTA is empty, and a CTA takes all H heads (C B^T once per
+    chunk) whenever the chunks alone fill the SMs."""
+    hg = sc.cta_heads(g, h, sms)
+    assert 1 <= hg <= h
+    seen = []
+    for gi in range(g):
+        for y in range(-(-h // hg)):
+            heads = range(y * hg, min(h, y * hg + hg))
+            assert len(heads) > 0
+            seen += [(gi, hh) for hh in heads]
+    assert sorted(seen) == [(gi, hh) for gi in range(g) for hh in range(h)]
+    if g >= sms:
+        assert hg == h
+
+
+def _triangle_quads(l):
+    """(s, row quad) entries of M^T the product reads: the quads of every
+    row octet that touches s <= r."""
+    return {(s, rq) for s in range(l) for rq in range(l // 4)
+            if rq >= 2 * (s // 8)}
+
+
+@pytest.mark.parametrize("l", CHUNK_LENGTHS)
+def test_ssd_packed_triangle_and_its_writers(l):
+    """S^T's 4 x 8 tiles cover every quad the decay reads, each tile once;
+    the decay's items are those quads, each written once by one thread;
+    and the packed layout puts them at distinct, 16-byte aligned offsets
+    that fill the triangle without a gap."""
+    need = _triangle_quads(l)
+    tiles = [t for t in (sc.score_tile(i, l) for i in range(sc.THREADS)) if t]
+    assert len(set(tiles)) == len(tiles)
+    assert {(rq, s // 8) for s, rq in need} <= set(tiles)
+    items = [it for i in range(sc.THREADS) for it in sc.decay_items(i, l)]
+    assert len(items) == len(set(items)) and set(items) == need
+    offsets = sorted(sc.row_base(s, l) + 4 * rq for s, rq in need)
+    assert offsets == list(range(0, (l // 2) * (l // 4 + 2) * 4, 4))
+
+
+@pytest.mark.parametrize("l", CHUNK_LENGTHS)
+@pytest.mark.parametrize("p", [1, 3, 8, 32, 33, 64])
+def test_ssd_product_tiles_cover_each_output_once(l, p):
+    """Each warp's row octet is a different one and together they cover
+    every row once; the 4 s-groups of a warp take every s of its causal
+    range [0, 8 o + 8) once; it reads only quads the decay wrote; and
+    every output element is stored by exactly one lane."""
+    stored, octets = {}, {}
+    for tid in range(sc.THREADS):
+        tile = sc.product_tile(tid, l, p)
+        if tile is None:
+            continue
+        rows, ss, out_rows, cols = tile
+        octets.setdefault(tid // 32, set()).add(rows)
+        assert set(out_rows) <= set(rows)
+        assert {(s, r // 4) for s in ss for r in rows} <= _triangle_quads(l)
+        for r in out_rows:
+            for col in cols:
+                stored[r, col] = stored.get((r, col), 0) + 1
+    assert all(len(o) == 1 for o in octets.values())
+    rows = [r for o in octets.values() for r in next(iter(o))]
+    assert sorted(rows) == list(range(l))
+    for w in octets:
+        o = sc.warp_octet(w, l // 8)
+        groups = [sc.product_tile(32 * w + 8 * sg, l, p)[1] for sg in range(4)]
+        assert sorted(s for g in groups for s in g) == list(range(8 * o + 8))
+    assert stored == {(r, col): 1 for r in range(l) for col in range(p)}
+
+
+def test_ssd_warp_octets_balance_the_sub_partitions():
+    """At L 128 the four warps of each SM sub-partition (w, w+4, w+8,
+    w+12) multiply rows whose causal lengths add up to the same total."""
+    totals = {sum(8 * sc.warp_octet(w, 16) + 8 for w in range(j, 16, 4))
+              for j in range(4)}
+    assert totals == {8 * (16 + 1) * 2}
+    assert sorted(sc.warp_octet(w, 16) for w in range(16)) == list(range(16))
+
+
+@pytest.mark.parametrize("l", CHUNK_LENGTHS)
+def test_ssd_kernel_shared_memory_fits_one_cta(l):
+    """One CTA's shared memory stays under the 227 KB an H100 block may
+    use, for every L and P the wrapper accepts, in both types."""
+    assert max(sc.smem_bytes(l, p, size) for p in range(1, sc.MAX_P + 1)
+               for size in (2, 4)) <= 232448
+
+
+def _emulate_kernel(c, b, x, a):
+    """The kernel's data flow, float32, through the Python maps: S^T tile
+    by tile into the packed triangle (unwritten entries NaN), M^T item by
+    item, the product thread by thread over each thread's s values, the
+    sums over s-groups added per output element."""
+    g_n, l, _ = c.shape
+    h_n, p = x.shape[1], x.shape[3]
+    tri = (l // 2) * (l // 4 + 2) * 4
+    rb = torch.tensor([sc.row_base(s, l) for s in range(l)])
+    out = torch.full(x.shape, float("nan"))
+    for g in range(g_n):
+        st = torch.full((tri,), float("nan"))
+        for tid in range(sc.THREADS):
+            tile = sc.score_tile(tid, l)
+            if tile is not None:
+                rq, so = tile
+                blk = c[g, 4 * rq:4 * rq + 4] @ b[g, 8 * so:8 * so + 8].T
+                for j in range(8):
+                    off = int(rb[8 * so + j]) + 4 * rq
+                    st[off:off + 4] = blk[:, j]
+        for h in range(h_n):
+            ah, mt = a[g, h], torch.full((tri,), float("nan"))
+            for tid in range(sc.THREADS):
+                for s, rq in sc.decay_items(tid, l):
+                    r = torch.arange(4 * rq, 4 * rq + 4)
+                    d = torch.where(r >= s, ah[r] - ah[s],
+                                    torch.tensor(float("-inf")))
+                    off = int(rb[s]) + 4 * rq
+                    mt[off:off + 4] = st[off:off + 4] * torch.exp(d)
+            acc = torch.zeros(l, p)
+            for tid in range(sc.THREADS):
+                tile = sc.product_tile(tid, l, p)
+                if tile is None or not tile[3]:
+                    continue
+                rows, ss, _, cols = tile
+                s_idx, r_idx = torch.tensor(ss), torch.tensor(rows)
+                m = mt[rb[s_idx][:, None] + r_idx[None, :]]   # (s, rows)
+                part = m.T @ x[g, h][s_idx][:, list(cols)]
+                acc[list(rows)[0]:list(rows)[-1] + 1, list(cols)] += part
+            out[g, h] = acc
+    return out
+
+
+@pytest.mark.parametrize("g,h,l,n,p,slope", [
+    (2, 3, 32, 16, 8, 0.1), (1, 2, 48, 8, 12, 5.0), (1, 1, 128, 8, 4, 0.1)])
+def test_ssd_kernel_data_flow_matches_pallas(g, h, l, n, p, slope):
+    """The kernel's packed layout, masks and maps, emulated in float32,
+    give the plain version's and the TPU kernel's result (interpret mode),
+    also under a decay steep enough to overflow exp above the diagonal."""
+    rng = np.random.default_rng(l + p)
+    c, b, x, a = _chunk_inputs(rng, g, h, l, n, p, slope=slope)
+    got = _emulate_kernel(*(torch.from_numpy(v) for v in (c, b, x, a)))
+    assert torch.isfinite(got).all()
+    plain = ssd_chunk_plain(*(torch.from_numpy(v) for v in (c, b, x, a)))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    want = pallas_ssd_chunk(*(jnp.asarray(v) for v in (c, b, x, a)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-4,
+                               atol=5e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -4,18 +4,21 @@
 It builds the kernels and runs each named kernel's check from
 ``chip_smoke.py``: ``paged`` (``check_paged``: ``paged_flash_decode`` at
 every shape of ``chip_smoke.PAGED_SHAPES``), ``flash`` (``check_flash``:
-``flash_decode`` at ``chip_smoke.FLASH_SHAPES``) or ``expert``
-(``check_expert``: ``expert_ffn`` at ``chip_smoke.EXPERT_SHAPES``). Each
-holds the kernel against its plain version in float32 and bfloat16, two
-calls bit-identical, timed as ``chip_smoke.py`` times it (device ms from
+``flash_decode`` at ``chip_smoke.FLASH_SHAPES``), ``expert``
+(``check_expert``: ``expert_ffn`` at ``chip_smoke.EXPERT_SHAPES``) or
+``ssd`` (``check_ssd``: ``ssd_chunk`` at ``chip_smoke.ssd_shapes()``, main
+run 3's G 128 and G 256 and the reduced shape). Each holds the kernel
+against its plain version in float32 and bfloat16, two calls
+bit-identical, timed as ``chip_smoke.py`` times it (device ms from
 CUDA-graph replay, eager ms, plain and library ms, bound). With
 ``--profile`` it also gives, per shape, the device time of each CUDA
-launch a call makes (``torch.profiler`` over 20 eager bf16 calls). It
+launch a call makes (``torch.profiler`` over 20 eager calls in the type
+the main run calls the kernel with: bfloat16, float32 for ``ssd``). It
 takes seconds, where the whole script takes minutes.
 
 Usage, from the repository root::
 
-    python3 tools/kernel_phase2.py --kernel {paged,flash,expert} [...] \\
+    python3 tools/kernel_phase2.py --kernel {paged,flash,expert,ssd} [...] \\
         [--profile] [--src DIR]
 
 ``--src`` takes the port's package from another checkout's ``src``
@@ -52,8 +55,9 @@ def launch_times(torch, fn):
             if e.device_type != DeviceType.CPU and e.count}
 
 
-def bf16_call(torch, cs, dev, kernel, name):
-    """A zero-argument bf16 call of the kernel at shape ``name``."""
+def profiled_call(torch, cs, dev, kernel, name):
+    """A zero-argument call of the kernel at shape ``name``, in the type
+    the main run calls it with."""
     gen = torch.Generator(dev).manual_seed(cs.SEED)
     bf16 = torch.bfloat16
     if kernel == "paged":
@@ -65,6 +69,11 @@ def bf16_call(torch, cs, dev, kernel, name):
         from repro_torch.kernels import flash_attention as fa
         args = cs.flash_inputs(torch, dev, gen, bf16, **cs.FLASH_SHAPES[name])
         return lambda: fa.flash_decode(*args)
+    if kernel == "ssd":
+        from repro_torch.kernels import ssd_chunk as sc
+        args = cs.ssd_inputs(torch, dev, gen, torch.float32,
+                             *cs.ssd_shapes()[name])
+        return lambda: sc.ssd_chunk(*args)
     from repro_torch.kernels import expert_ffn as ef
     args = cs.expert_inputs(torch, dev, gen, bf16, **cs.EXPERT_SHAPES[name])
     return lambda: ef.expert_ffn(*args)
@@ -72,7 +81,7 @@ def bf16_call(torch, cs, dev, kernel, name):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=("paged", "flash", "expert"),
+    ap.add_argument("--kernel", choices=("paged", "flash", "expert", "ssd"),
                     nargs="+", required=True)
     ap.add_argument("--src", default=str(REPO / "src"))
     ap.add_argument("--profile", action="store_true")
@@ -96,9 +105,12 @@ def main() -> None:
         elif kernel == "flash":
             checks = cs.check_flash(torch, F, dev, gen)
             shapes = cs.FLASH_SHAPES
-        else:
+        elif kernel == "expert":
             checks = cs.check_expert(torch, dev, gen)
             shapes = cs.EXPERT_SHAPES
+        else:
+            checks = cs.check_ssd(torch, dev, gen)
+            shapes = cs.ssd_shapes()
         first = next(iter(shapes))
         for name in shapes:
             c = checks if name == first else checks.get(name, {})
@@ -106,7 +118,7 @@ def main() -> None:
                    **{k: v for k, v in c.items() if not isinstance(v, dict)}}
             if opts.profile:
                 row["launch_us"] = launch_times(
-                    torch, bf16_call(torch, cs, dev, kernel, name))
+                    torch, profiled_call(torch, cs, dev, kernel, name))
             print(json.dumps(row), flush=True)
 
 if __name__ == "__main__":

@@ -6,8 +6,9 @@ It repeats the work of ``chip_smoke.py``'s main run 3 (the parts of its
 ``MAMBA_PARTS``, the same seeds and weights): for each part, a warm-up,
 then ``prefill`` and ``STEPS`` greedy ``decode_step``s timed on the wall
 clock, then the same prefill and steps again under ``torch.profiler`` for
-the device time of the kernels they launch. The device busy share is that
-device time over the wall time of the unprofiled run of the same work.
+the device time of the kernels they launch (the top kernels, and the
+``ssd_chunk`` kernel's own). The device busy share is that device time
+over the wall time of the unprofiled run of the same work.
 
 Usage, from the repository root::
 
@@ -32,10 +33,11 @@ TOP = 6         # kernels listed by device time
 
 
 def device_time(torch, fn):
-    """(seconds, launches, top kernels) of the device work ``fn`` launches:
-    the kernels' own device time (one stream, so they do not overlap;
-    CPU-side operator rows, which repeat their kernels' time, are left
-    out) and the ``TOP`` kernels by device time."""
+    """(seconds, launches, top kernels, (ssd_chunk seconds, launches)) of
+    the device work ``fn`` launches: the kernels' own device time (one
+    stream, so they do not overlap; CPU-side operator rows, which repeat
+    their kernels' time, are left out), the ``TOP`` kernels by device
+    time, and the ``ssd_chunk`` kernel's own share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -49,9 +51,12 @@ def device_time(torch, fn):
     total = sum(e.self_device_time_total for e in kernels) * 1e-6
     if total <= 0:
         cs.fail("torch.profiler reports no device time")
+    ssd = [e for e in kernels if "ssd_chunk" in e.key]
     return (total, sum(e.count for e in kernels),
             [(e.key[:80], e.self_device_time_total * 1e-6, e.count)
-             for e in kernels[:TOP]])
+             for e in kernels[:TOP]],
+            (sum(e.self_device_time_total for e in ssd) * 1e-6,
+             sum(e.count for e in ssd)))
 
 
 def main() -> None:
@@ -78,20 +83,23 @@ def main() -> None:
         cs.greedy(torch, model, params, prompts, 2)          # warm-up
         _, outs, state, prefill_s, decode_s = cs.greedy(
             torch, model, params, prompts, STEPS)
-        pre_s, pre_n, pre_top = device_time(torch, lambda: model.prefill(
-            params, {"tokens": prompts}, prompt_len + STEPS))
+        pre_s, pre_n, pre_top, pre_ssd = device_time(
+            torch, lambda: model.prefill(params, {"tokens": prompts},
+                                         prompt_len + STEPS))
         tok = outs[-1].argmax(-1)[:, None]
 
         def decode():
             st = state
             for _ in range(STEPS):
                 st = model.decode_step(params, st, {"tokens": tok})[1]
-        dec_s, dec_n, dec_top = device_time(torch, decode)
+        dec_s, dec_n, dec_top, _ = device_time(torch, decode)
         print(json.dumps({
             "part": name, "requests": batch, "prompt_len": prompt_len,
             "decode_steps": STEPS, "prefill_s": prefill_s,
             "prefill_device_s": pre_s, "prefill_launches": pre_n,
             "prefill_device_busy_share": pre_s / prefill_s,
+            "prefill_ssd_chunk_s": pre_ssd[0],
+            "prefill_ssd_chunk_launches": pre_ssd[1],
             "decode_ms_per_step": decode_s / STEPS * 1e3,
             "decode_device_ms_per_step": dec_s / STEPS * 1e3,
             "decode_launches_per_step": dec_n / STEPS,

@@ -16,12 +16,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    8192-slot ring and a 128-slot row; ``expert_ffn`` at main run 1's
    decode and prefill-chunk shapes and main run 2's; ``ssd_chunk`` at
    both of main run 3's shapes, G 128 and G 256, and the reduced mamba2
-   shape; for these four, two calls on the same inputs must be
-   bit-identical), in bfloat16 and float32, and time kernel, plain version
-   and a PyTorch library yardstick with CUDA events: ``ms`` is device time
-   (calls replayed from a CUDA graph), ``eager_ms`` the time per eager
-   call, Python and launch overhead included; ``launch_floor_ms`` is one
-   trivial launch timed the same way;
+   shape; ``topk_gating`` at main run 1's decode and prefill-chunk shapes
+   and main run 2's, on rows with a tie across the k-th place, all values
+   equal, and probabilities underflowed to 0; for all five, two calls on
+   the same inputs must be bit-identical), in bfloat16 and float32 (the
+   router in float32 only), and time kernel, plain version and a PyTorch
+   library yardstick with CUDA events: ``ms`` is device time (calls
+   replayed from a CUDA graph), ``eager_ms`` the time per eager call,
+   Python and launch overhead included; ``launch_floor_ms`` is one trivial
+   launch timed the same way, first, and ``topk_gating``'s
+   ``floor_ratio`` is its ms over that floor;
 3. main run: full-width DeepSeek-V2-Lite in bfloat16 (seeded random
    weights, routed experts in pinned host memory, 28.8 GB) served by
    ``BatchedOffloadEngine`` with the paper's learned prefetch policy at a
@@ -65,6 +69,7 @@ This script imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import os
 import subprocess
@@ -430,35 +435,88 @@ def expert_case(torch, dev, gen, n, k, d, f, slots, distinct=None):
     return out
 
 
-def check_topk(torch, dev, gen):
-    """Main run 1's router (64 experts, top-6), then main run 2's (16
-    experts, top-1); each with an exact tie in row 0."""
-    out = topk_case(torch, dev, gen, 4, 64, 6, tie=40)
-    out["llama4"] = topk_case(torch, dev, gen, 4, 16, 1, tie=12)
+# topk_gating's shapes on the main path: main run 1's router at decode (4
+# lanes) and at a prefill chunk (8 tokens of one request), 64 experts top-6,
+# and main run 2's (16 experts, top-1)
+TOPK_SHAPES = {
+    "deepseek": dict(t=4, e=64, k=6),
+    "prefill": dict(t=8, e=64, k=6),
+    "llama4": dict(t=4, e=16, k=1),
+}
+
+
+def check_topk(torch, dev, gen, floor_ms):
+    """``topk_gating`` at every shape of ``TOPK_SHAPES``, the first at the
+    top level; ``floor_ms`` is this run's ``launch_floor_ms``."""
+    out = topk_case(torch, dev, gen, floor_ms, **TOPK_SHAPES["deepseek"])
+    for name in ("prefill", "llama4"):
+        out[name] = topk_case(torch, dev, gen, floor_ms, **TOPK_SHAPES[name])
     return out
 
 
-def topk_case(torch, dev, gen, t, e, k, tie):
+def topk_edge_rows(logits, k):
+    """Make rows 0-3 of ``logits`` (T, E), those that exist, the cases a
+    selection rule can get wrong, in place: 0, a tie across the k-th place
+    (the values at ranks k-1, k and k+1 made equal; k-2 and k-1 when
+    k == E); 1, all equal; 2, all but its max(1, k // 2) largest lowered
+    by 300, so that their probabilities underflow to exactly 0 and are
+    taken in id order; 3, an exact tie at the top between experts 0 and
+    E-1. Returns ``logits``."""
+    t, e = logits.shape
+    if e < 2:
+        return logits
+    if t > 0:
+        order = logits[0].argsort(descending=True, stable=True)
+        lo = min(k - 1, e - 2)
+        logits[0, order[lo:lo + 3]] = logits[0, order[lo]].item()
+    if t > 1:
+        logits[1] = 0.5
+    if t > 2:
+        order = logits[2].argsort(descending=True, stable=True)
+        logits[2, order[max(1, k // 2):]] -= 300.0
+    if t > 3:
+        logits[3, 0] = logits[3, e - 1] = logits[3].max() + 1.0
+    return logits
+
+
+def topk_inputs(torch, dev, gen, t, e, k):
+    """Seeded router logits (T, E) f32 with ``topk_edge_rows``."""
+    return topk_edge_rows(torch.randn(t, e, generator=gen, device=dev) * 2, k)
+
+
+def topk_case(torch, dev, gen, floor_ms, t, e, k):
+    """One shape against the plain version (ids equal, weights within
+    1e-6); two calls on the same inputs must be bit-identical; timed, with
+    ``floor_ratio`` = ms / ``floor_ms`` and ``digest``, a hash of the
+    kernel's (w, idx), so that two versions can be shown to agree."""
     from repro_torch.kernels import topk_gating as tg
-    logits = torch.randn(t, e, generator=gen, device=dev) * 2
-    logits[0, 7] = logits[0, tie] = logits[0].max() + 1.0    # exact tie
+    logits = topk_inputs(torch, dev, gen, t, e, k)
     w, idx = tg.topk_gating(logits, k)
+    w2, idx2 = tg.topk_gating(logits, k)
     wp, ip = tg.topk_gating_plain(logits, k)
     torch.cuda.synchronize()
+    if not (torch.equal(w, w2) and torch.equal(idx, idx2)):
+        fail(f"topk_gating ({t},{e},{k}): two calls on the same inputs "
+             "differ")
     if not torch.equal(idx, ip):
-        fail(f"topk_gating ids differ from the plain version:\n{idx}\n{ip}")
+        fail(f"topk_gating ({t},{e},{k}) ids differ from the plain "
+             f"version:\n{idx}\n{ip}")
     err = (w - wp).abs().max().item()
     if not err <= 1e-6:
-        fail(f"topk_gating weights: max abs err {err} > 1e-6")
+        fail(f"topk_gating ({t},{e},{k}) weights: max abs err {err} > 1e-6")
+    digest = hashlib.sha256(w.cpu().numpy().tobytes()
+                            + idx.cpu().numpy().tobytes()).hexdigest()[:16]
 
     def library():
         pw, pi = torch.topk(torch.softmax(logits, -1), k)
         return pw / (pw.sum(-1, keepdim=True) + 1e-9), pi
+    times = timings(torch, lambda: tg.topk_gating(logits, k),
+                    lambda: tg.topk_gating_plain(logits, k), library)
     b_ms, b_by = bound(t * e * 4 + t * k * 8, t * e * (4 + k), "float32")
     return {"float32": err, "bound_ms": b_ms, "bound_by": b_by,
-            "shape": f"logits ({t},{e}) f32, k {k}",
-            **timings(torch, lambda: tg.topk_gating(logits, k),
-                      lambda: tg.topk_gating_plain(logits, k), library)}
+            "floor_ratio": times["ms"] / floor_ms, "digest": digest,
+            "bit_identical": True, "shape": f"logits ({t},{e}) f32, k {k}",
+            **times}
 
 
 def ssd_shapes() -> dict:
@@ -1025,6 +1083,13 @@ TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                "eager_ms", "plain_eager_ms", "library_eager_ms", "shape")
 
 
+def timing_fields(c) -> dict:
+    """A shape's timings for the kernels line (``floor_ratio`` where the
+    check gives one)."""
+    return {**{k: c[k] for k in TIMING_KEYS},
+            **{k: c[k] for k in ("floor_ratio",) if k in c}}
+
+
 def main() -> None:
     try:
         import torch
@@ -1055,12 +1120,12 @@ def main() -> None:
     gen = torch.Generator(dev).manual_seed(SEED)
     phase_s = {}
     t = time.perf_counter()
+    floor_ms = launch_floor_ms(torch, dev)
     checks = {"paged_flash_decode": check_paged(torch, F, dev, gen),
               "expert_ffn": check_expert(torch, dev, gen),
-              "topk_gating": check_topk(torch, dev, gen),
+              "topk_gating": check_topk(torch, dev, gen, floor_ms),
               "flash_decode": check_flash(torch, F, dev, gen),
               "ssd_chunk": check_ssd(torch, dev, gen)}
-    floor_ms = launch_floor_ms(torch, dev)
     phase_s["kernel_checks"] = time.perf_counter() - t
     release_host_memory(torch)
     log(f"kernel checks passed in {phase_s['kernel_checks']:.1f} s")
@@ -1096,19 +1161,18 @@ def main() -> None:
             "max_abs_err": c[dtype], "max_abs_err_dtype": dtype,
             "max_abs_err_f32": c["float32"],
             "max_abs_err_bf16": c.get("bfloat16"), "kernel_ms": c["ms"],
-            **{k: c[k] for k in TIMING_KEYS}}
+            **timing_fields(c)}
         extra = c.get("gqa") or c.get("llama4")
         if extra is not None:   # the same kernel at main run 2's shapes
             entry["main_run_2_shapes"] = {
                 "max_abs_err": extra.get("bfloat16", extra["float32"]),
-                "max_abs_err_f32": extra["float32"],
-                **{k: extra[k] for k in TIMING_KEYS}}
+                "max_abs_err_f32": extra["float32"], **timing_fields(extra)}
         if "prefill" in c:      # main run 1's prefill-chunk shape
+            pre = c["prefill"]
             entry[("mla_" if name == "paged_flash_decode" else "")
                   + "prefill_chunk_shape"] = {
-                "max_abs_err": c["prefill"]["bfloat16"],
-                "max_abs_err_f32": c["prefill"]["float32"],
-                **{k: c["prefill"][k] for k in TIMING_KEYS}}
+                "max_abs_err": pre.get("bfloat16", pre["float32"]),
+                "max_abs_err_f32": pre["float32"], **timing_fields(pre)}
         for shape in ("long", "reduced"):   # ssd_chunk's other shapes
             if shape in c:
                 entry[f"{shape}_shape_max_abs_err"] = c[shape]

@@ -5,6 +5,9 @@ one (and without JAX), run them with
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
 This file imports nothing of JAX.
 """
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -18,6 +21,7 @@ from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.scheduler import BatchedOffloadEngine
 
 pytestmark = pytest.mark.gpu
+CHIP_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
 
 
 @pytest.fixture
@@ -61,6 +65,39 @@ def test_kernels_match_plain_on_card(cuda, dtype, tol):
     wp, ip = topk_gating.topk_gating_plain(lg, 4)
     assert torch.equal(ik, ip)
     assert (wk - wp).abs().max().item() <= 1e-6
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    """``chip_smoke.py`` as a module, for the rows its router check uses."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", CHIP_SMOKE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("t", [1, 4, 8, 33])
+@pytest.mark.parametrize("e", [8, 16, 64, 160, 256])
+@pytest.mark.parametrize("k", [1, 2, 6, 8])
+def test_topk_gating_matches_plain_on_card(cuda, chip_smoke, t, e, k):
+    """The kernel against the plain version on
+    ``chip_smoke.topk_edge_rows`` (a tie across the k-th place, all equal,
+    probabilities underflowed to 0, a tie at the top; then random rows),
+    lane widths S = 1 (E 8, 16), 2 (E 64), 5 and 8, the top-1 path at
+    k 1, and up to 33 CTAs (one per row): ids equal (``lax.top_k``'s
+    order), weights within 1e-6 (the plain softmax sums in another order),
+    two calls bit-identical, and the ids of the kernel's rule in Python
+    (``rank_select``) on the plain probabilities."""
+    gen = torch.Generator(cuda).manual_seed(t * 1000 + e * 10 + k)
+    logits = chip_smoke.topk_inputs(torch, cuda, gen, t, e, k)
+    w, idx = topk_gating.topk_gating(logits, k)
+    w2, idx2 = topk_gating.topk_gating(logits, k)
+    wp, ip = topk_gating.topk_gating_plain(logits, k)
+    assert torch.equal(idx, ip)
+    assert (w - wp).abs().max().item() <= 1e-6
+    assert torch.equal(w, w2) and torch.equal(idx, idx2)
+    probs = torch.softmax(logits, -1).cpu()
+    assert torch.equal(topk_gating.rank_select(probs, k)[1], idx.cpu())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

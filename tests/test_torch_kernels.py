@@ -7,6 +7,9 @@ the summation order differs; bfloat16 ``2e-2`` — outputs are rounded to
 bf16 (8 significant bits, ~4e-3 relative) after f32 accumulation, and the
 two frameworks round intermediates at different places.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +24,7 @@ from repro_torch.kernels import (expert_ffn, flash_attention, launch_counts,
                                  ssd_chunk, topk_gating)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+CHIP_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -285,6 +289,73 @@ def test_topk_gating_plain_matches_pallas_and_top_k(t, e, k, dtype):
     np.testing.assert_allclose(got_w.numpy(), np.asarray(wp), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(got_w.numpy().sum(-1), 1.0, atol=1e-5)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports nothing at the top that
+    needs a card), for the rows its router check uses."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", CHIP_SMOKE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("e", [8, 16, 64, 160, 256])
+@pytest.mark.parametrize("k", [1, 2, 6, 8])
+def test_topk_select_rule_matches_top_k_and_pallas(e, k):
+    """The CUDA kernel's selection (``topk_gating.rank_select``: ranks
+    counted by four warps over quarters of the row against thresholds on
+    the probabilities' bits, ties in a lane's own block of 32 added by
+    lane; the top-1 path at k 1; weights summed in slot order) on
+    tie-heavy rows of three seeds (``chip_smoke.topk_edge_rows``: a tie
+    across the k-th place, all equal, probabilities underflowed to 0, a
+    tie at the top; and a row of duplicated pairs), on the probabilities
+    of ``jax.nn.softmax``: ids exactly ``lax.top_k``'s, weights within
+    1e-6 of its renormalised values (float32 sums in another order) and of
+    the Pallas kernel's in interpret mode. The Pallas kernel masks a taken
+    value with 0, so once the positive probabilities are spent it takes
+    an id again: its ids are compared where they are defined, before
+    that point, and ``lax.top_k`` (what the reference model routes with)
+    is held everywhere."""
+    cs = _chip_smoke()
+    blocks = []
+    for seed in range(3):
+        rng = np.random.default_rng(seed * 10_000 + e * 10 + k)
+        x = (rng.normal(size=(6, e)) * 2).astype(np.float32)
+        x[4] = np.repeat(x[4, :e // 2], 2)
+        blocks.append(cs.topk_edge_rows(torch.from_numpy(x), k).numpy())
+    logits = np.concatenate(blocks)
+    probs = jax.nn.softmax(jnp.asarray(logits), axis=-1)
+    wt, it = jax.lax.top_k(probs, k)
+    w, idx = topk_gating.rank_select(torch.from_numpy(np.array(probs)), k)
+    assert w.dtype == torch.float32 and idx.dtype == torch.int32
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(it))
+    wt = np.asarray(wt)
+    np.testing.assert_allclose(w.numpy(), wt / (wt.sum(-1, keepdims=True)
+                                                + 1e-9), rtol=0, atol=1e-6)
+    if k == e:                          # every expert ranked once
+        assert (np.sort(idx.numpy(), -1) == np.arange(e)).all()
+    under = idx.numpy()[2::6]           # the underflow rows
+    n_live = max(1, k // 2)
+    assert (w.numpy()[2::6, n_live:] == 0).all()
+    assert (np.diff(under[:, n_live:], axis=-1) > 0).all()   # id order
+
+    wp, ip = topk_gating_pallas(jnp.asarray(logits), k, interpret=True)
+    np.testing.assert_allclose(w.numpy(), np.asarray(wp), rtol=0, atol=1e-6)
+    n_pos = (np.asarray(probs) > 0).sum(-1, keepdims=True)
+    defined = np.arange(k)[None, :] < n_pos
+    np.testing.assert_array_equal(np.where(defined, idx.numpy(), -1),
+                                  np.where(defined, np.asarray(ip), -1))
+
+
+@pytest.mark.parametrize("e", [1, 4, 5, 16, 33, 64, 100, 160, 255, 256])
+def test_topk_warp_groups_cover_each_expert_once(e):
+    """The four warps of a row's CTA count ranks against every group of 4
+    experts once, and against nothing past the row's padded end."""
+    seen = [g for w in range(topk_gating.WARPS_PER_ROW)
+            for g in topk_gating.warp_groups(w, e)]
+    assert sorted(seen) == list(range(-(-e // 4)))
+    assert 4 * max(seen) + 4 <= 32 * topk_gating.lane_slots(e)
 
 
 def test_cpu_path_counts_no_launch():

@@ -5,21 +5,27 @@ It builds the kernels and runs each named kernel's check from
 ``chip_smoke.py``: ``paged`` (``check_paged``: ``paged_flash_decode`` at
 every shape of ``chip_smoke.PAGED_SHAPES``), ``flash`` (``check_flash``:
 ``flash_decode`` at ``chip_smoke.FLASH_SHAPES``), ``expert``
-(``check_expert``: ``expert_ffn`` at ``chip_smoke.EXPERT_SHAPES``) or
-``ssd`` (``check_ssd``: ``ssd_chunk`` at ``chip_smoke.ssd_shapes()``, main
-run 3's G 128 and G 256 and the reduced shape). Each holds the kernel
-against its plain version in float32 and bfloat16, two calls
-bit-identical, timed as ``chip_smoke.py`` times it (device ms from
-CUDA-graph replay, eager ms, plain and library ms, bound). With
+(``check_expert``: ``expert_ffn`` at ``chip_smoke.EXPERT_SHAPES``), ``ssd``
+(``check_ssd``: ``ssd_chunk`` at ``chip_smoke.ssd_shapes()``, main run 3's
+G 128 and G 256 and the reduced shape) or ``topk`` (``check_topk``:
+``topk_gating`` at ``chip_smoke.TOPK_SHAPES``, on rows with a tie across
+the k-th place, all values equal and underflowed probabilities). Each
+holds the kernel against its plain version (in float32 and bfloat16; the
+router in float32), two calls bit-identical, timed as ``chip_smoke.py``
+times it (device ms from CUDA-graph replay, eager ms, plain and library
+ms, bound). A ``topk`` row also carries ``floor_ratio`` (ms over the
+launch floor of the same run, which is printed first) and ``digest``, a
+hash of the kernel's (w, idx) on the seeded logits: equal digests in two
+``--src`` turns show that two versions give the same outputs. With
 ``--profile`` it also gives, per shape, the device time of each CUDA
 launch a call makes (``torch.profiler`` over 20 eager calls in the type
-the main run calls the kernel with: bfloat16, float32 for ``ssd``). It
-takes seconds, where the whole script takes minutes.
+the main run calls the kernel with: bfloat16, float32 for ``ssd`` and
+``topk``). It takes seconds, where the whole script takes minutes.
 
 Usage, from the repository root::
 
-    python3 tools/kernel_phase2.py --kernel {paged,flash,expert,ssd} [...] \\
-        [--profile] [--src DIR]
+    python3 tools/kernel_phase2.py \\
+        --kernel {paged,flash,expert,ssd,topk} [...] [--profile] [--src DIR]
 
 ``--src`` takes the port's package from another checkout's ``src``
 directory (for example a parent commit unpacked with ``git archive``), so
@@ -74,6 +80,11 @@ def profiled_call(torch, cs, dev, kernel, name):
         args = cs.ssd_inputs(torch, dev, gen, torch.float32,
                              *cs.ssd_shapes()[name])
         return lambda: sc.ssd_chunk(*args)
+    if kernel == "topk":
+        from repro_torch.kernels import topk_gating as tg
+        shape = cs.TOPK_SHAPES[name]
+        logits = cs.topk_inputs(torch, dev, gen, **shape)
+        return lambda: tg.topk_gating(logits, shape["k"])
     from repro_torch.kernels import expert_ffn as ef
     args = cs.expert_inputs(torch, dev, gen, bf16, **cs.EXPERT_SHAPES[name])
     return lambda: ef.expert_ffn(*args)
@@ -81,7 +92,7 @@ def profiled_call(torch, cs, dev, kernel, name):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=("paged", "flash", "expert", "ssd"),
+    ap.add_argument("--kernel", choices=("paged", "flash", "expert", "ssd", "topk"),
                     nargs="+", required=True)
     ap.add_argument("--src", default=str(REPO / "src"))
     ap.add_argument("--profile", action="store_true")
@@ -97,6 +108,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     build.library()
     print(cs.gpu_identity(), flush=True)
+    floor_ms = cs.launch_floor_ms(torch, dev)
+    print(json.dumps({"src": opts.src, "launch_floor_ms": floor_ms}),
+          flush=True)
     for kernel in opts.kernel:
         gen = torch.Generator(dev).manual_seed(cs.SEED)
         if kernel == "paged":
@@ -108,6 +122,9 @@ def main() -> None:
         elif kernel == "expert":
             checks = cs.check_expert(torch, dev, gen)
             shapes = cs.EXPERT_SHAPES
+        elif kernel == "topk":
+            checks = cs.check_topk(torch, dev, gen, floor_ms)
+            shapes = cs.TOPK_SHAPES
         else:
             checks = cs.check_ssd(torch, dev, gen)
             shapes = cs.ssd_shapes()

@@ -14,10 +14,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    full-width shapes (``paged_flash_decode`` in its MLA layout at decode
    and at a prefill chunk, and in its GQA layout; ``flash_decode`` on the
    8192-slot ring and a 128-slot row; ``expert_ffn`` at main run 1's
-   decode and prefill-chunk shapes and main run 2's; ``ssd_chunk`` at
-   both of main run 3's shapes, G 128 and G 256, and the reduced mamba2
-   shape; ``topk_gating`` at main run 1's decode and prefill-chunk shapes
-   and main run 2's, on rows with a tie across the k-th place, all values
+   decode and prefill-chunk shapes, main run 2's and the pipeline's
+   batch-1 decode; ``ssd_chunk`` at both of main run 3's shapes, G 128
+   and G 256, and the reduced mamba2 shape; ``topk_gating`` at main run
+   1's decode and prefill-chunk shapes, main run 2's and the pipeline's,
+   on rows with a tie across the k-th place, all values
    equal, and probabilities underflowed to 0; for all five, two calls on
    the same inputs must be bit-identical), in bfloat16 and float32 (the
    router in float32 only), and time kernel, plain version and a PyTorch
@@ -33,6 +34,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4. on-card parity: DeepSeek-V2-Lite at full width, float32, depth cut to 3
    layers; the engine on the card and on the CPU from identical weights
    must give identical streams, routed expert ids and counters;
+4a. pipeline: the paper's pipeline on main run 1's backbone (full width
+   and depth, bfloat16, the same seed), every routed expert on the device
+   (~31 GB): 32 batch-1 traces of 64 prompt tokens from the topic corpus
+   and 16 sampled ones (2,560 decode steps through the facade's decode
+   mode, ``topk_gating`` and ``expert_ffn`` on every MoE layer), the
+   paper's full-size predictor trained on 24 of them with
+   ``train_predictor``'s defaults, and the other 8 replayed through the
+   cache simulator at a 10% cache with all seven policies, each with its
+   per-trace standard error; fails unless both kernels launched exactly
+   once per MoE layer and step (26 x 2,560), every loss is finite, the
+   trained predictor's validation loss is below the untrained one's and
+   the oracle hits every access;
+4b. parity pipeline: the same in float32 on the reduced DeepSeek-V2-Lite:
+   greedy traces on the card and on the CPU identical, the predictor's
+   logits within 1e-4, the simulator's table of every policy identical;
 5. main run 2: full-width Llama-4-Scout in bfloat16, depth cut to 8 layers
    (two 3:1 chunked:global groups; 32.2 GB of routed experts in pinned
    host memory), paged engine: global layers through the block pools
@@ -54,15 +70,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    script (matmul and cuDNN), and the causal convolution is a
    shift-and-add, never a cuDNN convolution.
 
-Host memory: about 32 GB for main run 2's pinned experts (each main run's
-pinned blocks are released before the next phase), and 16 GB of float32
-experts for parity run 2. The last stdout line is ``{"ok": true,
+Phases 4a and 4b are named ``pipeline`` and ``parity_pipeline`` in the
+output. Host memory: about 32 GB for main run 2's pinned experts (each
+main run's pinned blocks are released before the next phase), and 16 GB
+of float32 experts for parity run 2. The last stdout line is ``{"ok": true,
 "device": {...}}``; the line before it is the card's name and power limit;
 before that the ``{"kernels": [...]}`` line, whose ``launches`` are the
 counts of the main run that drives each kernel (Llama-4-Scout's for the
 four attention and MoE kernels, mamba2's for ``ssd_chunk``;
-``launches_by_run`` has every main run's), and before that
-``{"launch_floor_ms": ...}``. Details go to
+``launches_by_run`` has every main run's and the pipeline's), and before
+that ``{"launch_floor_ms": ...}`` and the pipeline's summary
+``{"pipeline": ...}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 This script imports nothing of JAX or of the reference package.
 """
@@ -362,21 +380,23 @@ def check_flash(torch, F, dev, gen):
 # 4 lanes, top-6, D 2048, F 1408, 166 slots) and prefill chunk (8 tokens
 # whose 48 pairs name PREFILL_DISTINCT_SLOTS distinct slots: the mean per
 # call, 18.7, that main run 1 showed on an H100, which main_run reports as
-# `distinct_slots_per_expert_call`), and main run 2's (Llama-4-Scout: top-1,
-# D 5120, F 8192, 12 slots)
+# `distinct_slots_per_expert_call`), main run 2's (Llama-4-Scout: top-1,
+# D 5120, F 8192, 12 slots), and the pipeline's batch-1 trace decode (one
+# token, top-6, the layer's 64 experts as the slot buffer)
 PREFILL_DISTINCT_SLOTS = 19
 EXPERT_SHAPES = {
     "deepseek": dict(n=4, k=6, d=2048, f=1408, slots=166),
     "llama4": dict(n=4, k=1, d=5120, f=8192, slots=12),
     "prefill": dict(n=8, k=6, d=2048, f=1408, slots=166,
                     distinct=PREFILL_DISTINCT_SLOTS),
+    "pipeline": dict(n=1, k=6, d=2048, f=1408, slots=64),
 }
 
 
 def check_expert(torch, dev, gen):
     """``expert_ffn`` at every shape of ``EXPERT_SHAPES``."""
     out = expert_case(torch, dev, gen, **EXPERT_SHAPES["deepseek"])
-    for name in ("llama4", "prefill"):
+    for name in ("llama4", "prefill", "pipeline"):
         out[name] = expert_case(torch, dev, gen, **EXPERT_SHAPES[name])
     return out
 
@@ -437,11 +457,12 @@ def expert_case(torch, dev, gen, n, k, d, f, slots, distinct=None):
 
 # topk_gating's shapes on the main path: main run 1's router at decode (4
 # lanes) and at a prefill chunk (8 tokens of one request), 64 experts top-6,
-# and main run 2's (16 experts, top-1)
+# main run 2's (16 experts, top-1), and the pipeline's batch-1 trace decode
 TOPK_SHAPES = {
     "deepseek": dict(t=4, e=64, k=6),
     "prefill": dict(t=8, e=64, k=6),
     "llama4": dict(t=4, e=16, k=1),
+    "pipeline": dict(t=1, e=64, k=6),
 }
 
 
@@ -449,7 +470,7 @@ def check_topk(torch, dev, gen, floor_ms):
     """``topk_gating`` at every shape of ``TOPK_SHAPES``, the first at the
     top level; ``floor_ms`` is this run's ``launch_floor_ms``."""
     out = topk_case(torch, dev, gen, floor_ms, **TOPK_SHAPES["deepseek"])
-    for name in ("prefill", "llama4"):
+    for name in ("prefill", "llama4", "pipeline"):
         out[name] = topk_case(torch, dev, gen, floor_ms, **TOPK_SHAPES[name])
     return out
 
@@ -845,6 +866,259 @@ def parity_run(torch, np, dev):
             "stats": runs["card"][2], "identical": True}
 
 
+# the pipeline phase: prompts from the topic corpus, decode steps per
+# trace, predictor training split, and the simulator's cache (the paper's
+# 10%) and warm-up prefix
+PIPELINE = dict(prompts=32, prompt_len=64, max_new=16, train=24,
+                temperature=0.8, capacity_fraction=0.1, warm_tokens=8)
+
+
+def expert_bytes(torch, cfg) -> int:
+    """Bytes of one routed SwiGLU expert in the backbone's dtype: what a
+    cache miss moves."""
+    return (3 * cfg.d_model * cfg.moe.d_ff_expert
+            * getattr(torch, cfg.dtype).itemsize)
+
+
+def seven_policies(P, pp, pc, train_traces):
+    """The simulator's policies, fresh, in the table's order: LRU alone,
+    random, global frequency, MoE-Infinity, cross-layer, MoE-Beyond (the
+    predictor ``pp``) and the oracle; the baselines prefetch top-k."""
+    n, e, k = pc.num_model_layers, pc.num_experts, pc.top_k
+    return [P.NoPrefetchPolicy(), P.RandomPolicy(e, k, seed=SEED),
+            P.GlobalFrequencyPolicy(train_traces, n, e, k),
+            P.MoEInfinityPolicy(train_traces, n, e, k),
+            P.CrossLayerPolicy(train_traces, n, e, k),
+            P.MoEBeyondPolicy(pp, pc), P.OraclePolicy()]
+
+
+def sim_row(r) -> dict:
+    return {"cache_hit_rate": r.cache_hit_rate,
+            "prediction_hit_rate": r.prediction_hit_rate,
+            "est_stall_ms_per_token": r.est_stall_s_per_token * 1e3,
+            "demand_fetches": r.demand_fetches, "prefetches": r.prefetches,
+            "tokens": r.tokens}
+
+
+def pipeline_run(torch, np, dev):
+    """The paper's pipeline, steps 2-4 of the quickstart, on main run 1's
+    backbone (full width and depth, bfloat16, main run 1's seed) with
+    every expert on the device: batch-1 traces through the facade's
+    decode mode (``topk_gating`` and ``expert_ffn`` on every MoE layer of
+    every step), the paper's full-size predictor trained with
+    ``train_predictor``'s defaults, and the held-out traces replayed
+    through the cache simulator with every policy at a 10% cache,
+    together and one trace at a time (the spread that says whether the
+    table ranks the policies)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PredictorConfig
+    from repro_torch.core import policies as P
+    from repro_torch.core.predictor import predictor_init
+    from repro_torch.core.predictor_train import evaluate, train_predictor
+    from repro_torch.core.simulator import (SimConfig, measured_host_bw,
+                                            simulate)
+    from repro_torch.core.tracing import collect_traces, moe_layer_ids
+    from repro_torch.data import (PredictorDataset, make_topic_corpus,
+                                  sample_prompts)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import build_model
+
+    def since(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    c = PIPELINE
+    cfg = get_config("deepseek-v2-lite")
+    m = cfg.moe
+    n_moe = len(moe_layer_ids(cfg))
+    cache_len = c["prompt_len"] + c["max_new"]
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(SEED), device=dev)
+    init_s = since(t0)
+    param_bytes = sum(t.numel() * t.element_size() for t in tensors(params))
+    corpus = make_topic_corpus(cfg.vocab_size, n_topics=8, seed=0)
+    prompts = sample_prompts(corpus, c["prompts"], c["prompt_len"], seed=2)
+
+    # 2. traces: prompt i samples from a generator seeded with SEED + i
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    traces = collect_traces(model, params, prompts, c["max_new"], cache_len,
+                            c["temperature"], seed=SEED)
+    trace_s = since(t0)
+    launches = launch_counts()
+    del params
+    release_host_memory(torch)
+    steps = sum(t.num_tokens for t in traces)
+    want = {k: 0 for k in launches}
+    want["topk_gating"] = want["expert_ffn"] = steps * n_moe
+    if launches != want:
+        fail(f"pipeline: launches {launches}, want {want}")
+    for tr in traces:
+        if (tr.experts.shape != (cache_len, n_moe, m.top_k)
+                or tr.prompt_len != c["prompt_len"]
+                or not (0 <= tr.tokens).all()
+                or not (tr.tokens < cfg.vocab_size).all()
+                or not ((0 <= tr.experts) & (tr.experts < m.num_experts))
+                .all()
+                or not all(len(set(r)) == m.top_k
+                           for r in tr.experts.reshape(-1, m.top_k))
+                or not np.isfinite(tr.embeddings).all()):
+            fail("pipeline: a malformed trace")
+    train_tr, held_out = traces[:c["train"]], traces[c["train"]:]
+
+    # 3. predictor: initial weights, then dropout, from one generator
+    pc = predictor_config(PredictorConfig, cfg).replace(max_seq=cache_len)
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    init = predictor_init(gen, pc, device=dev)
+    lines = []
+    t0 = time.perf_counter()
+    pp, hist = train_predictor(train_tr, held_out, pc, device=dev,
+                               generator=gen, init_params=init,
+                               log=lines.append)
+    train_s = since(t0)
+    for line in lines:
+        log(f"pipeline: {line}")
+    ds_val = PredictorDataset(held_out, pc)
+    untrained, trained = evaluate(init, pc, ds_val), evaluate(pp, pc, ds_val)
+    losses = hist.train_loss + hist.val_loss
+    if not losses or not np.isfinite(losses).all():
+        fail(f"pipeline: non-finite predictor losses {losses}")
+    if not (np.isfinite(untrained["loss"]) and np.isfinite(trained["loss"])):
+        fail(f"pipeline: non-finite validation loss {untrained} {trained}")
+    if not trained["loss"] < untrained["loss"]:
+        fail(f"pipeline: trained validation loss {trained['loss']} is not "
+             f"below the untrained predictor's {untrained['loss']}")
+
+    # 4. simulator, at the host-to-device rate of this card
+    nbytes = expert_bytes(torch, cfg)
+    host_bw = measured_host_bw(dev, nbytes)
+    sim = SimConfig(num_layers=n_moe, num_experts=m.num_experts,
+                    capacity_fraction=c["capacity_fraction"],
+                    warm_tokens=c["warm_tokens"], expert_bytes=nbytes,
+                    host_bw=host_bw)
+    t0 = time.perf_counter()
+    table = {}
+    for pol in seven_policies(P, pp, pc, train_tr):
+        r = simulate(held_out, pol, sim)
+        table[r.policy] = sim_row(r)
+    if table["oracle"]["cache_hit_rate"] != 1.0:
+        fail(f"pipeline: the oracle's cache-hit rate is "
+             f"{table['oracle']['cache_hit_rate']}, not 1.0")
+    for tr in held_out:
+        for pol in seven_policies(P, pp, pc, train_tr):
+            table[pol.name].setdefault("per_trace_cache_hit_rate", []) \
+                .append(simulate([tr], pol, sim).cache_hit_rate)
+    for row in table.values():
+        rates = np.asarray(row["per_trace_cache_hit_rate"])
+        row["per_trace_std"] = float(rates.std(ddof=1))
+        row["std_error"] = row["per_trace_std"] / len(rates) ** 0.5
+    sim_s = since(t0)
+    result = {
+        "config": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+        "moe_layers": n_moe, "param_bytes_on_device": param_bytes,
+        "init_s": init_s, **c,
+        "cache_len": cache_len, "traces": len(traces),
+        "held_out_traces": len(held_out),
+        "measured_tokens": len(held_out) * (cache_len - c["warm_tokens"]),
+        "decode_steps": steps, "trace_s": trace_s,
+        "trace_steps_per_s": steps / trace_s,
+        "trace_launches": {k: launches[k]
+                           for k in ("topk_gating", "expert_ffn")},
+        "launches_per_step": {k: launches[k] / steps
+                              for k in ("topk_gating", "expert_ffn")},
+        "predictor": {"d_model": pc.d_model, "layers": pc.num_layers,
+                      "heads": pc.num_heads, "d_ff": pc.d_ff,
+                      "dropout": pc.dropout, "max_seq": pc.max_seq},
+        "train_s": train_s, "train_steps": hist.steps,
+        "epochs": len(hist.train_loss),
+        "last_epoch": {"train_loss": hist.train_loss[-1],
+                       "train_acc": hist.train_acc[-1],
+                       "train_f1": hist.train_f1[-1],
+                       "val_loss": hist.val_loss[-1],
+                       "val_acc": hist.val_acc[-1],
+                       "val_exact": hist.val_exact[-1],
+                       "val_f1": hist.val_f1[-1]},
+        "val_loss_by_epoch": hist.val_loss,
+        "untrained_val": untrained, "trained_val": trained,
+        "capacity_slots": max(1, int(round(c["capacity_fraction"] * n_moe
+                                           * m.num_experts))),
+        "host_bw_bytes_per_s": host_bw, "expert_bytes": nbytes,
+        "sim_s": sim_s, "policies": table,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    return result, launches
+
+
+def parity_run_pipeline(torch, np, dev):
+    """The pipeline in float32 on the reduced DeepSeek-V2-Lite (TF32 off):
+    greedy traces from the same seeded weights on the card and on the
+    CPU must be identical (tokens, routed ids, embeddings), the paper's
+    predictor logits on them within 1e-4, and the simulator's table of
+    every policy identical."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import PredictorConfig
+    from repro_torch.core import policies as P
+    from repro_torch.core.predictor import predictor_apply
+    from repro_torch.core.simulator import SimConfig, simulate
+    from repro_torch.core.tracing import collect_traces, moe_layer_ids
+    from repro_torch.data import make_topic_corpus, sample_prompts
+    from repro_torch.models.model import build_model
+
+    tol = 1e-4
+    cfg = get_reduced("deepseek-v2-lite")
+    m = cfg.moe
+    n_moe = len(moe_layer_ids(cfg))
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(SEED + 11),
+                        device="cpu")                 # drawn on the card
+    corpus = make_topic_corpus(cfg.vocab_size, n_topics=4, seed=0)
+    prompts = sample_prompts(corpus, 8, 12, seed=2)
+    pc = predictor_config(PredictorConfig, cfg).replace(max_seq=24)
+    pp_gpu, pp_cpu = predictor_pair(torch, dev, pc, SEED + 12)
+    sim = SimConfig(num_layers=n_moe, num_experts=m.num_experts,
+                    capacity_fraction=0.25, warm_tokens=4,
+                    expert_bytes=expert_bytes(torch, cfg), host_bw=25e9,
+                    layer_compute_s=1e-6)
+    runs = {}
+    for where, p, pp in (("card", to_device(params, dev), pp_gpu),
+                         ("cpu", params, pp_cpu)):
+        traces = collect_traces(model, p, prompts, 12, 24, temperature=0.0)
+        d = pp["in_w"].device
+        with torch.no_grad():
+            logits = [predictor_apply(
+                pp, pc,
+                torch.from_numpy(tr.embeddings[None]).expand(
+                    n_moe, -1, -1).to(d),
+                torch.arange(n_moe, device=d)[:, None].expand(
+                    n_moe, tr.num_tokens),
+                torch.ones((n_moe, tr.num_tokens), dtype=torch.bool,
+                           device=d)).cpu() for tr in traces]
+        table = {}
+        for pol in seven_policies(P, pp, pc, traces[:5]):
+            r = simulate(traces[5:], pol, sim)
+            table[r.policy] = sim_row(r)
+        runs[where] = (traces, torch.stack(logits), table)
+    card, cpu = runs["card"], runs["cpu"]
+    for a, b in zip(card[0], cpu[0]):
+        if not (np.array_equal(a.tokens, b.tokens)
+                and np.array_equal(a.experts, b.experts)
+                and np.array_equal(a.embeddings, b.embeddings)
+                and a.prompt_len == b.prompt_len):
+            fail("parity_pipeline: GPU/CPU traces differ")
+    err = (card[1] - cpu[1]).abs().max().item()
+    if not err <= tol:
+        fail(f"parity_pipeline: predictor logits differ by {err} > {tol}")
+    if card[2] != cpu[2]:
+        fail(f"parity_pipeline: GPU/CPU simulator tables differ: {card[2]} "
+             f"vs {cpu[2]}")
+    return {"config": cfg.name, "dtype": cfg.dtype, "traces": len(prompts),
+            "trace_tokens": [int(t.num_tokens) for t in card[0]],
+            "identical_traces": True, "max_abs_logit_err": err,
+            "tolerance": tol, "logit_abs_max": cpu[1].abs().max().item(),
+            "identical_tables": True, "table": card[2]}
+
+
 def parity_run_llama4(torch, np, dev):
     """Llama-4-Scout at full width in float32, cut to the reference's own
     reduced pattern (one chunked and one global layer) with a 16-slot
@@ -1136,6 +1410,10 @@ def main() -> None:
          lambda: main_run(torch, np, dev, "deepseek-v2-lite")),
         ("parity_run", "deepseek-v2-lite",
          lambda: parity_run(torch, np, dev)),
+        ("pipeline", "deepseek-v2-lite",
+         lambda: pipeline_run(torch, np, dev)),
+        ("parity_pipeline", "deepseek-v2-lite",
+         lambda: parity_run_pipeline(torch, np, dev)),
         ("main_run_2", LLAMA4, lambda: main_run(torch, np, dev, LLAMA4)),
         ("parity_run_2", LLAMA4, lambda: parity_run_llama4(torch, np, dev)),
         ("main_run_3", MAMBA2, lambda: mamba_run(torch, np, dev)),
@@ -1144,6 +1422,8 @@ def main() -> None:
         t = time.perf_counter()
         if phase.startswith("main"):
             runs[phase], launches[arch] = run()
+        elif phase == "pipeline":
+            runs[phase], launches[phase] = run()
         else:
             runs[phase] = run()
         phase_s[phase] = time.perf_counter() - t
@@ -1173,6 +1453,11 @@ def main() -> None:
                   + "prefill_chunk_shape"] = {
                 "max_abs_err": pre.get("bfloat16", pre["float32"]),
                 "max_abs_err_f32": pre["float32"], **timing_fields(pre)}
+        if "pipeline" in c:     # the pipeline's batch-1 trace decode
+            pipe = c["pipeline"]
+            entry["pipeline_shape"] = {
+                "max_abs_err": pipe.get("bfloat16", pipe["float32"]),
+                "max_abs_err_f32": pipe["float32"], **timing_fields(pipe)}
         for shape in ("long", "reduced"):   # ssd_chunk's other shapes
             if shape in c:
                 entry[f"{shape}_shape_max_abs_err"] = c[shape]
@@ -1191,6 +1476,17 @@ def main() -> None:
     print(json.dumps({"parity_run_3": {k: runs["parity_run_3"][k] for k in (
         "max_abs_logit_err", "tolerance", "identical_streams")}}),
         flush=True)
+    pipe = runs["pipeline"]
+    print(json.dumps({"pipeline": {k: pipe[k] for k in (
+        "decode_steps", "trace_s", "trace_steps_per_s", "trace_launches",
+        "train_s", "train_steps", "epochs", "last_epoch", "untrained_val",
+        "trained_val", "host_bw_bytes_per_s", "capacity_slots", "policies",
+        "max_memory_allocated_bytes")}, "seconds": phase_s["pipeline"]}),
+        flush=True)
+    print(json.dumps({"parity_pipeline": {k: runs["parity_pipeline"][k]
+                                          for k in (
+        "identical_traces", "max_abs_logit_err", "tolerance",
+        "identical_tables")}}), flush=True)
     print(json.dumps({"launch_floor_ms": floor_ms}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ident, flush=True)

@@ -1,6 +1,6 @@
 """Architecture registry of the port: the paper's backbone, the MoE
 decoder with GQA attention and the Mamba-2 SSD model. The other
-architectures are ROADMAP work (Queue 1 item 6)."""
+architectures are ROADMAP work (Queue 1 item 7)."""
 from __future__ import annotations
 
 import importlib
@@ -23,7 +23,7 @@ _ARCH_MODULES = {
 def _mod(arch: str):
     if arch not in _ARCH_MODULES:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP Queue 1 item 6: "
+            f"arch {arch!r} is not ported yet (ROADMAP Queue 1 item 7: "
             f"the other architectures); ported: "
             f"{sorted(_ARCH_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")

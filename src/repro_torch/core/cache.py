@@ -96,13 +96,15 @@ class ExpertCache:
         return self._pins.get(key, 0) > 0
 
     def _evict_one(self) -> None:
-        evictable = [k for k in self._entries if not self.pinned(k)]
-        if not evictable:
+        # the least recently used unpinned key (OrderedDict order == LRU
+        # order), found without scanning the whole cache
+        victim = next((k for k in self._entries if not self.pinned(k)),
+                      None)
+        if victim is None:
             raise RuntimeError(
                 f"ExpertCache thrashing: all {len(self._entries)} resident "
                 f"experts are pinned by in-flight requests; capacity "
                 f"{self.capacity} is too small for the concurrent working set")
-        victim = evictable[0]                # OrderedDict order == LRU order
         del self._entries[victim]
         if self.on_evict is not None:
             self.on_evict(victim)

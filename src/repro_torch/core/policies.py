@@ -1,15 +1,21 @@
-"""Prefetch policies of the serving slice (paper §3.1/§4.1.3).
+"""Prefetch policies (paper §3.1/§4.1.3), served by the engines and
+evaluated by the cache simulator (``core/simulator.py``).
 
 Before MoE layer ``l`` of token ``t`` runs, ``predict(t, l)`` names experts
 to prefetch; after it runs, ``observe(...)`` reveals the routed experts.
 
   NoPrefetchPolicy      — reactive caching only (on-demand fetch)
   NextLayerAllPolicy    — DeepSpeed-MoE: fetch every expert of the layer
-  OnlineMoEBeyondPolicy — the paper's learned predictor, run online
+  GlobalFrequencyPolicy — BrainStorm-style workload-popularity counts
+  RandomPolicy          — floor baseline
+  MoEInfinityPolicy     — rEAM cosine match against a k-means EAMC
+  CrossLayerPolicy      — P(e_l | e_{l-1}) from training traces
+  MoEBeyondPolicy       — the paper's learned predictor over a trace
+  OnlineMoEBeyondPolicy — the same predictor run online in the engines
+  OraclePolicy          — ground truth (upper bound)
 
-The trace-driven policies (MoE-Infinity, BrainStorm-style frequency,
-oracle, cross-layer, ``MoEBeyondPolicy``) come with trace collection
-(ROADMAP: "tracing and predictor training").
+The predictor runs on the device its parameters live on, under
+``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.eam import EAMC, REAMBuilder, build_ream
 from repro_torch.core.metrics import select_experts
 from repro_torch.core.predictor import predictor_apply
 
@@ -68,6 +75,159 @@ class NextLayerAllPolicy(Policy):
         return np.arange(self.e)
 
 
+class RandomPolicy(Policy):
+    # NOT stateless: predict() advances the shared rng, so per-request
+    # streams would depend on batch interleaving if one instance were
+    # shared — batched engines should build one per request.
+    name = "random"
+
+    def __init__(self, num_experts: int, width: int, seed: int = 0):
+        self.e = num_experts
+        self.width = width
+        self.rng = np.random.default_rng(seed)
+
+    def predict(self, t, layer):
+        return self.rng.choice(self.e, size=min(self.width, self.e),
+                               replace=False)
+
+
+class GlobalFrequencyPolicy(Policy):
+    """BrainStorm-style: retain historically popular experts per layer."""
+    name = "global-frequency"
+    stateless = True
+
+    def __init__(self, train_traces, num_layers: int, num_experts: int,
+                 width: int):
+        counts = np.zeros((num_layers, num_experts), np.float64)
+        for tr in train_traces:
+            counts += build_ream(tr, num_layers, num_experts)
+        self.top = np.argsort(-counts, axis=1)[:, :width]
+
+    def predict(self, t, layer):
+        return self.top[layer]
+
+
+class OraclePolicy(Policy):
+    name = "oracle"
+
+    def begin_prompt(self, trace):
+        self.trace = trace
+
+    def predict(self, t, layer):
+        return np.unique(self.trace.experts[t, layer])
+
+
+class MoEInfinityPolicy(Policy):
+    """Paper §4.1.4: partial rEAM -> cosine match vs EAMC -> prefetch the
+    matched sketch's expert group for the upcoming layer."""
+    name = "moe-infinity"
+
+    def __init__(self, train_traces, num_layers: int, num_experts: int,
+                 width: int, eamc_capacity: int = 32, seed: int = 0):
+        self.num_layers = num_layers
+        self.num_experts = num_experts
+        self.width = width
+        self.eamc = EAMC(num_layers, num_experts, eamc_capacity)
+        reams = [build_ream(tr, num_layers, num_experts)
+                 for tr in train_traces]
+        if reams:
+            self.eamc.fit(reams, seed=seed)
+        self.partial: REAMBuilder | None = None
+
+    def begin_prompt(self, trace):  # noqa: ARG002
+        self.partial = REAMBuilder(self.num_layers, self.num_experts)
+
+    def observe(self, t, layer, experts, embedding=None):
+        self.partial.add(layer, experts)
+
+    def predict(self, t, layer):
+        return self.eamc.predict_layer(self.partial.counts, layer,
+                                       self.width)
+
+
+class MoEBeyondPolicy(Policy):
+    """The paper's learned predictor over a whole trace.
+
+    ``begin_prompt`` computes the trace's predictions for every MoE layer
+    in one causally-masked forward on the predictor's device (a layer per
+    batch row): position t sees only tokens <= t, so this is exactly the
+    online one-layer look-ahead."""
+    name = "moe-beyond"
+
+    def __init__(self, predictor_params, pcfg, width: Optional[int] = None):
+        self.params = predictor_params
+        self.pcfg = pcfg
+        self.width = width or pcfg.top_k
+        self.device = predictor_params["in_w"].device
+        self._pred: Dict[int, list] = {}
+        self._t_max = 0
+
+    @torch.no_grad()
+    def begin_prompt(self, trace):
+        pc = self.pcfg
+        t = min(trace.num_tokens, pc.max_seq)
+        n_layers = trace.experts.shape[1]
+        emb = torch.from_numpy(np.ascontiguousarray(
+            trace.embeddings[:t], np.float32)).to(self.device)
+        emb = emb[None].expand(n_layers, t, emb.shape[-1])
+        lids = torch.arange(n_layers, device=self.device)[:, None]
+        logits = predictor_apply(
+            self.params, pc, emb, lids.expand(n_layers, t),
+            torch.ones((n_layers, t), dtype=torch.bool, device=self.device))
+        logits = logits[..., : pc.num_experts].cpu().numpy()  # horizon 0
+        # prefetch uses pure top-k (threshold only matters for the
+        # paper's accuracy metric; an empty prefetch set helps nobody)
+        sel = select_experts(logits, self.width, threshold=-1e9)
+        self._pred = {layer: [np.nonzero(s)[0] for s in sel[layer]]
+                      for layer in range(n_layers)}
+        self._t_max = t
+
+    def predict(self, t, layer):
+        if t >= self._t_max or layer not in self._pred:
+            return np.empty((0,), np.int64)
+        return self._pred[layer][t]
+
+
+class CrossLayerPolicy(Policy):
+    """Predict layer l's experts from the experts that just fired at layer
+    l-1 for the same token, via conditional frequencies P(e_l | e_{l-1})
+    estimated from training traces. No learned weights."""
+    name = "cross-layer"
+
+    def __init__(self, train_traces, num_layers: int, num_experts: int,
+                 width: int, alpha: float = 0.5):
+        self.width = width
+        self.e = num_experts
+        # cond[l][a, b] = count(expert b fires at layer l | a fired at l-1)
+        self.cond = np.full((num_layers, num_experts, num_experts), alpha)
+        self.prior = np.full((num_layers, num_experts), alpha)
+        for tr in train_traces:
+            t_steps, n_layers, _ = tr.experts.shape
+            for t in range(t_steps):
+                for layer in range(n_layers):
+                    cur = np.unique(tr.experts[t, layer])
+                    self.prior[layer, cur] += 1
+                    if layer > 0:
+                        prev = np.unique(tr.experts[t, layer - 1])
+                        for a in prev:
+                            self.cond[layer, a, cur] += 1
+        self._last: Dict[int, np.ndarray] = {}
+
+    def begin_prompt(self, trace=None):  # noqa: ARG002
+        self._last = {}
+
+    def observe(self, t, layer, experts, embedding=None):
+        self._last[layer] = np.asarray(experts)
+
+    def predict(self, t, layer):
+        if layer == 0 or (layer - 1) not in self._last:
+            scores = self.prior[layer]
+        else:
+            prev = self._last[layer - 1]
+            scores = self.cond[layer, prev].sum(axis=0)
+        return np.argsort(-scores)[: self.width]
+
+
 class OnlineMoEBeyondPolicy(Policy):
     """The paper's learned predictor in the live decode loop: accumulates
     the request's token embeddings as they are observed and predicts the
@@ -83,6 +243,7 @@ class OnlineMoEBeyondPolicy(Policy):
         self._emb: list = []
         self._seen_t = -1
 
+    @torch.no_grad()
     def _apply(self, emb, lids, mask) -> np.ndarray:
         d = self.device
         logits = predictor_apply(

@@ -1,11 +1,17 @@
-"""The MoE-Beyond expert-activation predictor (paper §3.2), inference only.
+"""The MoE-Beyond expert-activation predictor (paper §3.2): its forward in
+inference and training mode, the loss and the paper's layerwise learning
+rates.
 
 concat(standardised token_emb, layer_emb[layer_id]) -> linear(d_model) ->
 pre-LN transformer encoder (causal + padding mask) -> 2-layer GELU head ->
-num_experts * horizon logits. Dropout is a training-time op and absent;
-training the predictor is ROADMAP work ("tracing and predictor
-training"). Parameters: the reference's tree with ``enc`` as a list of
-per-layer dicts (``convert.predictor_from_jax`` unstacks it).
+num_experts * horizon logits. In training mode, dropout at the
+reference's three kinds of site (attention probabilities and FFN output
+of every layer, then the head) draws its masks from an explicit
+``torch.Generator``. Parameters: the reference's tree with ``enc`` as a
+list of per-layer dicts (``convert.predictor_from_jax`` unstacks it);
+their "/"-joined paths (``in_w``, ``enc/0/wq``, ``head_w1``, ...) are what
+:func:`predictor_lr_fn` matches. Gradients flow wherever the caller
+enables them; inference callers run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -58,10 +64,24 @@ def predictor_init(generator, pc: PredictorConfig, device="cuda"):
     }
 
 
-@torch.no_grad()
-def predictor_apply(params, pc: PredictorConfig, emb, layer_ids, pad_mask):
+def _dropout(x, rate: float, generator, train: bool):
+    """Inverted dropout: keep with probability ``1 - rate``, scale kept
+    values by ``1 / (1 - rate)``."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs a generator")
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def predictor_apply(params, pc: PredictorConfig, emb, layer_ids, pad_mask,
+                    train: bool = False, generator=None):
     """emb (B,T,token_emb_dim) f32; layer_ids (B,T) int; pad_mask (B,T)
-    bool (True = real token). Returns logits (B,T,E*horizon)."""
+    bool (True = real token). Returns logits (B,T,E*horizon). With
+    ``train``, dropout at rate ``pc.dropout`` with masks drawn from
+    ``generator``."""
     b, t, _ = emb.shape
     h = pc.num_heads
     dh = pc.d_model // h
@@ -79,6 +99,9 @@ def predictor_apply(params, pc: PredictorConfig, emb, layer_ids, pad_mask):
     mask = causal[None] & pad_mask[:, None, :]             # (B,T,T)
     neg = torch.full((), NEG_INF, device=emb.device)
 
+    def drop(v):
+        return _dropout(v, pc.dropout, generator, train)
+
     for lp in params["enc"]:
         xn = _ln(x, lp["ln1_g"], lp["ln1_b"])
         q = (xn @ lp["wq"]).reshape(b, t, h, dh)
@@ -86,12 +109,34 @@ def predictor_apply(params, pc: PredictorConfig, emb, layer_ids, pad_mask):
         v = (xn @ lp["wv"]).reshape(b, t, h, dh)
         s = torch.einsum("bqhd,bkhd->bhqk", q, k) * dh ** -0.5
         s = torch.where(mask[:, None], s, neg)
-        p = torch.softmax(s, dim=-1)
+        p = drop(torch.softmax(s, dim=-1))
         o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, t, -1)
         x = x + o @ lp["wo"]
         xn = _ln(x, lp["ln2_g"], lp["ln2_b"])
         f = F.gelu(xn @ lp["w1"] + lp["b1"], approximate="tanh")
-        x = x + (f @ lp["w2"] + lp["b2"])
+        x = x + drop(f @ lp["w2"] + lp["b2"])
 
     x = F.gelu(x @ params["head_w0"] + params["head_b0"], approximate="tanh")
+    x = drop(x)
     return x @ params["head_w1"] + params["head_b1"]
+
+
+def bce_loss(logits, targets, mask):
+    """Multi-label BCE-with-logits. targets (B,T,E) in {0,1}; mask (B,T)."""
+    z = logits.float()
+    y = targets.float()
+    per = torch.clamp_min(z, 0) - z * y + torch.log1p(torch.exp(-z.abs()))
+    per = per.mean(-1)                                   # over experts
+    m = mask.float()
+    return (per * m).sum() / torch.clamp_min(m.sum(), 1.0)
+
+
+def predictor_lr_fn(base: float = 1e-4):
+    """The paper's layerwise LR groups (§3.2.3), by parameter path."""
+    def fn(path: str) -> float:
+        if path.startswith("in_") or path.startswith("layer_emb"):
+            return base                   # input projection: 1e-4
+        if path.startswith("head_"):
+            return 0.8 * base             # head: 0.8e-4
+        return 0.9 * base                 # encoder: 0.9e-4
+    return fn

@@ -5,9 +5,12 @@ the reference facade's arguments and keep its decode state
 ``{"pos", "caches"}`` (``caches`` one entry per layer here).
 
 The facade's whole-sequence paths run the layer kinds that
-``transformer.block_apply`` ports (``ssd``); the MoE attention decoders are
-served through the engines' per-layer row and paged halves. Training
-(``loss_fn``) is ROADMAP work ("training and launch").
+``transformer.block_apply`` ports in them (``ssd``). ``init_decode_state``
+and ``decode_step`` also run MLA stacks (DeepSeek-V2-Lite) on contiguous
+latent rows with every expert on the device, as trace collection does;
+the offloaded engines serve the MoE attention decoders through their
+per-layer row and paged halves. Training (``loss_fn``) is ROADMAP work
+("training and launch").
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from repro_torch.models.common import dtype_of
 def _tokens(params, batch) -> torch.Tensor:
     if batch.get("patches") is not None:
         raise NotImplementedError(
-            "the vision early-fusion prefix: ROADMAP Queue 1 item 6")
+            "the vision early-fusion prefix: ROADMAP Queue 1 item 7")
     return torch.as_tensor(batch["tokens"], device=params["tok_emb"].device)
 
 
@@ -48,8 +51,8 @@ class Model:
 
     def forward(self, params, batch) -> torch.Tensor:
         """batch {"tokens": (B, T)} -> float32 logits (B, T, V)."""
-        logits, _ = transformer.lm_apply(params, self.cfg,
-                                         _tokens(params, batch), "full")
+        logits, _, _ = transformer.lm_apply(params, self.cfg,
+                                            _tokens(params, batch), "full")
         return logits
 
     def prefill(self, params, batch, cache_len: int):
@@ -58,15 +61,15 @@ class Model:
         prompt are never built. ``cache_len`` sizes attention caches in
         the reference; an SSD layer's state has no length."""
         tokens = _tokens(params, batch)
-        logits, caches = transformer.lm_apply(
+        logits, caches, _ = transformer.lm_apply(
             params, self.cfg, tokens, "prefill", last_only=True)
         return logits[:, -1], {"pos": tokens.shape[1], "caches": caches}
 
     def decode_step(self, params, state, batch):
         """batch {"tokens": (B, 1)} -> (logits (B, V), next state)."""
-        logits, caches = transformer.lm_apply(
+        logits, caches, _ = transformer.lm_apply(
             params, self.cfg, _tokens(params, batch), "decode",
-            caches=state["caches"])
+            caches=state["caches"], pos=state["pos"])
         return logits[:, -1], {"pos": state["pos"] + 1, "caches": caches}
 
     def init_decode_state(self, batch_size: int, cache_len: int,
@@ -89,5 +92,5 @@ def build_model(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"{cfg.name}: only Mamba-2 SSD stacks and MoE decoders with "
             "MLA/global/local/chunked attention are ported (ROADMAP Queue 1 "
-            "item 6: the other architectures)")
+            "item 7: the other architectures)")
     return Model(cfg)

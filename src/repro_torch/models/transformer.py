@@ -5,9 +5,10 @@ whole-block ``block_apply``/``stack_apply`` of the model facade, embed and
 unembed.
 
 Layer kinds ported: ``mla``, ``global``, ``local``, ``chunked`` (the
-engines' decode halves) and ``ssd`` (the facade's full, prefill and
-decode modes); ``rglru`` raises ``NotImplementedError`` naming its ROADMAP
-item.
+engines' decode halves), ``mla`` whole blocks in decode mode (the batch-1
+decode of trace collection, routed ids in ``extras``) and ``ssd`` (the
+facade's full, prefill and decode modes); ``rglru`` raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -17,12 +18,12 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mla, moe, ssd
-from repro_torch.models.common import (dense_init, dtype_of, ffn_init,
-                                       rms_norm, rms_norm_init)
+from repro_torch.models.common import (dense_init, dtype_of, ffn_apply,
+                                       ffn_init, rms_norm, rms_norm_init)
 
 Params = Dict[str, Any]
 
-_TODO_KINDS = ("layer kind {!r} is not ported yet (ROADMAP Queue 1 item 6: "
+_TODO_KINDS = ("layer kind {!r} is not ported yet (ROADMAP Queue 1 item 7: "
                "the other attention modes and architectures)")
 GQA_KINDS = ("global", "local", "chunked")
 
@@ -167,15 +168,28 @@ def block_paged_copy(cfg, kind: str, cache, src: int, dst: int):
     raise ValueError(f"layer kind {kind!r} does not page")
 
 
-def block_apply(p, cfg, kind: str, x, mode: str, cache=None):
+def block_apply(p, cfg, kind: str, x, mode: str, cache=None, pos=None):
     """One whole block in ``mode`` "full", "prefill" or "decode", as the
-    reference's ``block_apply``. Returns (x, new_cache). Only
-    ``ssd`` runs here (it reads neither positions nor ``pos``); the
-    attention kinds serve through the engines' halves above."""
+    reference's ``block_apply``. Returns (x, new_cache, extras), where an
+    MoE layer's ``extras["experts"]`` holds its routed ids (B, T, k).
+
+    ``ssd`` runs in every mode (it reads neither positions nor ``pos``).
+    ``mla`` runs in decode mode: x (B, 1, D) against contiguous latent
+    rows, entry ``i`` on row ``i`` at position ``pos[i]`` (``pos`` a (B,)
+    int32 tensor), then its dense FFN or :func:`moe.moe_decode` with every
+    expert on the device. The other kinds serve through the engines'
+    halves above."""
+    if kind == "mla" and mode == "decode":
+        x, cache = block_row_decode(p, cfg, kind, x, cache, None, pos)
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if "moe" in p:
+            y, idx = moe.moe_decode(p["moe"], cfg, h)
+            return x + y, cache, {"experts": idx}
+        return x + ffn_apply(p["ffn"], h, cfg.ffn_kind), cache, {}
     if kind != "ssd":
         raise NotImplementedError(
             f"block_apply of layer kind {kind!r} in mode {mode!r}: ROADMAP "
-            "Queue 1 item 6 (full and prefill attention, the other "
+            "Queue 1 item 7 (full and prefill attention, the other "
             "architectures)")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if mode == "decode":
@@ -187,7 +201,7 @@ def block_apply(p, cfg, kind: str, x, mode: str, cache=None):
         out, new_cache = ssd.ssd_apply_full(p["ssd"], cfg, h), None
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    return x + out, new_cache                        # no FFN sub-block
+    return x + out, new_cache, {}                    # no FFN sub-block
 
 
 def stack_cache_init(cfg, batch: int, cache_len: int, dtype, device) -> list:
@@ -196,16 +210,18 @@ def stack_cache_init(cfg, batch: int, cache_len: int, dtype, device) -> list:
             for kind in cfg.layer_kinds()]
 
 
-def stack_apply(layers, cfg, x, mode: str, caches=None):
+def stack_apply(layers, cfg, x, mode: str, caches=None, pos=None):
     """Every layer in order (the reference scans its stacked groups).
-    Returns (x, new_caches): one cache per layer, None in "full" mode.
-    Prefill builds caches and reads none."""
-    new_caches = []
+    Returns (x, new_caches, extras): one cache per layer, None in "full"
+    mode; one extras dict per layer. Prefill builds caches and reads
+    none."""
+    new_caches, extras = [], []
     for i, kind in enumerate(cfg.layer_kinds()):
         c = caches[i] if mode == "decode" else None
-        x, nc = block_apply(layers[i], cfg, kind, x, mode, c)
+        x, nc, ex = block_apply(layers[i], cfg, kind, x, mode, c, pos)
         new_caches.append(nc)
-    return x, (None if mode == "full" else new_caches)
+        extras.append(ex)
+    return x, (None if mode == "full" else new_caches), extras
 
 
 def lm_init(gen: torch.Generator, cfg, device, expert_device=None) -> Params:
@@ -246,12 +262,18 @@ def unembed(params, cfg, x):
 
 
 def lm_apply(params, cfg, tokens, mode: str = "full", caches=None,
-             last_only: bool = False):
-    """Embed, every layer, unembed. Returns (logits, new_caches);
-    ``last_only`` unembeds the last position alone (logits (B, 1, V)),
-    which is all prefill returns."""
-    x, new_caches = stack_apply(params["layers"], cfg,
-                                embed(params, cfg, tokens), mode, caches)
+             last_only: bool = False, pos=None):
+    """Embed, every layer, unembed. Returns (logits, new_caches, extras),
+    ``extras`` one dict per layer (an MoE layer's routed ids under
+    ``"experts"``). In decode mode ``pos`` is the position of the tokens,
+    an int or a (B,) tensor. ``last_only`` unembeds the last position
+    alone (logits (B, 1, V)), which is all prefill returns."""
+    x = embed(params, cfg, tokens)
+    if mode == "decode" and pos is not None and not torch.is_tensor(pos):
+        pos = torch.full((x.shape[0],), pos, dtype=torch.int32,
+                         device=x.device)
+    x, new_caches, extras = stack_apply(params["layers"], cfg, x, mode,
+                                        caches, pos)
     if last_only:
         x = x[:, -1:]
-    return unembed(params, cfg, x), new_caches
+    return unembed(params, cfg, x), new_caches, extras

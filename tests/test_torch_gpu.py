@@ -464,3 +464,109 @@ def test_mamba2_facade_on_card_matches_cpu(cuda):
     assert runs["cpu"][2]["ssd_chunk"] == 0
     assert runs["cuda"][2] == {**{k: 0 for k in runs["cuda"][2]},
                                "ssd_chunk": cfg.num_layers}
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_trace_collection_on_card_matches_cpu(cuda):
+    """Greedy batch-1 traces of the reduced DeepSeek-V2-Lite (f32, TF32
+    off) through the facade's decode mode on the card (``topk_gating`` and
+    ``expert_ffn`` on every MoE layer of every step) and on the CPU from
+    identical weights: identical tokens, routed ids and embeddings."""
+    from repro_torch.core.tracing import collect_traces, moe_layer_ids
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_reduced("deepseek-v2-lite")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(7), device="cpu")
+    g = torch.Generator().manual_seed(8)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (9, 4)]
+    runs = {}
+    for dev, p in (("cpu", params), ("cuda", _tree_to(params, cuda))):
+        reset_launch_counts()
+        runs[dev] = (collect_traces(model, p, prompts, 6, 24,
+                                    temperature=0.0), launch_counts())
+    steps = sum(t.num_tokens for t in runs["cuda"][0])
+    n_moe = len(moe_layer_ids(cfg))
+    assert runs["cuda"][1] == {**{k: 0 for k in runs["cuda"][1]},
+                               "topk_gating": steps * n_moe,
+                               "expert_ffn": steps * n_moe}
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert (a.tokens == b.tokens).all()
+        assert (a.experts == b.experts).all()
+        assert (a.embeddings == b.embeddings).all()
+        assert a.prompt_len == b.prompt_len
+
+
+def test_predictor_train_step_on_card_matches_cpu(cuda):
+    """One training step of the paper's full-size predictor (batch 4,
+    dropout 0, f32, TF32 off) from the same weights on the card and on
+    the CPU: the loss within 1e-5 relative and every gradient within 1e-4
+    of its largest entry; then AdamW from the same gradients leaves every
+    parameter within 1e-6; and ``train_predictor``'s one-step epoch on
+    the card records the same loss as on the CPU. (Parameters after
+    whole steps from each device's own gradients are not compared: Adam's
+    first step divides each gradient by its own magnitude, so an entry
+    near ``eps`` moves by up to the learning rate on rounding alone.)"""
+    import numpy as np
+
+    from repro_torch.configs.base import PredictorConfig
+    from repro_torch.core.predictor import (bce_loss, predictor_apply,
+                                            predictor_init, predictor_lr_fn)
+    from repro_torch.core.predictor_train import train_predictor
+    from repro_torch.core.tracing import Trace
+    from repro_torch.data import PredictorDataset
+    from repro_torch.training.optimizer import make_adamw, named_leaves
+
+    pc = PredictorConfig(token_emb_dim=128, num_model_layers=2,
+                         num_experts=16, top_k=2, max_seq=12, dropout=0.0)
+    rng = np.random.default_rng(0)
+    traces = [Trace(tokens=np.zeros(12, np.int32),
+                    embeddings=rng.normal(size=(12, 128)).astype(np.float32),
+                    experts=rng.integers(0, 16, (12, 2, 2)).astype(np.int32),
+                    prompt_len=4) for _ in range(2)]
+    init = predictor_init(torch.Generator().manual_seed(1), pc, device="cpu")
+    batch = next(PredictorDataset(traces, pc).batches(4, seed=0))
+    losses, grads, params = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        leaves = [t.to(dev).clone().requires_grad_(True)
+                  for _, t in named_leaves(init)]
+        it = iter(leaves)
+        tree = {k: ([{kk: next(it) for kk in sorted(lp)} for lp in v]
+                    if k == "enc" else next(it))
+                for k, v in sorted(init.items())}
+        emb, lids, mask, tgt = (torch.from_numpy(a).to(dev) for a in batch)
+        loss = bce_loss(predictor_apply(tree, pc, emb, lids, mask), tgt,
+                        mask)
+        losses[dev] = loss.item()
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        params[dev] = tree
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
+    for (path, _), a, b in zip(named_leaves(init), grads["cpu"],
+                               grads["cuda"]):
+        scale = max(a.abs().max().item(), 1e-30)
+        assert (a - b).abs().max().item() <= 1e-4 * scale, path
+    for dev in ("cpu", "cuda"):
+        opt_init, opt_update = make_adamw(lr=predictor_lr_fn(1e-3))
+        opt_update([g.to(dev) for g in grads["cpu"]],
+                   opt_init(params[dev]), params[dev])
+    for (path, a), (_, b) in zip(named_leaves(params["cpu"]),
+                                 named_leaves(params["cuda"])):
+        assert b.device.type == "cuda"
+        assert (a.detach() - b.detach().cpu()).abs().max().item() <= 1e-6, \
+            path
+    hist = {}
+    for dev in ("cpu", cuda):
+        _, hist[str(dev)] = train_predictor(
+            traces, traces, pc, epochs=1, batch_size=4, base_lr=1e-3,
+            device=dev, init_params=init, log=lambda *_: None)
+        assert hist[str(dev)].steps == 1
+    assert abs(hist["cuda"].train_loss[0] - hist["cpu"].train_loss[0]) <= \
+        1e-5 * abs(hist["cpu"].train_loss[0])

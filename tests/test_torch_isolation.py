@@ -11,6 +11,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core.predictor import predictor_init
+from repro_torch.core.predictor_train import train_predictor
 from repro_torch.configs import get_reduced
 from repro_torch.configs.base import PredictorConfig
 from repro_torch.kernels.runtime import resolve_device
@@ -23,12 +24,13 @@ PORT = os.path.join(REPO, "src", "repro_torch")
 ENTRY_POINTS = [Model.init, Model.init_decode_state,
                 BatchedOffloadEngine.__init__,
                 OffloadEngine.__init__, DecodeCore.__init__, predictor_init,
-                convert.backbone_from_jax, convert.predictor_from_jax,
-                resolve_device]
+                train_predictor, convert.backbone_from_jax,
+                convert.predictor_from_jax, resolve_device]
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")] + [
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "examples", "pipeline_torch.py")] + [
         os.path.join(REPO, "tools", n)
         for n in ("kernel_phase2.py", "profile_mamba_torch.py")]
     for root, _, names in os.walk(PORT):
@@ -78,6 +80,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         mamba.init_decode_state(1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         predictor_init(torch.Generator().manual_seed(0), PredictorConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_predictor([], [], PredictorConfig())
     params = model.init(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchedOffloadEngine(model, params, None, 48)

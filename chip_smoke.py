@@ -17,8 +17,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decode and prefill-chunk shapes, main run 2's and the pipeline's
    batch-1 decode; ``ssd_chunk`` at both of main run 3's shapes, G 128
    and G 256, and the reduced mamba2 shape; ``topk_gating`` at main run
-   1's decode and prefill-chunk shapes, main run 2's and the pipeline's,
-   on rows with a tie across the k-th place, all values
+   1's decode and prefill-chunk shapes, main run 2's, the pipeline's and
+   the training forward's (4,096 rows x 64 experts top-6, 2,048 x 16
+   top-2), on rows with a tie across the k-th place, all values
    equal, and probabilities underflowed to 0; for all five, two calls on
    the same inputs must be bit-identical), in bfloat16 and float32 (the
    router in float32 only), and time kernel, plain version and a PyTorch
@@ -30,7 +31,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. main run: full-width DeepSeek-V2-Lite in bfloat16 (seeded random
    weights, routed experts in pinned host memory, 28.8 GB) served by
    ``BatchedOffloadEngine`` with the paper's learned prefetch policy at a
-   10% expert cache, counting every kernel launch;
+   10% expert cache, counting every kernel launch; its modeled fetches
+   (and main run 2's) priced at this card's host-to-device rate, measured
+   once before the phases (``measured_host_bw``, one expert's pinned
+   copies);
 4. on-card parity: DeepSeek-V2-Lite at full width, float32, depth cut to 3
    layers; the engine on the card and on the CPU from identical weights
    must give identical streams, routed expert ids and counters;
@@ -49,6 +53,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4b. parity pipeline: the same in float32 on the reduced DeepSeek-V2-Lite:
    greedy traces on the card and on the CPU identical, the predictor's
    logits within 1e-4, the simulator's table of every policy identical;
+4c. train: DeepSeek-V2-Lite at full width in bfloat16, depth cut to 4
+   layers (1 dense, 3 MoE; 2.25 B parameters), 8 AdamW steps at B 4 x S
+   1024 on the topic corpus (one dispatch group a step, the chunked loss);
+   fails unless every loss is finite, the last below the first, and
+   ``topk_gating`` launched exactly 3 x 8 times;
+4d. parity train: the reduced DeepSeek-V2-Lite in float32, one ``loss_fn``
+   with its gradients and 3 quickstart AdamW steps on the card and on the
+   CPU, each step from the same weights and moments: routed ids
+   identical, loss, gradients and step losses within tolerance, a step
+   routed apart only at a near-tie;
+4e. pipeline trained: the ~100M config of ``examples/train_backbone.py``
+   trained 200 steps at B 8 x S 256, then 4a's steps 2-4 on it at 10% and
+   20% caches, beside 4a's random-backbone table;
 5. main run 2: full-width Llama-4-Scout in bfloat16, depth cut to 8 layers
    (two 3:1 chunked:global groups; 32.2 GB of routed experts in pinned
    host memory), paged engine: global layers through the block pools
@@ -70,17 +87,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    script (matmul and cuDNN), and the causal convolution is a
    shift-and-add, never a cuDNN convolution.
 
-Phases 4a and 4b are named ``pipeline`` and ``parity_pipeline`` in the
-output. Host memory: about 32 GB for main run 2's pinned experts (each
+Phases 4a-4e are named ``pipeline``, ``parity_pipeline``, ``train``,
+``parity_train`` and ``pipeline_trained`` in the output. Host memory: about 32 GB for main run 2's pinned experts (each
 main run's pinned blocks are released before the next phase), and 16 GB
 of float32 experts for parity run 2. The last stdout line is ``{"ok": true,
 "device": {...}}``; the line before it is the card's name and power limit;
 before that the ``{"kernels": [...]}`` line, whose ``launches`` are the
 counts of the main run that drives each kernel (Llama-4-Scout's for the
 four attention and MoE kernels, mamba2's for ``ssd_chunk``;
-``launches_by_run`` has every main run's and the pipeline's), and before
-that ``{"launch_floor_ms": ...}`` and the pipeline's summary
-``{"pipeline": ...}``. Details go to
+``launches_by_run`` has every main run's and the pipeline, train and
+pipeline_trained phases'), and before that ``{"launch_floor_ms": ...}``
+and the phases' summaries. Details go to
 ``chiprun_out/chip_smoke.json``.
 This script imports nothing of JAX or of the reference package.
 """
@@ -390,13 +407,17 @@ EXPERT_SHAPES = {
     "prefill": dict(n=8, k=6, d=2048, f=1408, slots=166,
                     distinct=PREFILL_DISTINCT_SLOTS),
     "pipeline": dict(n=1, k=6, d=2048, f=1408, slots=64),
+    # pipeline_trained's trace decode: the float32 ~100M-family backbone's
+    # 1 token, top-2 of its 16 experts
+    "pipeline_trained": dict(n=1, k=2, d=256, f=512, slots=16,
+                             timed="float32"),
 }
 
 
 def check_expert(torch, dev, gen):
     """``expert_ffn`` at every shape of ``EXPERT_SHAPES``."""
     out = expert_case(torch, dev, gen, **EXPERT_SHAPES["deepseek"])
-    for name in ("llama4", "prefill", "pipeline"):
+    for name in ("llama4", "prefill", "pipeline", "pipeline_trained"):
         out[name] = expert_case(torch, dev, gen, **EXPERT_SHAPES[name])
     return out
 
@@ -417,9 +438,11 @@ def expert_inputs(torch, dev, gen, dt, n, k, d, f, slots, distinct=None):
     return x, w, sl, *bufs
 
 
-def expert_case(torch, dev, gen, n, k, d, f, slots, distinct=None):
+def expert_case(torch, dev, gen, n, k, d, f, slots, distinct=None,
+                timed="bfloat16"):
     """One shape in f32 and bf16 against the plain version; two calls on
-    the same inputs must be bit-identical; bf16 timed."""
+    the same inputs must be bit-identical; timed in the ``timed`` dtype
+    (the one its run calls it in)."""
     from repro_torch.kernels import expert_ffn as ef
     out = {}
     for dtype in ("float32", "bfloat16"):
@@ -440,15 +463,18 @@ def expert_case(torch, dev, gen, n, k, d, f, slots, distinct=None):
             fail(f"expert_ffn ({n},{k},{d},{f}) {dtype}: max abs err {err} "
                  f"> {tol}")
         out[dtype] = err
-        if dtype == "bfloat16":
+        if dtype == timed:
             out.update(timings(torch, lambda: ef.expert_ffn(*args),
                                lambda: ef.expert_ffn_plain(*args)))
             n_distinct = len(set(sl.reshape(-1).tolist()))
-            nbytes = n_distinct * 3 * d * f * 2 + 2 * n * d * 2 + n * k * 6
+            size = args[0].element_size()
+            nbytes = (n_distinct * 3 * d * f * size + 2 * n * d * size
+                      + n * k * 6)
             ops = n * k * 6 * d * f
-            out["bound_ms"], out["bound_by"] = bound(nbytes, ops, "bfloat16")
+            out["bound_ms"], out["bound_by"] = bound(nbytes, ops, dtype)
             out["bit_identical"] = True
-            out["shape"] = (f"x ({n},{d}) bf16, k {k}, slot buffers "
+            short = "bf16" if dtype == "bfloat16" else "f32"
+            out["shape"] = (f"x ({n},{d}) {short}, k {k}, slot buffers "
                             f"({slots},{d},{f})/({slots},{f},{d}), "
                             f"{n_distinct} distinct slots")
         del args
@@ -457,12 +483,17 @@ def expert_case(torch, dev, gen, n, k, d, f, slots, distinct=None):
 
 # topk_gating's shapes on the main path: main run 1's router at decode (4
 # lanes) and at a prefill chunk (8 tokens of one request), 64 experts top-6,
-# main run 2's (16 experts, top-1), and the pipeline's batch-1 trace decode
+# main run 2's (16 experts, top-1), the pipeline's batch-1 trace decode, and
+# the training forward's ids: the train phase's B 4 x S 1024 tokens (64
+# experts, top-6) and pipeline_trained's B 8 x S 256 (16 experts, top-2)
 TOPK_SHAPES = {
     "deepseek": dict(t=4, e=64, k=6),
     "prefill": dict(t=8, e=64, k=6),
     "llama4": dict(t=4, e=16, k=1),
     "pipeline": dict(t=1, e=64, k=6),
+    "train": dict(t=4096, e=64, k=6),
+    "train_100m": dict(t=2048, e=16, k=2),
+    "pipeline_trained": dict(t=1, e=16, k=2),
 }
 
 
@@ -470,7 +501,8 @@ def check_topk(torch, dev, gen, floor_ms):
     """``topk_gating`` at every shape of ``TOPK_SHAPES``, the first at the
     top level; ``floor_ms`` is this run's ``launch_floor_ms``."""
     out = topk_case(torch, dev, gen, floor_ms, **TOPK_SHAPES["deepseek"])
-    for name in ("prefill", "llama4", "pipeline"):
+    for name in ("prefill", "llama4", "pipeline", "train", "train_100m",
+                 "pipeline_trained"):
         out[name] = topk_case(torch, dev, gen, floor_ms, **TOPK_SHAPES[name])
     return out
 
@@ -722,7 +754,7 @@ def release_host_memory(torch) -> None:
         empty()
 
 
-def main_run(torch, np, dev, arch):
+def main_run(torch, np, dev, arch, host_bw):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import PredictorConfig
     from repro_torch.core.policies import OnlineMoEBeyondPolicy
@@ -760,7 +792,8 @@ def main_run(torch, np, dev, arch):
                         device=dev)
     eng = BatchedOffloadEngine(
         model, params, lambda: OnlineMoEBeyondPolicy(pp, pc), capacity,
-        max_batch=4, block_size=8, prefill_chunk=8, device=dev)
+        host_bw=host_bw, max_batch=4, block_size=8, prefill_chunk=8,
+        device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
@@ -803,12 +836,18 @@ def main_run(torch, np, dev, arch):
         "prefill_chunks": st.prefill_chunks,
         "prefill_tokens": st.prefill_tokens,
         "fallback_prefill_tokens": st.fallback_prefill_tokens,
-        "sim_stall_s": st.sim_stall_s, "launches": launches,
+        "sim_stall_s": st.sim_stall_s, "host_bw_bytes_per_s": host_bw,
+        "launches": launches,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "distinct_slots_per_expert_call": distinct_slots(routes, kinds),
     }
     del eng, params, pp
     return result, launches
+
+
+# the parity runs' modeled host-to-device rate: one value on both sides
+# (a parity run compares counters, not this card's rate)
+PARITY_HOST_BW = 100e9
 
 
 def predictor_pair(torch, dev, pc, seed):
@@ -851,8 +890,9 @@ def parity_run(torch, np, dev):
     for where, pp in (("card", pp_gpu), ("cpu", pp_cpu)):
         eng = BatchedOffloadEngine(
             model, params, lambda pp=pp: OnlineMoEBeyondPolicy(pp, pc), 24,
-            max_batch=2, block_size=8, prefill_chunk=8,
-            layer_compute_s=2e-4, device=dev if where == "card" else "cpu")
+            host_bw=PARITY_HOST_BW, max_batch=2, block_size=8,
+            prefill_chunk=8, layer_compute_s=2e-4,
+            device=dev if where == "card" else "cpu")
         routes = record_routes(eng.core, check_finite=True)
         outs = eng.generate(prompts, 6, 32)
         eng.pool.check_leaks(expected_in_use=0)
@@ -900,61 +940,40 @@ def sim_row(r) -> dict:
             "tokens": r.tokens}
 
 
-def pipeline_run(torch, np, dev):
-    """The paper's pipeline, steps 2-4 of the quickstart, on main run 1's
-    backbone (full width and depth, bfloat16, main run 1's seed) with
-    every expert on the device: batch-1 traces through the facade's
-    decode mode (``topk_gating`` and ``expert_ffn`` on every MoE layer of
-    every step), the paper's full-size predictor trained with
-    ``train_predictor``'s defaults, and the held-out traces replayed
-    through the cache simulator with every policy at a 10% cache,
-    together and one trace at a time (the spread that says whether the
-    table ranks the policies)."""
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import PredictorConfig
-    from repro_torch.core import policies as P
-    from repro_torch.core.predictor import predictor_init
-    from repro_torch.core.predictor_train import evaluate, train_predictor
-    from repro_torch.core.simulator import (SimConfig, measured_host_bw,
-                                            simulate)
+def since(torch, t0) -> float:
+    """Seconds since ``t0`` once the card has finished its work."""
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def trace_backbone(torch, np, dev, label, model, params):
+    """Step 2 of the pipeline: ``PIPELINE``'s batch-1 traces of topic-
+    corpus prompts (``n_topics=8``, seed 0) through the facade's decode
+    mode, prompt i sampled from a generator seeded with SEED + i. Fails
+    unless ``topk_gating`` and ``expert_ffn`` each launched exactly once
+    per MoE layer and step (and no other kernel ran) and every trace is
+    well formed. Returns (traces, seconds, launches)."""
     from repro_torch.core.tracing import collect_traces, moe_layer_ids
-    from repro_torch.data import (PredictorDataset, make_topic_corpus,
-                                  sample_prompts)
+    from repro_torch.data import make_topic_corpus, sample_prompts
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models.model import build_model
 
-    def since(t0):
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    c = PIPELINE
-    cfg = get_config("deepseek-v2-lite")
+    c, cfg = PIPELINE, model.cfg
     m = cfg.moe
     n_moe = len(moe_layer_ids(cfg))
     cache_len = c["prompt_len"] + c["max_new"]
-    model = build_model(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(dev).manual_seed(SEED), device=dev)
-    init_s = since(t0)
-    param_bytes = sum(t.numel() * t.element_size() for t in tensors(params))
     corpus = make_topic_corpus(cfg.vocab_size, n_topics=8, seed=0)
     prompts = sample_prompts(corpus, c["prompts"], c["prompt_len"], seed=2)
-
-    # 2. traces: prompt i samples from a generator seeded with SEED + i
     reset_launch_counts()
     t0 = time.perf_counter()
     traces = collect_traces(model, params, prompts, c["max_new"], cache_len,
                             c["temperature"], seed=SEED)
-    trace_s = since(t0)
+    trace_s = since(torch, t0)
     launches = launch_counts()
-    del params
-    release_host_memory(torch)
     steps = sum(t.num_tokens for t in traces)
     want = {k: 0 for k in launches}
     want["topk_gating"] = want["expert_ffn"] = steps * n_moe
     if launches != want:
-        fail(f"pipeline: launches {launches}, want {want}")
+        fail(f"{label}: launches {launches}, want {want}")
     for tr in traces:
         if (tr.experts.shape != (cache_len, n_moe, m.top_k)
                 or tr.prompt_len != c["prompt_len"]
@@ -965,7 +984,30 @@ def pipeline_run(torch, np, dev):
                 or not all(len(set(r)) == m.top_k
                            for r in tr.experts.reshape(-1, m.top_k))
                 or not np.isfinite(tr.embeddings).all()):
-            fail("pipeline: a malformed trace")
+            fail(f"{label}: a malformed trace")
+    return traces, trace_s, launches
+
+
+def predict_and_simulate(torch, np, dev, label, cfg, traces, fractions):
+    """Steps 3-4 of the pipeline on ``traces``: the paper's full-size
+    predictor trained on the first ``PIPELINE["train"]`` with
+    ``train_predictor``'s defaults, then the others replayed through the
+    cache simulator with every policy at each cache fraction, together
+    and one trace at a time (the spread that says whether the table ranks
+    the policies), at the host-to-device rate of this card. Fails unless
+    every loss is finite, the trained predictor's validation loss is
+    below the untrained one's and the oracle hits every access."""
+    from repro_torch.configs.base import PredictorConfig
+    from repro_torch.core import policies as P
+    from repro_torch.core.predictor import predictor_init
+    from repro_torch.core.predictor_train import evaluate, train_predictor
+    from repro_torch.core.simulator import (SimConfig, measured_host_bw,
+                                            simulate)
+    from repro_torch.data import PredictorDataset
+
+    c, m = PIPELINE, cfg.moe
+    n_moe = len(traces[0].experts[0])
+    cache_len = c["prompt_len"] + c["max_new"]
     train_tr, held_out = traces[:c["train"]], traces[c["train"]:]
 
     # 3. predictor: initial weights, then dropout, from one generator
@@ -977,57 +1019,51 @@ def pipeline_run(torch, np, dev):
     pp, hist = train_predictor(train_tr, held_out, pc, device=dev,
                                generator=gen, init_params=init,
                                log=lines.append)
-    train_s = since(t0)
+    train_s = since(torch, t0)
     for line in lines:
-        log(f"pipeline: {line}")
+        log(f"{label}: {line}")
     ds_val = PredictorDataset(held_out, pc)
     untrained, trained = evaluate(init, pc, ds_val), evaluate(pp, pc, ds_val)
     losses = hist.train_loss + hist.val_loss
     if not losses or not np.isfinite(losses).all():
-        fail(f"pipeline: non-finite predictor losses {losses}")
+        fail(f"{label}: non-finite predictor losses {losses}")
     if not (np.isfinite(untrained["loss"]) and np.isfinite(trained["loss"])):
-        fail(f"pipeline: non-finite validation loss {untrained} {trained}")
+        fail(f"{label}: non-finite validation loss {untrained} {trained}")
     if not trained["loss"] < untrained["loss"]:
-        fail(f"pipeline: trained validation loss {trained['loss']} is not "
+        fail(f"{label}: trained validation loss {trained['loss']} is not "
              f"below the untrained predictor's {untrained['loss']}")
 
     # 4. simulator, at the host-to-device rate of this card
     nbytes = expert_bytes(torch, cfg)
     host_bw = measured_host_bw(dev, nbytes)
-    sim = SimConfig(num_layers=n_moe, num_experts=m.num_experts,
-                    capacity_fraction=c["capacity_fraction"],
-                    warm_tokens=c["warm_tokens"], expert_bytes=nbytes,
-                    host_bw=host_bw)
     t0 = time.perf_counter()
-    table = {}
-    for pol in seven_policies(P, pp, pc, train_tr):
-        r = simulate(held_out, pol, sim)
-        table[r.policy] = sim_row(r)
-    if table["oracle"]["cache_hit_rate"] != 1.0:
-        fail(f"pipeline: the oracle's cache-hit rate is "
-             f"{table['oracle']['cache_hit_rate']}, not 1.0")
-    for tr in held_out:
+    tables = {}
+    for frac in fractions:
+        sim = SimConfig(num_layers=n_moe, num_experts=m.num_experts,
+                        capacity_fraction=frac,
+                        warm_tokens=c["warm_tokens"], expert_bytes=nbytes,
+                        host_bw=host_bw)
+        table = {}
         for pol in seven_policies(P, pp, pc, train_tr):
-            table[pol.name].setdefault("per_trace_cache_hit_rate", []) \
-                .append(simulate([tr], pol, sim).cache_hit_rate)
-    for row in table.values():
-        rates = np.asarray(row["per_trace_cache_hit_rate"])
-        row["per_trace_std"] = float(rates.std(ddof=1))
-        row["std_error"] = row["per_trace_std"] / len(rates) ** 0.5
-    sim_s = since(t0)
-    result = {
-        "config": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
-        "moe_layers": n_moe, "param_bytes_on_device": param_bytes,
-        "init_s": init_s, **c,
-        "cache_len": cache_len, "traces": len(traces),
+            r = simulate(held_out, pol, sim)
+            table[r.policy] = sim_row(r)
+        if table["oracle"]["cache_hit_rate"] != 1.0:
+            fail(f"{label}: the oracle's cache-hit rate at {frac:.0%} is "
+                 f"{table['oracle']['cache_hit_rate']}, not 1.0")
+        for tr in held_out:
+            for pol in seven_policies(P, pp, pc, train_tr):
+                table[pol.name].setdefault("per_trace_cache_hit_rate", []) \
+                    .append(simulate([tr], pol, sim).cache_hit_rate)
+        for row in table.values():
+            rates = np.asarray(row["per_trace_cache_hit_rate"])
+            row["per_trace_std"] = float(rates.std(ddof=1))
+            row["std_error"] = row["per_trace_std"] / len(rates) ** 0.5
+        tables[frac] = (table, max(1, int(round(frac * n_moe
+                                                * m.num_experts))))
+    sim_s = since(torch, t0)
+    return {
         "held_out_traces": len(held_out),
         "measured_tokens": len(held_out) * (cache_len - c["warm_tokens"]),
-        "decode_steps": steps, "trace_s": trace_s,
-        "trace_steps_per_s": steps / trace_s,
-        "trace_launches": {k: launches[k]
-                           for k in ("topk_gating", "expert_ffn")},
-        "launches_per_step": {k: launches[k] / steps
-                              for k in ("topk_gating", "expert_ffn")},
         "predictor": {"d_model": pc.d_model, "layers": pc.num_layers,
                       "heads": pc.num_heads, "d_ff": pc.d_ff,
                       "dropout": pc.dropout, "max_seq": pc.max_seq},
@@ -1042,11 +1078,426 @@ def pipeline_run(torch, np, dev):
                        "val_f1": hist.val_f1[-1]},
         "val_loss_by_epoch": hist.val_loss,
         "untrained_val": untrained, "trained_val": trained,
-        "capacity_slots": max(1, int(round(c["capacity_fraction"] * n_moe
-                                           * m.num_experts))),
         "host_bw_bytes_per_s": host_bw, "expert_bytes": nbytes,
-        "sim_s": sim_s, "policies": table,
+        "sim_s": sim_s}, tables
+
+
+def pipeline_run(torch, np, dev):
+    """The paper's pipeline, steps 2-4 of the quickstart, on main run 1's
+    backbone (full width and depth, bfloat16, main run 1's seed) with
+    every expert on the device: batch-1 traces through the facade's
+    decode mode (``topk_gating`` and ``expert_ffn`` on every MoE layer of
+    every step), the paper's full-size predictor trained with
+    ``train_predictor``'s defaults, and the held-out traces replayed
+    through the cache simulator with every policy at a 10% cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    c = PIPELINE
+    cfg = get_config("deepseek-v2-lite")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(SEED), device=dev)
+    init_s = since(torch, t0)
+    param_bytes = sum(t.numel() * t.element_size() for t in tensors(params))
+    traces, trace_s, launches = trace_backbone(torch, np, dev, "pipeline",
+                                               model, params)
+    del params
+    release_host_memory(torch)
+    steps = sum(t.num_tokens for t in traces)
+    out, tables = predict_and_simulate(torch, np, dev, "pipeline", cfg,
+                                       traces, (c["capacity_fraction"],))
+    table, slots = tables[c["capacity_fraction"]]
+    result = {
+        "config": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+        "moe_layers": len(traces[0].experts[0]),
+        "param_bytes_on_device": param_bytes, "init_s": init_s, **c,
+        "cache_len": c["prompt_len"] + c["max_new"], "traces": len(traces),
+        "decode_steps": steps, "trace_s": trace_s,
+        "trace_steps_per_s": steps / trace_s,
+        "trace_launches": {k: launches[k]
+                           for k in ("topk_gating", "expert_ffn")},
+        "launches_per_step": {k: launches[k] / steps
+                              for k in ("topk_gating", "expert_ffn")},
+        **out, "capacity_slots": slots, "policies": table,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    return result, launches
+
+
+# the train phase: DeepSeek-V2-Lite at full width in bfloat16, depth cut
+# to 4 layers (1 dense, 3 MoE: ~27 GB of weights, gradients and float32
+# moments; 27 layers would need ~190 GB), one dispatch group of 4,096
+# tokens a step (capacity 480 pairs an expert), AdamW without a schedule
+TRAIN = dict(layers=4, batch=4, seq=1024, steps=8, lr=1e-3)
+
+
+def train_run(torch, np, dev):
+    """Full-width DeepSeek-V2-Lite trained ``TRAIN["steps"]`` AdamW steps
+    (clip 1.0) from seeded weights on the 8-topic corpus at vocab 102,400
+    (B 4 x S 1024: the chunked loss runs, B S V > 2^28). One untimed
+    forward first (its router launches counted apart). Fails unless every
+    loss is finite, the last is below the first, and ``topk_gating``
+    launched exactly once per MoE layer and step, no other kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches, make_topic_corpus
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import train_step, trainable
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import moe_layer_ids
+    from repro_torch.training.optimizer import make_adamw
+
+    c = TRAIN
+    cfg = get_config("deepseek-v2-lite").replace(num_layers=c["layers"])
+    n_moe = len(moe_layer_ids(cfg))
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, leaves = trainable(
+        model.init(torch.Generator(dev).manual_seed(SEED), device=dev))
+    opt_init, opt_update = make_adamw(lr=c["lr"], clip=1.0)
+    opt_state = opt_init(params)
+    init_s = since(torch, t0)
+    n_params = sum(t.numel() for t in leaves)
+    corpus = make_topic_corpus(cfg.vocab_size, n_topics=8, seed=0)
+    batches = [torch.as_tensor(b[:, :c["seq"]], device=dev)
+               for b in lm_batches(corpus, c["batch"], c["seq"],
+                                   c["steps"], seed=1)]
+    tokens = c["batch"] * c["seq"]
+    if not tokens * cfg.vocab_size > model_mod._XENT_CHUNK_BUDGET:
+        fail("train: the batch does not reach the chunked loss")
+    reset_launch_counts()
+    with torch.no_grad():
+        model.loss_fn(params, {"tokens": batches[0]})
+    warmup_launches = launch_counts()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    steps = []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        opt_state, loss, mets, gnorm = train_step(
+            model, params, leaves, opt_update, opt_state, batch)
+        step_s = since(torch, t0)
+        steps.append({"loss": loss.item(), "xent": mets["xent"].item(),
+                      "moe_aux": mets["moe_aux"].item(),
+                      "grad_norm": gnorm.item(), "s": step_s,
+                      "tokens_per_s": tokens / step_s,
+                      "max_memory_allocated_bytes":
+                          torch.cuda.max_memory_allocated()})
+        log(f"train: step {i} loss {steps[-1]['loss']:.4f} "
+            f"{step_s:.3f} s {tokens / step_s:.0f} tokens/s")
+    launches = launch_counts()
+    losses = [st["loss"] for st in steps]
+    if not np.isfinite(losses).all():
+        fail(f"train: non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+    want = {k: 0 for k in launches}
+    want["topk_gating"] = n_moe * c["steps"]
+    if launches != want:
+        fail(f"train: launches {launches}, want {want}")
+    timed = sorted(st["s"] for st in steps[1:])
+    result = {
+        "config": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+        "full_depth": get_config("deepseek-v2-lite").num_layers,
+        "moe_layers": n_moe, "params": n_params,
+        "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+        "moment_bytes": 8 * n_params, **c, "tokens_per_step": tokens,
+        "dispatch_capacity": capacity(cfg, tokens), "init_s": init_s,
+        "losses": losses, "steps_detail": steps,
+        "median_s_per_step_after_first": timed[len(timed) // 2],
+        "median_tokens_per_s_after_first": tokens / timed[len(timed) // 2],
+        "warmup_launches": warmup_launches, "launches": launches,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del params, leaves, opt_state, batches
+    return result, launches
+
+
+# a router decision closer than this (k-th against (k+1)-th probability)
+# is a near-tie that float32 rounding may settle either way on two devices
+NEAR_TIE = 1e-6
+
+
+def parity_run_train(torch, np, dev):
+    """The reduced DeepSeek-V2-Lite in float32 (TF32 off), the same
+    seeded weights on the card and on the CPU: one ``loss_fn`` on the
+    quickstart's first batch (16 x 64, 4-topic corpus) with its routed ids
+    and gradients, then 3 of the quickstart's AdamW steps (3e-3, clip 1.0)
+    on the next batches. Each step starts both devices from the CPU's
+    weights and moments, so a difference cannot carry over from one step
+    to the next. Routed ids of the first batch identical, its loss within
+    1e-5 relative, every gradient within 1e-4 of its largest entry.
+
+    Each step where both devices routed every token identically is held
+    twice. The update alone: the card's new weights and moments against
+    the CPU's AdamW applied to the card's own gradients from the same
+    start, every leaf within 1e-5 of its largest entry. The trajectory:
+    the step's loss within 1e-4, its gradient norm within 1e-4 relative,
+    every gradient, moment and new weight within 1e-4 of its leaf's
+    largest entry against the CPU's step. (From zero moments AdamW's
+    first update is ``lr * sign(g)``, so there an entry whose gradient is
+    within the gradient tolerance of 0 may move ``2 * lr`` apart.) A step
+    whose routing differs must differ first at near-ties only (in the
+    first MoE layer that differs, the CPU's k-th and (k+1)-th
+    probabilities of every differing row within ``NEAR_TIE``); it is
+    reported, not compared."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import lm_batches, make_topic_corpus
+    from repro_torch.launch.train import train_step, trainable
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import (make_adamw, named_leaves,
+                                                tree_map)
+
+    cfg = get_reduced("deepseek-v2-lite")
+    k = cfg.moe.top_k
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(SEED + 21),
+                        device="cpu")                 # drawn on the card
+    corpus = make_topic_corpus(cfg.vocab_size, n_topics=4, seed=0)
+    batches = [torch.from_numpy(b[:, :64])
+               for b in lm_batches(corpus, 16, 64, 4, seed=1)]
+    route, routes = moe_mod.route_train, []
+
+    def recording(p, cfg_, x):       # each MoE layer's (ids, probs)
+        w, idx, probs = route(p, cfg_, x)
+        routes.append((idx.detach().reshape(-1, k).cpu(),
+                       probs.detach().reshape(-1, probs.shape[-1]).cpu()))
+        return w, idx, probs
+
+    def copy(tree, d):
+        return tree_map(lambda t: t.detach().to(d, copy=True), tree)
+
+    def near_tie(rc, rp):
+        """None when both devices routed alike, else the split's record;
+        fails unless the first differing layer differs at near-ties."""
+        differ = [j for j, ((a, _), (b, _)) in enumerate(zip(rc, rp))
+                  if not torch.equal(a, b)]
+        if not differ:
+            return None
+        j = differ[0]
+        rows = (rc[j][0] != rp[j][0]).any(-1)
+        top = rp[j][1][rows].sort(-1, descending=True).values
+        gap = (top[:, k - 1] - top[:, k]).max().item()
+        if not gap <= NEAR_TIE:
+            fail(f"parity_train: {int(rows.sum())} rows of MoE layer {j} "
+                 f"routed apart at a probability gap of {gap} > {NEAR_TIE}")
+        return {"moe_layer": j, "rows": int(rows.sum()),
+                "largest_gap": gap}
+
+    def of_max(a, b):       # largest |a - b| over largest |b|
+        return ((a.cpu() - b).abs().max().item()
+                / max(b.abs().max().item(), 1e-30))
+
+    def leaves_of(p, state):
+        return {"param": [t for _, t in named_leaves(p)],
+                "mu": state["mu"], "nu": state["nu"]}
+
+    lr = 3e-3
+    opt_init, adamw = make_adamw(lr=lr, clip=1.0)
+    kept = []
+
+    def opt_update(grads, state, p):    # AdamW, keeping the gradients
+        kept[:] = grads
+        return adamw(grads, state, p)
+
+    first = {}
+    steps = []
+    moe_mod.route_train = recording
+    try:
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            p, leaves = trainable(copy(params, d))
+            routes.clear()
+            loss, _ = model.loss_fn(p, {"tokens": batches[0].to(d)})
+            first[where] = ([i for i, _ in routes], loss.item(),
+                            [g.cpu() for g in torch.autograd.grad(loss,
+                                                                  leaves)])
+        cpu_p, cpu_leaves = trainable(copy(params, "cpu"))
+        cpu_state = opt_init(cpu_p)
+        for b in batches[1:]:
+            start = copy(cpu_p, "cpu"), copy(cpu_state, "cpu")
+            card_p, card_leaves = trainable(copy(cpu_p, dev))
+            card_state = copy(cpu_state, dev)
+            routes.clear()
+            card_state, lc, _, gc = train_step(
+                model, card_p, card_leaves, opt_update, card_state, b.to(dev))
+            card_g = [g.cpu() for g in kept]
+            rc = list(routes)
+            routes.clear()
+            cpu_state, lp, _, gp = train_step(model, cpu_p, cpu_leaves,
+                                              opt_update, cpu_state, b)
+            cpu_g = list(kept)
+            ref_p, ref_state, _ = adamw(card_g, start[1], start[0])
+            card = leaves_of(card_p, card_state)
+            ref = leaves_of(ref_p, ref_state)
+            steps.append({
+                "loss": (lc.item(), lp.item()),
+                "grad_norm": (gc.item(), gp.item()),
+                "from_zero_moments": int(start[1]["step"]) == 0,
+                "update": {kind: [of_max(a, b) for a, b in zip(
+                    card[kind], ref[kind])] for kind in card},
+                "grad": [of_max(a, b) for a, b in zip(card_g, cpu_g)],
+                "moments": [of_max(a, b) for kind in ("mu", "nu")
+                            for a, b in zip(card[kind], cpu_state[kind])],
+                "param": (card["param"],
+                          [t.detach().clone()
+                           for _, t in named_leaves(cpu_p)],
+                          cpu_g),
+                "split": near_tie(rc, list(routes))})
+    finally:
+        moe_mod.route_train = route
+    card, cpu = first["card"], first["cpu"]
+    if not all(torch.equal(a, b) for a, b in zip(card[0], cpu[0])):
+        fail("parity_train: GPU/CPU routed expert ids differ")
+    if not abs(card[1] - cpu[1]) <= 1e-5 * abs(cpu[1]):
+        fail(f"parity_train: losses {card[1]} vs {cpu[1]}")
+    worst = 0.0
+    for (path, _), a, b in zip(named_leaves(params), card[2], cpu[2]):
+        err = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        worst = max(worst, err)
+        if not err <= 1e-4:
+            fail(f"parity_train: gradient {path} differs by {err} of its "
+                 "largest entry > 1e-4")
+    names = [path for path, _ in named_leaves(params)]
+    compared, worst_update, worst_step = [], 0.0, 0.0
+    for s, st in enumerate(steps):
+        if st["split"] is not None:
+            continue
+        (lc, lp), (gc, gp) = st["loss"], st["grad_norm"]
+        if not (abs(lc - lp) <= 1e-4 and abs(gc - gp) <= 1e-4 * abs(gp)):
+            fail(f"parity_train: step {s}: losses {lc} vs {lp}, gradient "
+                 f"norms {gc} vs {gp}")
+        for kind, errs in st["update"].items():
+            for path, err in zip(names, errs):
+                worst_update = max(worst_update, err)
+                if not err <= 1e-5:
+                    fail(f"parity_train: step {s}: the card's AdamW {kind} "
+                         f"of {path} differs from the CPU's on the same "
+                         f"gradients by {err} of its largest entry > 1e-5")
+        for what, errs in (("gradient", st["grad"]),
+                           ("moment", st["moments"])):
+            for path, err in zip(names * 2, errs):
+                worst_step = max(worst_step, err)
+                if not err <= 1e-4:
+                    fail(f"parity_train: step {s}: {what} of {path} differs "
+                         f"by {err} of its largest entry > 1e-4")
+        for path, a, b, g in zip(names, *st["param"]):
+            diff = (a.cpu() - b).abs()
+            allowed = torch.full_like(b, 1e-4 * b.abs().max().item())
+            if st["from_zero_moments"]:   # lr * sign(g) at a rounding of 0
+                tie = g.abs() <= 1e-4 * g.abs().max()
+                allowed = torch.where(tie, allowed + 2 * lr, allowed)
+            worst_step = max(worst_step, of_max(a, b))
+            if not bool((diff <= allowed).all()):
+                fail(f"parity_train: step {s}: weights of {path} differ by "
+                     f"{of_max(a, b)} of their largest entry")
+        compared.append(abs(lc - lp))
+    if not compared:
+        fail("parity_train: no step routed alike on both devices")
+    return {"config": cfg.name, "dtype": cfg.dtype, "batch": [16, 64],
+            "identical_ids": True, "loss": cpu[1],
+            "loss_rel_err": abs(card[1] - cpu[1]) / abs(cpu[1]),
+            "worst_grad_err_of_max": worst,
+            "step_losses": [st["loss"][0] for st in steps],
+            "step_losses_cpu": [st["loss"][1] for st in steps],
+            "step_grad_norms": [st["grad_norm"][0] for st in steps],
+            "step_grad_norms_cpu": [st["grad_norm"][1] for st in steps],
+            "steps_compared": len(compared),
+            "max_step_loss_err": max(compared),
+            "worst_update_err_of_max": worst_update,
+            "worst_step_err_of_max": worst_step,
+            "routing_splits": {s: st["split"] for s, st in enumerate(steps)
+                               if st["split"] is not None},
+            "tolerances": {"loss_rel": 1e-5, "grad_of_max": 1e-4,
+                           "step_loss": 1e-4, "step_grad_norm_rel": 1e-4,
+                           "update_of_max": 1e-5, "step_of_max": 1e-4,
+                           "near_tie": NEAR_TIE}}
+
+
+# the trained backbone of the pipeline: the ~100M config trained with the
+# reference launcher's recipe, as examples/train_backbone.py runs it
+BACKBONE = dict(steps=200, batch=8, seq=256, lr=3e-3)
+TRAINED_FRACTIONS = (0.1, 0.2)
+
+
+def pipeline_trained_run(torch, np, dev, random_table):
+    """The pipeline on a trained backbone: the ~100M config of
+    ``examples/train_backbone.py`` (float32) trained ``BACKBONE`` steps by
+    ``launch.train`` (AdamW 3e-3, clip 1.0, cosine with 20 warm-up steps,
+    the 8-topic corpus), then the ``pipeline`` phase's steps 2-4 at 10%
+    and 20% caches. Fails unless every backbone loss is finite and the
+    last below the first, and the steps' own checks pass. Whether the
+    predictor learned anything (F1 above 0, MoE-Beyond's prediction hits
+    above random's) is reported, not required: ``random_table`` is the
+    random-backbone ``pipeline`` phase's table, printed beside."""
+    from repro_torch.configs.deepseek_v2_lite import hundred_m_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import moe_layer_ids
+
+    b = BACKBONE
+    cfg = hundred_m_config()
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    params, losses = train(cfg, steps=b["steps"], batch_size=b["batch"],
+                           seq_len=b["seq"], lr=b["lr"], seed=SEED,
+                           device=dev, log=lines.append)
+    backbone_s = since(torch, t0)
+    backbone_launches = launch_counts()
+    want = {k: 0 for k in backbone_launches}
+    want["topk_gating"] = b["steps"] * len(moe_layer_ids(cfg))
+    if backbone_launches != want:
+        fail(f"pipeline_trained: training launches {backbone_launches}, "
+             f"want {want}")
+    for line in lines:
+        log(f"pipeline_trained: {line}")
+    if not np.isfinite(losses).all():
+        fail(f"pipeline_trained: non-finite backbone losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"pipeline_trained: the last backbone loss {losses[-1]} is not "
+             f"below the first {losses[0]}")
+    traces, trace_s, launches = trace_backbone(
+        torch, np, dev, "pipeline_trained", model, params)
+    steps = sum(t.num_tokens for t in traces)
+    out, tables = predict_and_simulate(torch, np, dev, "pipeline_trained",
+                                       cfg, traces, TRAINED_FRACTIONS)
+    rows = {f"{frac:.0%}": {"capacity_slots": slots, "policies": table}
+            for frac, (table, slots) in tables.items()}
+    t10 = tables[0.1][0]
+    result = {
+        "config": "hundred_m_config (examples/train_backbone.py)",
+        "dtype": cfg.dtype, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
+        "top_k": cfg.moe.top_k,
+        "params": sum(t.numel() for t in tensors(params)), **b,
+        "backbone_s": backbone_s, "backbone_launches": backbone_launches,
+        "backbone_losses": losses,
+        "loss_curve": {i: losses[i] for i in
+                       list(range(0, len(losses), 20)) + [len(losses) - 1]},
+        "traces": len(traces), "decode_steps": steps, "trace_s": trace_s,
+        "trace_steps_per_s": steps / trace_s,
+        "trace_launches": {k: launches[k]
+                           for k in ("topk_gating", "expert_ffn")},
+        **out, "caches": rows,
+        "random_backbone_10%": {
+            k: {"cache_hit_rate": v["cache_hit_rate"],
+                "std_error": v["std_error"],
+                "prediction_hit_rate": v["prediction_hit_rate"]}
+            for k, v in random_table.items()},
+        "shape_holds": {
+            "f1_above_0": out["last_epoch"]["val_f1"] > 0,
+            "moe_beyond_prediction_hits_above_random": (
+                t10["moe-beyond"]["prediction_hit_rate"]
+                > t10["random"]["prediction_hit_rate"])},
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del params
     return result, launches
 
 
@@ -1155,6 +1606,7 @@ def parity_run_llama4(torch, np, dev):
             if engine == "batch1":
                 eng = OffloadEngine(model, params,
                                     OnlineMoEBeyondPolicy(pp, pc), capacity,
+                                    host_bw=PARITY_HOST_BW,
                                     layer_compute_s=layer_s, device=device)
             else:
                 serve = ServeConfig(max_batch=2, block_size=8,
@@ -1162,7 +1614,8 @@ def parity_run_llama4(torch, np, dev):
                                     layer_compute_s=layer_s)
                 eng = BatchedOffloadEngine(
                     model, params, lambda pp=pp: OnlineMoEBeyondPolicy(pp, pc),
-                    capacity, serve=serve, device=device)
+                    capacity, serve=serve, host_bw=PARITY_HOST_BW,
+                    device=device)
             routes = record_routes(eng.core, check_finite=True)
             if engine == "batch1":
                 outs = [eng.generate(p, max_new, cache_len) for p in prompts]
@@ -1404,17 +1857,32 @@ def main() -> None:
     release_host_memory(torch)
     log(f"kernel checks passed in {phase_s['kernel_checks']:.1f} s")
 
+    # the main runs' modeled fetches at this card's host-to-device rate:
+    # pinned copies of one DeepSeek-V2-Lite expert, measured once
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulator import measured_host_bw
+    host_bw = measured_host_bw(dev, expert_bytes(
+        torch, get_config("deepseek-v2-lite")))
+    log(f"host to device: {host_bw / 1e9:.2f} GB/s (main runs 1 and 2)")
+
     runs, launches = {}, {}
     phases = (
         ("main_run", "deepseek-v2-lite",
-         lambda: main_run(torch, np, dev, "deepseek-v2-lite")),
+         lambda: main_run(torch, np, dev, "deepseek-v2-lite", host_bw)),
         ("parity_run", "deepseek-v2-lite",
          lambda: parity_run(torch, np, dev)),
         ("pipeline", "deepseek-v2-lite",
          lambda: pipeline_run(torch, np, dev)),
         ("parity_pipeline", "deepseek-v2-lite",
          lambda: parity_run_pipeline(torch, np, dev)),
-        ("main_run_2", LLAMA4, lambda: main_run(torch, np, dev, LLAMA4)),
+        ("train", "deepseek-v2-lite", lambda: train_run(torch, np, dev)),
+        ("parity_train", "deepseek-v2-lite",
+         lambda: parity_run_train(torch, np, dev)),
+        ("pipeline_trained", "deepseek-v2-lite",
+         lambda: pipeline_trained_run(torch, np, dev,
+                                      runs["pipeline"]["policies"])),
+        ("main_run_2", LLAMA4,
+         lambda: main_run(torch, np, dev, LLAMA4, host_bw)),
         ("parity_run_2", LLAMA4, lambda: parity_run_llama4(torch, np, dev)),
         ("main_run_3", MAMBA2, lambda: mamba_run(torch, np, dev)),
         ("parity_run_3", MAMBA2, lambda: parity_run_mamba(torch, np, dev)))
@@ -1422,7 +1890,7 @@ def main() -> None:
         t = time.perf_counter()
         if phase.startswith("main"):
             runs[phase], launches[arch] = run()
-        elif phase == "pipeline":
+        elif phase in ("pipeline", "train", "pipeline_trained"):
             runs[phase], launches[phase] = run()
         else:
             runs[phase] = run()
@@ -1458,6 +1926,15 @@ def main() -> None:
             entry["pipeline_shape"] = {
                 "max_abs_err": pipe.get("bfloat16", pipe["float32"]),
                 "max_abs_err_f32": pipe["float32"], **timing_fields(pipe)}
+        if "pipeline_trained" in c:   # the trained pipeline's trace decode
+            pt = c["pipeline_trained"]
+            entry["pipeline_trained_shape"] = {
+                "max_abs_err": pt["float32"], **timing_fields(pt)}
+        if "train" in c:        # the training forward's router
+            entry["training_shapes"] = {
+                shape: {"max_abs_err": c[shape]["float32"],
+                        **timing_fields(c[shape])}
+                for shape in ("train", "train_100m")}
         for shape in ("long", "reduced"):   # ssd_chunk's other shapes
             if shape in c:
                 entry[f"{shape}_shape_max_abs_err"] = c[shape]
@@ -1487,6 +1964,29 @@ def main() -> None:
                                           for k in (
         "identical_traces", "max_abs_logit_err", "tolerance",
         "identical_tables")}}), flush=True)
+    print(json.dumps({"host_bw_bytes_per_s": host_bw, "sim_stall_s": {
+        k: runs[k]["sim_stall_s"] for k in ("main_run", "main_run_2")}}),
+        flush=True)
+    tr = runs["train"]
+    print(json.dumps({"train": {k: tr[k] for k in (
+        "layers", "params", "batch", "seq", "steps", "losses",
+        "median_s_per_step_after_first", "median_tokens_per_s_after_first",
+        "max_memory_allocated_bytes", "warmup_launches", "launches")},
+        "s_per_step": [st["s"] for st in tr["steps_detail"]],
+        "seconds": phase_s["train"]}), flush=True)
+    print(json.dumps({"parity_train": runs["parity_train"]}), flush=True)
+    pt = runs["pipeline_trained"]
+    print(json.dumps({"pipeline_trained": {k: pt[k] for k in (
+        "params", "loss_curve", "backbone_s", "backbone_launches",
+        "decode_steps", "trace_s",
+        "trace_steps_per_s", "trace_launches", "train_s", "last_epoch",
+        "untrained_val", "trained_val", "shape_holds",
+        "random_backbone_10%")},
+        "hit_rates": {frac: {k: [v["cache_hit_rate"], v["std_error"],
+                                 v["prediction_hit_rate"]]
+                             for k, v in row["policies"].items()}
+                      for frac, row in pt["caches"].items()},
+        "seconds": phase_s["pipeline_trained"]}), flush=True)
     print(json.dumps({"launch_floor_ms": floor_ms}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ident, flush=True)

@@ -1,18 +1,18 @@
-"""The MoE-Beyond pipeline on the PyTorch port, steps 2-4 of
+"""The MoE-Beyond pipeline on the PyTorch port, the four steps of
 ``examples/quickstart.py``:
 
-1. a DeepSeek-V2-Lite-family backbone with seeded random weights (training
-   the backbone is not ported yet, so step 1 is initialisation only)
+1. train a DeepSeek-V2-Lite-family MoE backbone on a topic corpus
 2. collect batch-1 expert-activation traces (the paper's dataset schema)
 3. train the learned expert-activation predictor (paper §3.2)
 4. replay held-out traces through the cache simulator and compare policies
 
-Run on a card (full width and depth; the experts, ~31 GB in bfloat16,
-live on the device):
+Run on a card (the ~100M config of ``examples/train_backbone.py``, trained
+200 steps at B 8 x S 256 with the reference launcher's recipe):
 
     PYTHONPATH=src python examples/pipeline_torch.py
 
-or on the CPU at the reduced size of the tests:
+or on the CPU at the quickstart's reduced size and recipe (80 batches of
+16 x 64 from a 4-topic corpus, AdamW at 3e-3, clip 1.0):
 
     PYTHONPATH=src python examples/pipeline_torch.py --device cpu --reduced
 
@@ -28,7 +28,8 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import get_reduced
+from repro_torch.configs.deepseek_v2_lite import hundred_m_config
 from repro_torch.configs.base import PredictorConfig
 from repro_torch.core.policies import (CrossLayerPolicy,
                                        GlobalFrequencyPolicy,
@@ -38,32 +39,55 @@ from repro_torch.core.policies import (CrossLayerPolicy,
 from repro_torch.core.predictor_train import train_predictor
 from repro_torch.core.simulator import SimConfig, measured_host_bw, simulate
 from repro_torch.core.tracing import collect_traces, moe_layer_ids
-from repro_torch.data import make_topic_corpus, sample_prompts
+from repro_torch.data import lm_batches, make_topic_corpus, sample_prompts
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch.train import train, train_step, trainable
 from repro_torch.models.common import dtype_of
 from repro_torch.models.model import build_model
+from repro_torch.training.optimizer import make_adamw, tree_map
+
+
+def quickstart_backbone(cfg, dev):
+    """Step 1 as the quickstart has it: seeded weights, then 80 AdamW
+    steps (3e-3, clip 1.0, no schedule) on batches of 16 x 64 from the
+    4-topic corpus. Returns (params, last loss, corpus)."""
+    model = build_model(cfg)
+    params, leaves = trainable(
+        model.init(torch.Generator(dev).manual_seed(0), device=dev))
+    corpus = make_topic_corpus(cfg.vocab_size, n_topics=4, seed=0)
+    opt_init, opt_update = make_adamw(lr=3e-3, clip=1.0)
+    opt_state = opt_init(params)
+    for tokens in lm_batches(corpus, 16, 64, 80, seed=1):
+        opt_state, loss, _, _ = train_step(
+            model, params, leaves, opt_update, opt_state,
+            torch.as_tensor(tokens[:, :64], device=dev))
+    return tree_map(lambda t: t.detach(), params), loss.item(), corpus
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--arch", default="deepseek-v2-lite",
-                    choices=["deepseek-v2-lite"],
-                    help="the MoE backbones that decode through the "
-                         "facade (MLA stacks)")
     ap.add_argument("--reduced", action="store_true",
-                    help="the tests' reduced config, in float32")
+                    help="the quickstart's reduced config and recipe, in "
+                         "float32")
     args = ap.parse_args(argv)
     t0 = time.time()
     dev = resolve_device(args.device)
 
     # 1. backbone ---------------------------------------------------------
-    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.reduced:
+        cfg = get_reduced("deepseek-v2-lite")
+        params, loss, corpus = quickstart_backbone(cfg, dev)
+    else:
+        cfg = hundred_m_config()
+        params, losses = train(cfg, steps=200, batch_size=8, seq_len=256,
+                               lr=3e-3, device=dev, log=lambda *_: None)
+        loss = losses[-1]
+        corpus = make_topic_corpus(cfg.vocab_size, n_topics=8, seed=0)
     model = build_model(cfg)
-    params = model.init(torch.Generator(dev).manual_seed(0), device=dev)
-    corpus = make_topic_corpus(cfg.vocab_size, n_topics=4, seed=0)
-    print(f"[1] backbone {cfg.name}: seeded random weights, {cfg.dtype} "
-          f"on {dev} ({time.time() - t0:.0f}s)")
+    print(f"[1] backbone trained: loss {loss:.3f} ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.dtype} on {dev}) "
+          f"({time.time() - t0:.0f}s)")
 
     # 2. traces -----------------------------------------------------------
     prompts = sample_prompts(corpus, 14, 16, seed=2)

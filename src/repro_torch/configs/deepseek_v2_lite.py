@@ -45,3 +45,19 @@ def reduced() -> ModelConfig:
                       first_dense_layers=1, d_ff_dense=256,
                       router_aux_coef=0.002),
     )
+
+
+def hundred_m_config() -> ModelConfig:
+    """The ~100M member of the family that ``examples/train_backbone.py``
+    (``hundred_m_config``) trains: d_model 256, 8 layers, 8 heads, MLA
+    kv_lora 64 / rope 16 / nope 32 / v 32, 16 experts top-2 + 1 shared
+    (d_ff 512), dense d_ff 1024, vocab 8192, float32."""
+    return reduced().replace(
+        dtype="float32", num_layers=8, d_model=256, num_heads=8,
+        num_kv_heads=8, head_dim=32, vocab_size=8192, d_ff=512,
+        mla=MLAConfig(q_lora_rank=0, kv_lora_rank=64, rope_head_dim=16,
+                      nope_head_dim=32, v_head_dim=32),
+        moe=MoEConfig(num_experts=16, top_k=2, num_shared=1,
+                      d_ff_expert=512, first_dense_layers=1,
+                      d_ff_dense=1024),
+    )

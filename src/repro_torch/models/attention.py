@@ -15,9 +15,10 @@ layout.
 
 The reference returns new cache arrays from every write; here caches are
 updated in place (``index_put_``/``copy_``) and the same dict returned.
-Full-sequence and prefill attention (``mode="full"/"prefill"``,
-``paged_attn_prefill``) are ROADMAP work: no stack the engines serve needs
-them.
+:func:`sdpa_any` is the reference's whole-sequence attention (q-chunked
+when long), which MLA's full mode runs in training. The full and prefill
+modes of ``attn_apply`` and ``paged_attn_prefill`` are ROADMAP work: no
+stack the engines serve needs them.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from repro_torch.kernels.flash_attention import flash_decode
 from repro_torch.kernels.paged_attention import paged_flash_decode
 from repro_torch.models.common import apply_rope, decode_lanes, dense_init
 
+Q_CHUNK = 1024
 NEG_INF = -1e30
 
 
@@ -38,6 +40,53 @@ def attn_init(gen, cfg, dtype, device):
         "wv": dense_init(gen, d, kvh * hd, dtype, device).reshape(d, kvh, hd),
         "wo": dense_init(gen, h * hd, d, dtype, device).reshape(h, hd, d),
     }
+
+
+def _mask(qpos, kpos, kind: str, cfg, causal: bool):
+    """(Tq, Sk) boolean validity mask from absolute positions."""
+    if not causal:
+        return torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                          device=qpos.device)
+    q, k = qpos[:, None], kpos[None, :]
+    m = k <= q
+    if kind == "local":
+        m &= k > q - cfg.window
+    elif kind == "chunked":
+        m &= (k // cfg.chunk) == (q // cfg.chunk)
+    return m
+
+
+def _sdpa(q, k, v, mask):
+    """q (B,Tq,KVH,G,hd), k/v (B,S,KVH,hd), mask (Tq,S) ->
+    (B,Tq,KVH,G,vd): float32 scores scaled by hd^-0.5, masked to
+    ``NEG_INF``, softmax cast back to q's dtype."""
+    hd = q.shape[-1]
+    scores = torch.einsum("btngd,bsnd->bngts", q, k).float() * (hd ** -0.5)
+    scores = torch.where(mask[None, None, None], scores,
+                         torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bngts,bsnd->btngd", probs, v)
+
+
+def sdpa_any(q, k, v, qpos, kpos, kind, cfg, causal=True):
+    """Whole-sequence attention, the queries taken ``Q_CHUNK`` at a time
+    when there are at least two chunks' worth and they divide evenly (the
+    reference's scan over query blocks), so the (T, S) scores of a long
+    sequence are never formed at once.
+
+    q (B,T,H,hd), grouped for GQA; k (B,S,KVH,hd), v (B,S,KVH,vd);
+    qpos (T,), kpos (S,) absolute positions -> (B,T,H,vd)."""
+    b, t, h, hd = q.shape
+    kvh = k.shape[2]
+    vd = v.shape[-1]                     # may differ from hd (MLA)
+    qg = q.reshape(b, t, kvh, h // kvh, hd)
+    if t < 2 * Q_CHUNK or t % Q_CHUNK:
+        out = _sdpa(qg, k, v, _mask(qpos, kpos, kind, cfg, causal))
+        return out.reshape(b, t, h, vd)
+    out = [_sdpa(qg[:, i:i + Q_CHUNK], k, v,
+                 _mask(qpos[i:i + Q_CHUNK], kpos, kind, cfg, causal))
+           for i in range(0, t, Q_CHUNK)]
+    return torch.cat(out, dim=1).reshape(b, t, h, vd)
 
 
 def _ring_len(kind: str, cfg) -> int:

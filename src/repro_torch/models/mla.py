@@ -1,7 +1,10 @@
-"""Multi-head Latent Attention (DeepSeek-V2), the decode paths.
+"""Multi-head Latent Attention (DeepSeek-V2): the full mode of training and
+the decode paths.
 
-Decode uses the *absorbed* formulation, so the KV cache is one latent row
-of ``kv_lora_rank + rope_head_dim`` features per token. The contiguous
+The full mode materialises per-head k/v from the compressed latent and
+attends with ``attention.sdpa_any``, as the reference does. Decode uses
+the *absorbed* formulation, so the KV cache is one latent row of
+``kv_lora_rank + rope_head_dim`` features per token. The contiguous
 cache keeps one ``(R, cache_len, ...)`` row per request
 (:func:`mla_init_cache`, :func:`mla_apply`), attended by the plain absorbed
 ``_mla_attend`` as in the reference, which runs no kernel there. The paged
@@ -19,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.paged_attention import paged_flash_decode
+from repro_torch.models.attention import sdpa_any
 from repro_torch.models.common import (apply_rope, decode_lanes,
                                        dense_init, rms_norm, rms_norm_init)
 
@@ -96,16 +100,40 @@ def mla_init_cache(cfg, batch, cache_len, dtype, device):
     }
 
 
+def _mla_full(p, cfg, x, positions):
+    """Causal attention over the whole sequence: per-head k/v from the
+    normed latent, the rope key shared by every head, scale
+    ``(nope + rope)^-0.5``. x (B,T,D), positions (B,T) -> y (B,T,D)."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = _project_q(p, cfg, x, positions)
+    ckv, k_rope = _project_ckv(p, cfg, x, positions)
+    k_nope = torch.einsum("btc,chn->bthn", ckv, p["w_uk"])
+    v = torch.einsum("btc,chn->bthn", ckv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, t, h, m.rope_head_dim)], -1)
+    qpos = positions[0] if positions.dim() == 2 else positions
+    out = sdpa_any(q, k, v, qpos, qpos, "global", cfg, causal=True)
+    return torch.einsum("bthv,hvd->btd", out, p["wo"])
+
+
 def mla_apply(p, cfg, x, positions, mode, cache=None, pos=None, rows=None):
-    """Decode one token per batch entry against its latent row: x (B,1,D),
-    positions (B,1), pos an int or (B,) positions, entry ``i`` using row
-    ``rows[i]`` (default ``i``). The new latent is written in place at
-    ``pos``, then attended with every slot ``<= pos``. Returns
+    """``mode="full"``: causal attention over x (B,T,D) at positions
+    (B,T), no cache; returns (y, None).
+
+    ``mode="decode"``: one token per batch entry against its latent row:
+    x (B,1,D), positions (B,1), pos an int or (B,) positions, entry ``i``
+    using row ``rows[i]`` (default ``i``). The new latent is written in
+    place at ``pos``, then attended with every slot ``<= pos``. Returns
     (y (B,1,D), cache)."""
+    if mode == "full":
+        return _mla_full(p, cfg, x, positions), None
     if mode != "decode":
         raise NotImplementedError(
-            f"mla_apply mode={mode!r}: ROADMAP, GQA/local/chunked attention "
-            "and the other architectures (full and prefill mla_apply)")
+            f"mla_apply mode={mode!r}: ROADMAP Queue 1 item 8 (the prefill "
+            "mode of mla_apply)")
     pos, rows = decode_lanes(pos, rows, x.shape[0], x.device)
     pos, rows = pos.long(), rows.long()
     q_nope, q_rope = _project_q(p, cfg, x, positions)

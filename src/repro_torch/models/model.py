@@ -5,12 +5,13 @@ the reference facade's arguments and keep its decode state
 ``{"pos", "caches"}`` (``caches`` one entry per layer here).
 
 The facade's whole-sequence paths run the layer kinds that
-``transformer.block_apply`` ports in them (``ssd``). ``init_decode_state``
-and ``decode_step`` also run MLA stacks (DeepSeek-V2-Lite) on contiguous
-latent rows with every expert on the device, as trace collection does;
-the offloaded engines serve the MoE attention decoders through their
-per-layer row and paged halves. Training (``loss_fn``) is ROADMAP work
-("training and launch").
+``transformer.block_apply`` ports in them: ``forward`` and ``loss_fn``
+run ``ssd`` and MLA stacks (DeepSeek-V2-Lite, with the capacity-dispatch
+MoE of training), ``prefill`` ``ssd`` stacks. ``init_decode_state`` and
+``decode_step`` also run MLA stacks on contiguous latent rows with every
+expert on the device, as trace collection does; the offloaded engines
+serve the MoE attention decoders through their per-layer row and paged
+halves.
 """
 from __future__ import annotations
 
@@ -18,11 +19,45 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.common import dtype_of
+
+
+def _xent(logits, labels):
+    """Mean next-token cross-entropy in float32. labels (B, T) int."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels[..., None].long())[..., 0].mean()
+
+
+# (B, S, V) float32 logits above this budget use the sequence-chunked loss
+# below: DeepSeek-V2-Lite's at B 4 x S 1024 would be 1.7 GB, and grow with
+# both
+_XENT_CHUNK_BUDGET = 1 << 28
+_XENT_CHUNK = 512
+
+
+def _xent_chunked(x, labels, unembed_fn):
+    """Sequence-chunked next-token loss: each chunk's logits are formed,
+    reduced to a scalar and recomputed in the backward pass
+    (``torch.utils.checkpoint``), so peak memory is (B, chunk, V) in
+    place of (B, S, V). A last chunk shorter than ``_XENT_CHUNK`` is
+    taken as it is."""
+    b, t, _ = x.shape
+    c = _XENT_CHUNK
+
+    def chunk_loss(xc, yc):
+        logp = torch.log_softmax(unembed_fn(xc).float(), dim=-1)
+        return logp.gather(-1, yc[..., None].long())[..., 0].sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, t, c):
+        tot = tot + checkpoint(chunk_loss, x[:, i:i + c], labels[:, i:i + c],
+                               use_reentrant=False)
+    return -tot / (b * t)
 
 
 def _tokens(params, batch) -> torch.Tensor:
@@ -54,6 +89,27 @@ class Model:
         logits, _, _ = transformer.lm_apply(params, self.cfg,
                                             _tokens(params, batch), "full")
         return logits
+
+    def loss_fn(self, params, batch):
+        """batch {"tokens": (B, T)} -> (loss, {"xent", "moe_aux"}): the
+        mean next-token cross-entropy (sequence-chunked when the
+        (B, T-1, V) logits would pass ``_XENT_CHUNK_BUDGET`` entries)
+        plus ``router_aux_coef`` times the load-balance loss of
+        ``transformer.collect_moe_aux``. Differentiable with autograd."""
+        cfg = self.cfg
+        tokens = _tokens(params, batch)
+        x = transformer.embed(params, cfg, tokens)
+        x, _, extras = transformer.stack_apply(params["layers"], cfg, x,
+                                               "full")
+        xt, labels = x[:, :-1], tokens[:, 1:]
+        if xt.shape[0] * xt.shape[1] * cfg.vocab_size > _XENT_CHUNK_BUDGET:
+            loss = _xent_chunked(
+                xt, labels, lambda h: transformer.unembed(params, cfg, h))
+        else:
+            loss = _xent(transformer.unembed(params, cfg, xt), labels)
+        aux = transformer.collect_moe_aux(cfg, extras)
+        coef = cfg.moe.router_aux_coef if cfg.moe else 0.0
+        return loss + coef * aux, {"xent": loss, "moe_aux": aux}
 
     def prefill(self, params, batch, cache_len: int):
         """-> (last-position logits (B, V), decode state). Only the last

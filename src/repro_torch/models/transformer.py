@@ -5,10 +5,12 @@ whole-block ``block_apply``/``stack_apply`` of the model facade, embed and
 unembed.
 
 Layer kinds ported: ``mla``, ``global``, ``local``, ``chunked`` (the
-engines' decode halves), ``mla`` whole blocks in decode mode (the batch-1
-decode of trace collection, routed ids in ``extras``) and ``ssd`` (the
-facade's full, prefill and decode modes); ``rglru`` raises
-``NotImplementedError`` naming its ROADMAP item.
+engines' decode halves), ``mla`` whole blocks in full mode (training,
+capacity-dispatch MoE, the load-balance loss and routed ids in
+``extras``) and decode mode (the batch-1 decode of trace collection,
+routed ids in ``extras``) and ``ssd`` (the facade's full, prefill and
+decode modes); ``rglru`` raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -174,11 +176,24 @@ def block_apply(p, cfg, kind: str, x, mode: str, cache=None, pos=None):
     MoE layer's ``extras["experts"]`` holds its routed ids (B, T, k).
 
     ``ssd`` runs in every mode (it reads neither positions nor ``pos``).
-    ``mla`` runs in decode mode: x (B, 1, D) against contiguous latent
-    rows, entry ``i`` on row ``i`` at position ``pos[i]`` (``pos`` a (B,)
-    int32 tensor), then its dense FFN or :func:`moe.moe_decode` with every
-    expert on the device. The other kinds serve through the engines'
-    halves above."""
+    ``mla`` runs in full mode (x (B, T, D) at positions 0..T-1, then its
+    dense FFN or the capacity dispatch of :func:`moe.moe_apply`, whose
+    load-balance loss goes to ``extras["moe_aux"]``) and in decode mode:
+    x (B, 1, D) against contiguous latent rows, entry ``i`` on row ``i``
+    at position ``pos[i]`` (``pos`` a (B,) int32 tensor), then its dense
+    FFN or :func:`moe.moe_decode` with every expert on the device. The
+    other kinds serve through the engines' halves above."""
+    if kind == "mla" and mode == "full":
+        b, t, _ = x.shape
+        positions = torch.arange(t, device=x.device).expand(b, t)
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        o, _ = mla.mla_apply(p["attn"], cfg, h, positions, "full")
+        x = x + o
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if "moe" in p:
+            y, aux, idx = moe.moe_apply(p["moe"], cfg, h)
+            return x + y, None, {"moe_aux": aux, "experts": idx}
+        return x + ffn_apply(p["ffn"], h, cfg.ffn_kind), None, {}
     if kind == "mla" and mode == "decode":
         x, cache = block_row_decode(p, cfg, kind, x, cache, None, pos)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -222,6 +237,27 @@ def stack_apply(layers, cfg, x, mode: str, caches=None, pos=None):
         new_caches.append(nc)
         extras.append(ex)
     return x, (None if mode == "full" else new_caches), extras
+
+
+def collect_moe_aux(cfg, extras) -> torch.Tensor:
+    """Mean MoE load-balance loss, grouped as the reference's scanned
+    stack groups it: one term per head and tail layer, one per position
+    of the scanned block pattern (the mean over its groups), then the mean
+    of those terms; 0 without MoE layers. ``extras``: one dict per
+    layer, in layer order."""
+    n_head, n_groups, _ = _layer_split(cfg)
+    pat = len(cfg.block_pattern)
+    body = n_head + n_groups * pat
+    losses = [ex["moe_aux"] for ex in extras[:n_head] + extras[body:]
+              if "moe_aux" in ex]
+    for j in range(pat):
+        scanned = [extras[n_head + g * pat + j] for g in range(n_groups)]
+        if scanned and "moe_aux" in scanned[0]:
+            losses.append(torch.stack([ex["moe_aux"]
+                                       for ex in scanned]).mean())
+    if not losses:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.stack(losses).mean()
 
 
 def lm_init(gen: torch.Generator, cfg, device, expert_device=None) -> Params:

@@ -137,11 +137,13 @@ class DecodeCore:
     row that padding lanes read and write. The routed experts live in the
     host store only; every other weight is copied to ``device``.
     ``kernel=False`` reads KV through the gather route instead of the
-    attention kernels.
+    attention kernels. ``host_bw`` (host to device, bytes/s) prices every
+    modeled fetch and has no default: the reference's 100 GB/s is a TPU
+    host's; on a card pass ``core.simulator.measured_host_bw``.
     """
 
     def __init__(self, model, params, capacity: int, eviction: str = "lru",
-                 host_bw: float = 100e9, max_batch: int = 1,
+                 *, host_bw: float, max_batch: int = 1,
                  layer_compute_s: float = 0.0, max_prefill_chunk: int = 8,
                  kernel: bool = True, device="cuda"):
         cfg = model.cfg
@@ -173,9 +175,9 @@ class DecodeCore:
             self.layers.append(_to_device(lp, self.device))
         self.params = _to_device({k: v for k, v in params.items()
                                   if k != "layers"}, self.device)
-        self.tracker = OverlapTracker(host_bw)
+        self.tracker = OverlapTracker(host_bw=host_bw)
         self.cache, self.slots = make_offload_cache(
-            self.store, capacity, self.device, eviction, host_bw,
+            self.store, capacity, self.device, eviction, host_bw=host_bw,
             tracker=self.tracker)
         self.stats = EngineStats()
         self.layer_compute_s = layer_compute_s
@@ -427,10 +429,11 @@ class OffloadEngine:
     ``policy`` may keep per-request state: one request is in flight at a
     time, so one instance serves them all. ``device`` defaults to
     ``"cuda"``; the CPU runs the kernels' plain PyTorch versions.
+    ``host_bw`` is required, as for :class:`DecodeCore`.
     """
 
     def __init__(self, model, params, policy: Optional[Policy],
-                 capacity: int, host_bw: float = 100e9,
+                 capacity: int, *, host_bw: float,
                  layer_compute_s: float = 0.0, device="cuda"):
         self.core = DecodeCore(model, params, capacity, host_bw=host_bw,
                                max_batch=1, layer_compute_s=layer_compute_s,

@@ -69,10 +69,11 @@ class OverlapTracker:
     later. ``wait`` advances the clock to the latest needed completion,
     charging the gap as stall. A key re-submitted while its previous
     transfer is still on the wire rides it (``fetches_deduped``) unless a
-    fresh fetch would land earlier.
+    fresh fetch would land earlier. ``host_bw`` (bytes/s) has no default:
+    the card's rate is measured, not the reference's TPU figure.
     """
 
-    def __init__(self, host_bw: float = 100e9):
+    def __init__(self, *, host_bw: float):
         self.host_bw = host_bw
         self.clock = 0.0
         self._channel_free = 0.0              # the channel is busy until then
@@ -137,9 +138,8 @@ class OverlapTracker:
 class SlotBuffer:
     """Fixed-capacity device buffer of expert slots + host slot table."""
 
-    def __init__(self, store: HostExpertStore, n_slots: int, device,
-                 host_bw: float = 100e9,
-                 tracker: Optional[OverlapTracker] = None):
+    def __init__(self, store: HostExpertStore, n_slots: int, device, *,
+                 host_bw: float, tracker: Optional[OverlapTracker] = None):
         lp = store.layers[0]
         e, d, f = lp["w_gate"].shape
         dtype = lp["w_gate"].dtype
@@ -181,10 +181,11 @@ class SlotBuffer:
 
 
 def make_offload_cache(store: HostExpertStore, capacity: int, device,
-                       eviction: str = "lru", host_bw: float = 100e9,
+                       eviction: str = "lru", *, host_bw: float,
                        tracker: Optional[OverlapTracker] = None):
     """(ExpertCache, SlotBuffer) wired together."""
-    buf = SlotBuffer(store, capacity, device, host_bw, tracker)
+    buf = SlotBuffer(store, capacity, device, host_bw=host_bw,
+                     tracker=tracker)
     cache = ExpertCache(capacity, eviction, on_evict=buf.release,
                         on_insert=buf.fill)
     return cache, buf

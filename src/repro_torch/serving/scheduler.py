@@ -94,11 +94,12 @@ class BatchedOffloadEngine:
     zero-arg factory building one Policy per admitted request. ``serve``
     (a :class:`ServeConfig`) overrides the individual keyword arguments.
     ``device`` defaults to ``"cuda"``; the CPU runs the kernels' plain
-    PyTorch versions.
+    PyTorch versions. ``host_bw`` (bytes/s) is required, as for
+    ``DecodeCore``.
     """
 
     def __init__(self, model, params, policy: PolicySpec, capacity: int,
-                 eviction: str = "lru", host_bw: float = 100e9,
+                 eviction: str = "lru", *, host_bw: float,
                  max_batch: int = 4, layer_compute_s: float = 0.0,
                  block_size: int = 8, kv_blocks: Optional[int] = None,
                  prefill_chunk: int = 8, use_kernel: bool = True,
@@ -121,7 +122,7 @@ class BatchedOffloadEngine:
         self.prefill_chunk = max(1, min(serve.prefill_chunk,
                                         capacity // model.cfg.moe.top_k))
         self.core = DecodeCore(model, params, capacity, serve.replacement,
-                               host_bw, max_batch=max_batch,
+                               host_bw=host_bw, max_batch=max_batch,
                                layer_compute_s=serve.layer_compute_s,
                                max_prefill_chunk=self.prefill_chunk,
                                kernel=serve.use_kernel, device=device)

@@ -33,6 +33,7 @@ PROMPTS = [[3, 17, 5], [99, 255, 7, 42, 11, 4, 9, 250, 33, 2], [13, 5],
 MAX_NEW = 5
 CACHE_LEN = 24
 LAYER_S = 1e-6        # modeled compute per layer half: partial overlap
+HOST_BW = 100e9       # host to device, B/s: one value for both packages
 COUNTERS = ("tokens", "hits", "misses", "fetch_bytes", "steps",
             "prefill_tokens", "prefill_chunks", "fallback_prefill_tokens",
             "rejected_requests", "fetches_by_tier", "fetch_bytes_by_tier",
@@ -77,7 +78,8 @@ _FIRST_CORE = []
 
 
 def _reference_engine(*args, **kw):
-    eng = BatchedOffloadEngine(*args, kernel_backend="jnp", **kw)
+    eng = BatchedOffloadEngine(*args, kernel_backend="jnp", host_bw=HOST_BW,
+                               **kw)
     if _FIRST_CORE:
         for name in _JIT_PROGRAMS:
             setattr(eng.core, name, getattr(_FIRST_CORE[0], name))
@@ -147,7 +149,8 @@ def test_batched_engine_matches_reference(policy, max_batch, block_size, cap,
     serve = ServeConfig(max_batch=max_batch, block_size=block_size,
                         use_kernel=use_kernel, layer_compute_s=LAYER_S)
     eng = TorchBatchedOffloadEngine(tmodel, tparams, tpolicy, capacity,
-                                    serve=serve, device="cpu")
+                                    serve=serve, host_bw=HOST_BW,
+                                    device="cpu")
     log = _record(eng.core)
     out = eng.generate(PROMPTS, MAX_NEW, CACHE_LEN)
 
@@ -184,7 +187,8 @@ def test_block_granular_admission_and_reject():
     ref_out = ref.generate(prompts, MAX_NEW, 40)
     eng = TorchBatchedOffloadEngine(tmodel, tparams, None, n_all,
                                     max_batch=4, block_size=bs,
-                                    kv_blocks=kv_blocks, device="cpu")
+                                    kv_blocks=kv_blocks, host_bw=HOST_BW,
+                                    device="cpu")
     out = eng.generate(prompts, MAX_NEW, 40)
     assert out == ref_out
     assert out[-1] == [] and eng.stats.rejected_requests == 1
@@ -204,4 +208,29 @@ def test_unported_knobs_raise(kw):
     _, _, _, tmodel, tparams = _backbone()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchBatchedOffloadEngine(tmodel, tparams, None, 48,
-                                  serve=ServeConfig(**kw), device="cpu")
+                                  serve=ServeConfig(**kw), host_bw=HOST_BW,
+                                  device="cpu")
+
+
+
+@pytest.mark.parametrize("name", ["OverlapTracker", "SlotBuffer",
+                                  "make_offload_cache", "DecodeCore",
+                                  "OffloadEngine", "BatchedOffloadEngine"])
+def test_engines_need_host_bw(name):
+    """The host-to-device rate has no default anywhere in the port's
+    engines: the reference's 100 GB/s is a TPU host's figure, so every
+    caller states its own (``measured_host_bw`` on a card)."""
+    from repro_torch.serving import engine as T_engine
+    from repro_torch.serving import offload as T_offload
+    make = {
+        "OverlapTracker": lambda: T_offload.OverlapTracker(),
+        "SlotBuffer": lambda: T_offload.SlotBuffer(None, 4, "cpu"),
+        "make_offload_cache": lambda: T_offload.make_offload_cache(
+            None, 4, "cpu"),
+        "DecodeCore": lambda: T_engine.DecodeCore(None, None, 4),
+        "OffloadEngine": lambda: T_engine.OffloadEngine(None, None, None, 4),
+        "BatchedOffloadEngine": lambda: TorchBatchedOffloadEngine(
+            None, None, None, 4),
+    }[name]
+    with pytest.raises(TypeError, match="host_bw"):
+        make()

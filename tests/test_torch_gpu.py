@@ -304,7 +304,7 @@ def test_engine_on_card_matches_cpu(cuda, arch, paged):
         serve = ServeConfig(max_batch=2, block_size=4, paged=paged)
         eng = BatchedOffloadEngine(model, params,
                                    NextLayerAllPolicy(cfg.moe.num_experts),
-                                   8, serve=serve, device=dev)
+                                   8, serve=serve, host_bw=25e9, device=dev)
         outs.append(eng.generate(prompts, 4, 24))
         stats.append((eng.stats.hits, eng.stats.misses,
                       eng.stats.fetch_bytes, eng.stats.sim_stall_s))
@@ -570,3 +570,80 @@ def test_predictor_train_step_on_card_matches_cpu(cuda):
         assert hist[str(dev)].steps == 1
     assert abs(hist["cuda"].train_loss[0] - hist["cpu"].train_loss[0]) <= \
         1e-5 * abs(hist["cpu"].train_loss[0])
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One quickstart training step (reduced DeepSeek-V2-Lite, f32, TF32
+    off, a 16 x 64 batch) from the same weights on the card and on the
+    CPU: routed ids identical, the loss within 1e-5 relative and every
+    gradient within 1e-4 of its largest entry; then AdamW from each
+    device's gradients, and the next step's loss within 1e-4."""
+    import numpy as np
+
+    from repro_torch.data import lm_batches, make_topic_corpus
+    from repro_torch.launch.train import train_step, trainable
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import (make_adamw, named_leaves,
+                                                tree_map)
+
+    cfg = get_reduced("deepseek-v2-lite")
+    model = build_model(cfg)
+    init = model.init(torch.Generator().manual_seed(3), device="cpu")
+    corpus = make_topic_corpus(cfg.vocab_size, n_topics=4, seed=0)
+    batches = [torch.from_numpy(b[:, :64])
+               for b in lm_batches(corpus, 16, 64, 2, seed=1)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params, leaves = trainable(tree_map(lambda t: t.to(dev, copy=True),
+                                            init))
+        tok = batches[0].to(dev)
+        with torch.no_grad():
+            _, _, extras = T.lm_apply(params, cfg, tok, "full")
+        ids = [ex["experts"].cpu() for ex in extras if "experts" in ex]
+        loss, _ = model.loss_fn(params, {"tokens": tok})
+        grads = torch.autograd.grad(loss, leaves)
+        opt_init, opt_update = make_adamw(lr=3e-3, clip=1.0)
+        state = opt_init(params)
+        opt_update(list(grads), state, params)
+        reset_launch_counts()
+        _, next_loss, _, _ = train_step(model, params, leaves, opt_update,
+                                        state, batches[1].to(dev))
+        out[dev] = (ids, loss.item(), [g.cpu() for g in grads],
+                    next_loss.item(), launch_counts()["topk_gating"])
+    cpu, card = out["cpu"], out["cuda"]
+    assert all(torch.equal(a, b) for a, b in zip(cpu[0], card[0]))
+    assert abs(card[1] - cpu[1]) <= 1e-5 * abs(cpu[1])
+    for (path, _), a, b in zip(named_leaves(init), cpu[2], card[2]):
+        scale = max(a.abs().max().item(), 1e-30)
+        assert (a - b).abs().max().item() <= 1e-4 * scale, path
+    assert abs(card[3] - cpu[3]) <= 1e-4
+    assert np.isfinite(card[3])
+    assert card[4] == len(cpu[0]) and cpu[4] == 0
+
+
+def test_moe_decode_splits_pairs_on_card(cuda):
+    """``moe_decode`` at B 16 with top-6 routing: 96 (token, k) pairs pass
+    ``MAX_PAIRS``, so the work goes to ``expert_ffn`` in runs of 10 and 6
+    tokens, and capacity (8 pairs an expert of the 16-token group) drops
+    pairs. Card against CPU from the same f32 weights: ids identical,
+    outputs within 1e-4, two ``expert_ffn`` launches."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    cfg = get_reduced("deepseek-v2-lite")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, top_k=6))
+    gen = torch.Generator().manual_seed(4)
+    p = moe.moe_init(gen, cfg, torch.float32, "cpu")
+    x = torch.randn(16, 1, cfg.d_model, generator=gen)
+    y, idx = moe.moe_decode(p, cfg, x)
+    reset_launch_counts()
+    yc, idxc = moe.moe_decode(
+        {k: (v.to(cuda) if torch.is_tensor(v)
+             else {kk: vv.to(cuda) for kk, vv in v.items()})
+         for k, v in p.items()}, cfg, x.to(cuda))
+    assert launch_counts()["expert_ffn"] == 2
+    assert torch.equal(idx, idxc.cpu())
+    rank = moe.dispatch_rank(cfg, idx.reshape(16, -1), 16)
+    assert bool((rank >= moe.capacity(cfg, 16)).any())
+    assert (y - yc.cpu()).abs().max().item() <= 1e-4

@@ -84,7 +84,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         train_predictor([], [], PredictorConfig())
     params = model.init(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
-        BatchedOffloadEngine(model, params, None, 48)
+        BatchedOffloadEngine(model, params, None, 48, host_bw=100e9)
     with pytest.raises(RuntimeError, match="CUDA"):
-        OffloadEngine(model, params, None, 48)
+        OffloadEngine(model, params, None, 48, host_bw=100e9)
     assert resolve_device("cpu").type == "cpu"

@@ -44,6 +44,7 @@ PROMPTS = [_RNG.integers(0, 512, n).tolist() for n in (62, 5, 17, 3)]
 MAX_NEW = 7
 CACHE_LEN = 72
 LAYER_S = 1e-6        # modeled compute per layer half: partial overlap
+HOST_BW = 100e9       # host to device, B/s: one value for both packages
 COUNTERS = ("tokens", "hits", "misses", "fetch_bytes", "steps",
             "prefill_tokens", "prefill_chunks", "fallback_prefill_tokens",
             "rejected_requests", "fetches_by_tier", "fetch_bytes_by_tier",
@@ -158,7 +159,8 @@ def _batched_pair(arch, paged, policy, use_kernel, max_batch=4,
     ref = BatchedOffloadEngine(model, params, jpol, capacity,
                                max_batch=max_batch, block_size=block_size,
                                paged=paged, layer_compute_s=LAYER_S,
-                               use_kernel=use_kernel, kernel_backend="jnp")
+                               use_kernel=use_kernel, kernel_backend="jnp",
+                               host_bw=HOST_BW)
     _share_programs(ref.core, arch)
     ref_log = _record(ref.core)
     ref_out = ref.generate(prompts, MAX_NEW, CACHE_LEN)
@@ -166,7 +168,8 @@ def _batched_pair(arch, paged, policy, use_kernel, max_batch=4,
                         paged=paged, use_kernel=use_kernel,
                         layer_compute_s=LAYER_S)
     eng = TorchBatchedOffloadEngine(tmodel, tparams, tpolicy, capacity,
-                                    serve=serve, device="cpu")
+                                    serve=serve, host_bw=HOST_BW,
+                                    device="cpu")
     log = _record(eng.core)
     out = eng.generate(prompts, MAX_NEW, CACHE_LEN)
     return ref, ref_out, ref_log, eng, out, log
@@ -204,11 +207,12 @@ def test_llama4_offload_engine_matches_reference():
     cfg, model, params, tmodel, tparams = _backbone(LLAMA4)
     pc, pp, tpc, tpp = _predictor()
     ref = OffloadEngine(model, params, _reference_learned(), 4,
-                        layer_compute_s=LAYER_S)
+                        host_bw=HOST_BW, layer_compute_s=LAYER_S)
     _share_programs(ref.core, LLAMA4)
     eng = TorchOffloadEngine(tmodel, tparams,
                              tpol.OnlineMoEBeyondPolicy(tpp, tpc), 4,
-                             layer_compute_s=LAYER_S, device="cpu")
+                             host_bw=HOST_BW, layer_compute_s=LAYER_S,
+                             device="cpu")
     ref_log, log = _record(ref.core), _record(eng.core)
     prompts = PROMPTS[:2]
     ref_out = [ref.generate(p, MAX_NEW, CACHE_LEN) for p in prompts]
@@ -219,7 +223,7 @@ def test_llama4_offload_engine_matches_reference():
     assert eng.stats.steps == sum(len(p) + MAX_NEW for p in prompts)
     batched = TorchBatchedOffloadEngine(tmodel, tparams, None, 8,
                                         max_batch=2, block_size=4,
-                                        device="cpu")
+                                        host_bw=HOST_BW, device="cpu")
     assert batched.generate(prompts, MAX_NEW, CACHE_LEN) == out
 
 
@@ -228,7 +232,8 @@ def test_llama4_paged_engine_pages_only_global_layers():
     rows of ``chunk`` slots, and chunked prefill is off for the stack."""
     _, _, _, tmodel, tparams = _backbone(LLAMA4)
     eng = TorchBatchedOffloadEngine(tmodel, tparams, None, 8, max_batch=3,
-                                    block_size=4, device="cpu")
+                                    block_size=4, host_bw=HOST_BW,
+                                    device="cpu")
     assert eng.core.paged_ok and not eng.core.chunk_prefill_ok
     cfg = tmodel.cfg
     caches = eng.core.alloc_paged_caches(9, 4)

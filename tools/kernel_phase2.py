@@ -86,7 +86,9 @@ def profiled_call(torch, cs, dev, kernel, name):
         logits = cs.topk_inputs(torch, dev, gen, **shape)
         return lambda: tg.topk_gating(logits, shape["k"])
     from repro_torch.kernels import expert_ffn as ef
-    args = cs.expert_inputs(torch, dev, gen, bf16, **cs.EXPERT_SHAPES[name])
+    shape = dict(cs.EXPERT_SHAPES[name])
+    dtype = getattr(torch, shape.pop("timed", "bfloat16"))
+    args = cs.expert_inputs(torch, dev, gen, dtype, **shape)
     return lambda: ef.expert_ffn(*args)
 
 

@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and G 256, and the reduced mamba2 shape; ``topk_gating`` at main run
    1's decode and prefill-chunk shapes, main run 2's, the pipeline's and
    the training forward's (4,096 rows x 64 experts top-6, 2,048 x 16
-   top-2), on rows with a tie across the k-th place, all values
+   top-2); and the three serving kernels at serve_trained's float32
+   shapes on the 53.5 M backbone), on rows with a tie across the k-th
+   place, all values
    equal, and probabilities underflowed to 0; for all five, two calls on
    the same inputs must be bit-identical), in bfloat16 and float32 (the
    router in float32 only), and time kernel, plain version and a PyTorch
@@ -49,7 +51,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per-trace standard error; fails unless both kernels launched exactly
    once per MoE layer and step (26 x 2,560), every loss is finite, the
    trained predictor's validation loss is below the untrained one's and
-   the oracle hits every access;
+   the oracle hits every access; it hands the trained predictor on;
+4a'. main run trained: main run 1 again with that trained predictor in
+   ``OnlineMoEBeyondPolicy``; fails unless its streams, routed ids and
+   launches equal main run 1's;
 4b. parity pipeline: the same in float32 on the reduced DeepSeek-V2-Lite:
    greedy traces on the card and on the CPU identical, the predictor's
    logits within 1e-4, the simulator's table of every policy identical;
@@ -66,6 +71,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4e. pipeline trained: the ~100M config of ``examples/train_backbone.py``
    trained 200 steps at B 8 x S 256, then 4a's steps 2-4 on it at 10% and
    20% caches, beside 4a's random-backbone table;
+4f. serve trained: that backbone serves the 8 held-out prompts greedily
+   (16 new tokens, a 50 us layer clock, the host rate 4e measured): the
+   batch-1 ``OffloadEngine`` at 10% and 20% caches with every policy of
+   ``launch.serve.build_policy`` at width top-k and the untrained
+   predictor as a control, then ``BatchedOffloadEngine`` at 10% with no
+   prefetch and with the trained predictor; each row beside the
+   simulator's hit rate for the same policy and cache, and whether the
+   two rank the policies alike (reported); fails unless, within each
+   engine, streams and routed ids do not depend on the policy, each
+   kernel launched exactly once per (MoE) layer of each step and prefill
+   chunk (``paged_flash_decode`` only in the batched engine), and hits +
+   misses equal the routed accesses;
 5. main run 2: full-width Llama-4-Scout in bfloat16, depth cut to 8 layers
    (two 3:1 chunked:global groups; 32.2 GB of routed experts in pinned
    host memory), paged engine: global layers through the block pools
@@ -87,17 +104,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    script (matmul and cuDNN), and the causal convolution is a
    shift-and-add, never a cuDNN convolution.
 
-Phases 4a-4e are named ``pipeline``, ``parity_pipeline``, ``train``,
-``parity_train`` and ``pipeline_trained`` in the output. Host memory: about 32 GB for main run 2's pinned experts (each
+Phases 4a-4f are named ``pipeline``, ``main_run_trained``,
+``parity_pipeline``, ``train``, ``parity_train``, ``pipeline_trained`` and
+``serve_trained`` in the output. Host memory: about 32 GB for main run 2's pinned experts (each
 main run's pinned blocks are released before the next phase), and 16 GB
 of float32 experts for parity run 2. The last stdout line is ``{"ok": true,
 "device": {...}}``; the line before it is the card's name and power limit;
 before that the ``{"kernels": [...]}`` line, whose ``launches`` are the
 counts of the main run that drives each kernel (Llama-4-Scout's for the
 four attention and MoE kernels, mamba2's for ``ssd_chunk``;
-``launches_by_run`` has every main run's and the pipeline, train and
-pipeline_trained phases'), and before that ``{"launch_floor_ms": ...}``
-and the phases' summaries. Details go to
+``launches_by_run`` has every main run's and the pipeline,
+main_run_trained, train, pipeline_trained and serve_trained phases'), and
+before that ``{"launch_floor_ms": ...}`` and the phases' summaries. Details go to
 ``chiprun_out/chip_smoke.json``.
 This script imports nothing of JAX or of the reference package.
 """
@@ -203,34 +221,44 @@ def bound(nbytes: float, ops: float, dtype: str):
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions at main-path shapes
 
-# paged_flash_decode's shapes on the main path, cache_len 128 (W 16, BS 8):
-# MLA shared page at decode (main run 1) and at a prefill chunk (8 tokens of
-# one request as 8 lanes sharing its table), GQA layout at decode (main
-# run 2's global layers)
+# paged_flash_decode's shapes on the main path, block size 8: main run 1's
+# (cache_len 128, W 16; ``qk`` the query-key width the scores are scaled
+# by) MLA shared page at decode and at a prefill chunk (8 tokens of one
+# request as 8 lanes sharing its table), GQA layout at decode (main run 2's
+# global layers), and serve_trained's batched runs on the trained 53.5 M
+# backbone in float32 (cache_len 81, W 11): 8 heads over its 64 + 16 latent
+# at decode and at a prefill chunk, 5 tokens (the 11-slot cache clamps the
+# chunk to 11 // top-2 pairs)
 PAGED_SHAPES = {
-    "mla": dict(kvh=1, g=16, dk=576, dv=512, gqa=False),
-    "gqa": dict(kvh=8, g=5, dk=128, dv=128, gqa=True),
-    "prefill": dict(kvh=1, g=16, dk=576, dv=512, gqa=False,
+    "mla": dict(kvh=1, g=16, dk=576, dv=512, gqa=False, qk=192),
+    "gqa": dict(kvh=8, g=5, dk=128, dv=128, gqa=True, qk=128),
+    "prefill": dict(kvh=1, g=16, dk=576, dv=512, gqa=False, qk=192,
                     pos_list=tuple(range(56, 64)), shared_table=True),
+    "serve_decode": dict(kvh=1, g=8, dk=80, dv=64, gqa=False, qk=48,
+                         pos_list=(79, 75, 71, 67), w=11, timed="float32"),
+    "serve_prefill": dict(kvh=1, g=8, dk=80, dv=64, gqa=False, qk=48,
+                          pos_list=tuple(range(55, 60)), shared_table=True,
+                          w=11, timed="float32"),
 }
 
 
 def check_paged(torch, F, dev, gen):
-    """``paged_flash_decode`` at every shape of ``PAGED_SHAPES``."""
+    """``paged_flash_decode`` at every shape of ``PAGED_SHAPES``, the first
+    at the top level."""
     from repro_torch.kernels import paged_attention as pa
     out = paged_case(torch, F, dev, gen, pa, **PAGED_SHAPES["mla"])
-    out["gqa"] = paged_case(torch, F, dev, gen, pa, **PAGED_SHAPES["gqa"])
-    out["prefill"] = paged_case(torch, F, dev, gen, pa,
-                                **PAGED_SHAPES["prefill"])
+    for name in list(PAGED_SHAPES)[1:]:
+        out[name] = paged_case(torch, F, dev, gen, pa, **PAGED_SHAPES[name])
     return out
 
 
-def paged_inputs(torch, dev, gen, dt, kvh, g, dk, dv, gqa,
-                 pos_list=(95, 90, 84, 71), shared_table=False):
+def paged_inputs(torch, dev, gen, dt, kvh, g, dk, dv, gqa, qk,
+                 pos_list=(95, 90, 84, 71), shared_table=False, w=16):
     """(args, keywords) of one call: decode lanes (prompt + decode
-    positions) with a table each, or the tokens of one prefill chunk as
-    lanes sharing one table; seeded random q and pools in type ``dt``."""
-    n, bs, w = len(pos_list), 8, 16
+    positions) with a table of ``w`` blocks each, or the tokens of one
+    prefill chunk as lanes sharing one table; seeded random q and pools in
+    type ``dt``."""
+    n, bs = len(pos_list), 8
     q = torch.randn(n, kvh, g, dk, generator=gen, device=dev).to(dt)
     pool = torch.randn(n * w + 1, bs, kvh, dk, generator=gen,
                        device=dev).to(dt)
@@ -241,22 +269,23 @@ def paged_inputs(torch, dev, gen, dt, kvh, g, dk, dv, gqa,
     if shared_table:
         tables = tables[:1].expand(n, w).contiguous()
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
-    scale = (192 if not gqa else dk) ** -0.5
-    return (q, pool, v_pool, tables, pos), {"scale": scale, "dv": dv}
+    return (q, pool, v_pool, tables, pos), {"scale": qk ** -0.5, "dv": dv}
 
 
-def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa,
-               pos_list=(95, 90, 84, 71), shared_table=False):
+def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa, qk,
+               pos_list=(95, 90, 84, 71), shared_table=False, w=16,
+               timed="bfloat16"):
     """One shape in f32 and bf16 against the plain version; two calls on
-    the same inputs must be bit-identical; bf16 timed."""
-    n, bs, w = len(pos_list), 8, 16
+    the same inputs must be bit-identical; timed in the ``timed`` dtype
+    (the one its run calls it in)."""
+    n, bs = len(pos_list), 8
     pos_list = list(pos_list)
     label = (f"paged_flash_decode ({'GQA' if gqa else 'MLA'} layout, "
              f"{n} lanes)")
     out = {}
     for dtype in ("float32", "bfloat16"):
         args, kw = paged_inputs(torch, dev, gen, getattr(torch, dtype), kvh,
-                                g, dk, dv, gqa, pos_list, shared_table)
+                                g, dk, dv, gqa, qk, pos_list, shared_table, w)
         q, pool, v_pool, tables, pos = args
         scale = kw["scale"]
         o = pa.paged_flash_decode(*args, **kw)
@@ -270,7 +299,7 @@ def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa,
         if not err <= tol:
             fail(f"{label} {dtype}: max abs err {err} > {tol}")
         out[dtype] = err
-        if dtype != "bfloat16":
+        if dtype != timed:
             continue
         kpos = torch.arange(w * bs, device=dev)
         mask = (kpos[None, :] <= pos[:, None].long())[:, None, None, :]
@@ -299,17 +328,18 @@ def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa,
         rows = tables.tolist()      # distinct live pages, each read once
         pages = len({rows[i][j] for i, p in enumerate(pos_list)
                      for j in range(p // bs + 1)})
-        el = 2
+        el = q.element_size()
         page_bytes = bs * kvh * (dk + (dv if gqa else 0)) * el
         nbytes = (pages * page_bytes + q.numel() * el + n * h * dv * el
                   + tables.numel() * 4 + n * 4)
         ops = keys * h * (2 * dk + 2 * dv)
-        b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        b_ms, b_by = bound(nbytes, ops, dtype)
         pools = (f"K/V pools ({n * w + 1},{bs},{kvh},{dk}) each" if gqa
                  else f"pool ({n * w + 1},{bs},1,{dk}), dv {dv}")
         tabs = "one table shared by the lanes" if shared_table else "tables"
+        short = "bf16" if dtype == "bfloat16" else "f32"
         out.update(bound_ms=b_ms, bound_by=b_by, bit_identical=True,
-                   shape=f"q ({n},{kvh},{g},{dk}) bf16, {pools}, {tabs} "
+                   shape=f"q ({n},{kvh},{g},{dk}) {short}, {pools}, {tabs} "
                          f"({n},{w}), pos {pos_list}")
     return out
 
@@ -398,8 +428,11 @@ def check_flash(torch, F, dev, gen):
 # whose 48 pairs name PREFILL_DISTINCT_SLOTS distinct slots: the mean per
 # call, 18.7, that main run 1 showed on an H100, which main_run reports as
 # `distinct_slots_per_expert_call`), main run 2's (Llama-4-Scout: top-1,
-# D 5120, F 8192, 12 slots), and the pipeline's batch-1 trace decode (one
-# token, top-6, the layer's 64 experts as the slot buffer)
+# D 5120, F 8192, 12 slots), the pipeline's batch-1 trace decode (one
+# token, top-6, the layer's 64 experts as the slot buffer), and
+# serve_trained's engines on the float32 53.5 M backbone at the 10% cache
+# (11 slots): one token (batch 1), 4 decode lanes and a 5-token prefill
+# chunk (batched)
 PREFILL_DISTINCT_SLOTS = 19
 EXPERT_SHAPES = {
     "deepseek": dict(n=4, k=6, d=2048, f=1408, slots=166),
@@ -411,13 +444,17 @@ EXPERT_SHAPES = {
     # 1 token, top-2 of its 16 experts
     "pipeline_trained": dict(n=1, k=2, d=256, f=512, slots=16,
                              timed="float32"),
+    "serve_b1": dict(n=1, k=2, d=256, f=512, slots=11, timed="float32"),
+    "serve_decode": dict(n=4, k=2, d=256, f=512, slots=11, timed="float32"),
+    "serve_prefill": dict(n=5, k=2, d=256, f=512, slots=11, timed="float32"),
 }
 
 
 def check_expert(torch, dev, gen):
-    """``expert_ffn`` at every shape of ``EXPERT_SHAPES``."""
+    """``expert_ffn`` at every shape of ``EXPERT_SHAPES``, the first at the
+    top level."""
     out = expert_case(torch, dev, gen, **EXPERT_SHAPES["deepseek"])
-    for name in ("llama4", "prefill", "pipeline", "pipeline_trained"):
+    for name in list(EXPERT_SHAPES)[1:]:
         out[name] = expert_case(torch, dev, gen, **EXPERT_SHAPES[name])
     return out
 
@@ -485,7 +522,9 @@ def expert_case(torch, dev, gen, n, k, d, f, slots, distinct=None,
 # lanes) and at a prefill chunk (8 tokens of one request), 64 experts top-6,
 # main run 2's (16 experts, top-1), the pipeline's batch-1 trace decode, and
 # the training forward's ids: the train phase's B 4 x S 1024 tokens (64
-# experts, top-6) and pipeline_trained's B 8 x S 256 (16 experts, top-2)
+# experts, top-6) and pipeline_trained's B 8 x S 256 (16 experts, top-2),
+# then serve_trained's batched decode (4 lanes) and prefill chunk (5
+# tokens) on the 53.5 M backbone (its batch-1 row is pipeline_trained's)
 TOPK_SHAPES = {
     "deepseek": dict(t=4, e=64, k=6),
     "prefill": dict(t=8, e=64, k=6),
@@ -494,6 +533,8 @@ TOPK_SHAPES = {
     "train": dict(t=4096, e=64, k=6),
     "train_100m": dict(t=2048, e=16, k=2),
     "pipeline_trained": dict(t=1, e=16, k=2),
+    "serve_decode": dict(t=4, e=16, k=2),
+    "serve_prefill": dict(t=5, e=16, k=2),
 }
 
 
@@ -501,8 +542,7 @@ def check_topk(torch, dev, gen, floor_ms):
     """``topk_gating`` at every shape of ``TOPK_SHAPES``, the first at the
     top level; ``floor_ms`` is this run's ``launch_floor_ms``."""
     out = topk_case(torch, dev, gen, floor_ms, **TOPK_SHAPES["deepseek"])
-    for name in ("prefill", "llama4", "pipeline", "train", "train_100m",
-                 "pipeline_trained"):
+    for name in list(TOPK_SHAPES)[1:]:
         out[name] = topk_case(torch, dev, gen, floor_ms, **TOPK_SHAPES[name])
     return out
 
@@ -754,7 +794,16 @@ def release_host_memory(torch) -> None:
         empty()
 
 
-def main_run(torch, np, dev, arch, host_bw):
+def digest(obj) -> str:
+    """A short hash of a JSON-able value (streams, routed ids)."""
+    return hashlib.sha256(json.dumps(obj).encode()).hexdigest()[:16]
+
+
+def main_run(torch, np, dev, arch, host_bw, predictor=None):
+    """One main run: ``arch`` at full width in bfloat16 through
+    ``BatchedOffloadEngine`` with ``OnlineMoEBeyondPolicy``, holding a
+    full-size predictor drawn from a seed, or ``predictor`` = (params,
+    config) when given. Returns (result, launches)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import PredictorConfig
     from repro_torch.core.policies import OnlineMoEBeyondPolicy
@@ -787,9 +836,12 @@ def main_run(torch, np, dev, arch, host_bw):
     gen = torch.Generator(dev).manual_seed(SEED)
     model = build_model(cfg)
     params = model.init(gen, device=dev, expert_device="cpu")
-    pc = predictor_config(PredictorConfig, cfg)
-    pp = predictor_init(torch.Generator(dev).manual_seed(SEED + 1), pc,
-                        device=dev)
+    if predictor is None:
+        pc = predictor_config(PredictorConfig, cfg)
+        pp = predictor_init(torch.Generator(dev).manual_seed(SEED + 1), pc,
+                            device=dev)
+    else:
+        pp, pc = predictor
     eng = BatchedOffloadEngine(
         model, params, lambda: OnlineMoEBeyondPolicy(pp, pc), capacity,
         host_bw=host_bw, max_batch=4, block_size=8, prefill_chunk=8,
@@ -827,7 +879,9 @@ def main_run(torch, np, dev, arch, host_bw):
         "routed_experts": n_moe * m.num_experts,
         "pinned_expert_bytes": n_moe * per_layer,
         "host_available_bytes_before": avail,
-        "policy": "moe-beyond-online", "init_s": init_s, "run_s": run_s,
+        "policy": "moe-beyond-online",
+        "predictor": "seeded" if predictor is None else "trained",
+        "predictor_max_seq": pc.max_seq, "init_s": init_s, "run_s": run_s,
         "generated_tokens": generated,
         "generated_tokens_per_s": generated / run_s,
         "positions_per_s": st.tokens / run_s,
@@ -840,8 +894,34 @@ def main_run(torch, np, dev, arch, host_bw):
         "launches": launches,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "distinct_slots_per_expert_call": distinct_slots(routes, kinds),
+        "stream_digest": digest(outs), "route_digest": digest(routes),
     }
     del eng, params, pp
+    return result, launches
+
+
+MAIN_RUN_COUNTERS = ("hit_rate", "hits", "misses", "fetch_bytes",
+                     "sim_stall_s", "run_s", "generated_tokens_per_s")
+
+
+def main_run_trained(torch, np, dev, host_bw, handed, main1):
+    """Main run 1 again, the same backbone, prompts and cache, with the
+    full-size predictor that the ``pipeline`` phase trained on this
+    backbone's traces (``handed``: its params and config). Fails unless
+    the streams, the routed ids and the launches equal main run 1's
+    (``main1``: its result and launches): the policy moves only weights."""
+    result, launches = main_run(torch, np, dev, "deepseek-v2-lite", host_bw,
+                                predictor=(handed["pp"], handed["pc"]))
+    first, first_launches = main1
+    for key in ("stream_digest", "route_digest"):
+        if result[key] != first[key]:
+            fail(f"main_run_trained: {key} {result[key]} differs from main "
+                 f"run 1's {first[key]}")
+    if launches != first_launches:
+        fail(f"main_run_trained: launches {launches} differ from main run "
+             f"1's {first_launches}")
+    result["same_streams_routes_launches_as_main_run"] = True
+    result["main_run"] = {k: first[k] for k in MAIN_RUN_COUNTERS}
     return result, launches
 
 
@@ -911,13 +991,6 @@ def parity_run(torch, np, dev):
 # 10%) and warm-up prefix
 PIPELINE = dict(prompts=32, prompt_len=64, max_new=16, train=24,
                 temperature=0.8, capacity_fraction=0.1, warm_tokens=8)
-
-
-def expert_bytes(torch, cfg) -> int:
-    """Bytes of one routed SwiGLU expert in the backbone's dtype: what a
-    cache miss moves."""
-    return (3 * cfg.d_model * cfg.moe.d_ff_expert
-            * getattr(torch, cfg.dtype).itemsize)
 
 
 def seven_policies(P, pp, pc, train_traces):
@@ -996,13 +1069,15 @@ def predict_and_simulate(torch, np, dev, label, cfg, traces, fractions):
     and one trace at a time (the spread that says whether the table ranks
     the policies), at the host-to-device rate of this card. Fails unless
     every loss is finite, the trained predictor's validation loss is
-    below the untrained one's and the oracle hits every access."""
+    below the untrained one's and the oracle hits every access. Returns
+    (result, {cache fraction: (table, slots)}, {"pp": trained predictor,
+    "init": its initial weights, "pc": its config})."""
     from repro_torch.configs.base import PredictorConfig
     from repro_torch.core import policies as P
     from repro_torch.core.predictor import predictor_init
     from repro_torch.core.predictor_train import evaluate, train_predictor
-    from repro_torch.core.simulator import (SimConfig, measured_host_bw,
-                                            simulate)
+    from repro_torch.core.simulator import (SimConfig, expert_bytes,
+                                            measured_host_bw, simulate)
     from repro_torch.data import PredictorDataset
 
     c, m = PIPELINE, cfg.moe
@@ -1034,7 +1109,7 @@ def predict_and_simulate(torch, np, dev, label, cfg, traces, fractions):
              f"below the untrained predictor's {untrained['loss']}")
 
     # 4. simulator, at the host-to-device rate of this card
-    nbytes = expert_bytes(torch, cfg)
+    nbytes = expert_bytes(cfg)
     host_bw = measured_host_bw(dev, nbytes)
     t0 = time.perf_counter()
     tables = {}
@@ -1079,17 +1154,19 @@ def predict_and_simulate(torch, np, dev, label, cfg, traces, fractions):
         "val_loss_by_epoch": hist.val_loss,
         "untrained_val": untrained, "trained_val": trained,
         "host_bw_bytes_per_s": host_bw, "expert_bytes": nbytes,
-        "sim_s": sim_s}, tables
+        "sim_s": sim_s}, tables, {"pp": pp, "init": init, "pc": pc}
 
 
-def pipeline_run(torch, np, dev):
+def pipeline_run(torch, np, dev, keep):
     """The paper's pipeline, steps 2-4 of the quickstart, on main run 1's
     backbone (full width and depth, bfloat16, main run 1's seed) with
     every expert on the device: batch-1 traces through the facade's
     decode mode (``topk_gating`` and ``expert_ffn`` on every MoE layer of
     every step), the paper's full-size predictor trained with
     ``train_predictor``'s defaults, and the held-out traces replayed
-    through the cache simulator with every policy at a 10% cache."""
+    through the cache simulator with every policy at a 10% cache. The
+    trained predictor and its config go to ``keep["pipeline"]`` for
+    ``main_run_trained``."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
@@ -1106,8 +1183,9 @@ def pipeline_run(torch, np, dev):
     del params
     release_host_memory(torch)
     steps = sum(t.num_tokens for t in traces)
-    out, tables = predict_and_simulate(torch, np, dev, "pipeline", cfg,
-                                       traces, (c["capacity_fraction"],))
+    out, tables, trained = predict_and_simulate(
+        torch, np, dev, "pipeline", cfg, traces, (c["capacity_fraction"],))
+    keep["pipeline"] = {"pp": trained["pp"], "pc": trained["pc"]}
     table, slots = tables[c["capacity_fraction"]]
     result = {
         "config": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
@@ -1423,7 +1501,7 @@ BACKBONE = dict(steps=200, batch=8, seq=256, lr=3e-3)
 TRAINED_FRACTIONS = (0.1, 0.2)
 
 
-def pipeline_trained_run(torch, np, dev, random_table):
+def pipeline_trained_run(torch, np, dev, random_table, keep):
     """The pipeline on a trained backbone: the ~100M config of
     ``examples/train_backbone.py`` (float32) trained ``BACKBONE`` steps by
     ``launch.train`` (AdamW 3e-3, clip 1.0, cosine with 20 warm-up steps,
@@ -1432,7 +1510,11 @@ def pipeline_trained_run(torch, np, dev, random_table):
     last below the first, and the steps' own checks pass. Whether the
     predictor learned anything (F1 above 0, MoE-Beyond's prediction hits
     above random's) is reported, not required: ``random_table`` is the
-    random-backbone ``pipeline`` phase's table, printed beside."""
+    random-backbone ``pipeline`` phase's table, printed beside. What
+    ``serve_trained`` serves goes to ``keep["pipeline_trained"]``: the
+    trained backbone, the training traces, the held-out traces' prompts,
+    the trained predictor, its initial weights and config, the measured
+    host rate and the simulator's tables."""
     from repro_torch.configs.deepseek_v2_lite import hundred_m_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.train import train
@@ -1466,8 +1548,8 @@ def pipeline_trained_run(torch, np, dev, random_table):
     traces, trace_s, launches = trace_backbone(
         torch, np, dev, "pipeline_trained", model, params)
     steps = sum(t.num_tokens for t in traces)
-    out, tables = predict_and_simulate(torch, np, dev, "pipeline_trained",
-                                       cfg, traces, TRAINED_FRACTIONS)
+    out, tables, trained = predict_and_simulate(
+        torch, np, dev, "pipeline_trained", cfg, traces, TRAINED_FRACTIONS)
     rows = {f"{frac:.0%}": {"capacity_slots": slots, "policies": table}
             for frac, (table, slots) in tables.items()}
     t10 = tables[0.1][0]
@@ -1497,8 +1579,196 @@ def pipeline_trained_run(torch, np, dev, random_table):
                 t10["moe-beyond"]["prediction_hit_rate"]
                 > t10["random"]["prediction_hit_rate"])},
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
-    del params
+    n_train = PIPELINE["train"]
+    keep["pipeline_trained"] = {
+        "model": model, "params": params, "train_traces": traces[:n_train],
+        "prompts": [tr.tokens[:tr.prompt_len].tolist()
+                    for tr in traces[n_train:]],
+        **trained, "host_bw": out["host_bw_bytes_per_s"], "sim": rows}
     return result, launches
+
+
+# serve_trained: the held-out prompts served greedily by the engines for
+# the traces' PIPELINE["max_new"] new tokens (the reference's engine bench:
+# a 50 us layer-compute clock), batch 1 at both of pipeline_trained's
+# caches with every launcher policy at width top-k (the simulator table's)
+# and the untrained predictor as a control, then the batched engine at the
+# 10% cache. Batch 1 serves the first 4 of the 8 held-out prompts: on an
+# H100 80GB HBM3 (700 W) the batch-1 engine runs ~55 positions/s on this
+# backbone (~23 with the learned policy's 7 predictor forwards a step), so
+# all 8 would take ~250 s
+SERVE = dict(layer_compute_s=50e-6, max_batch=4, block_size=8,
+             prefill_chunk=8, batch1_prompts=4)
+SERVE_POLICIES = ("none", "random", "next-layer-all", "global-frequency",
+                  "moe-infinity", "moe-beyond", "moe-beyond-untrained")
+SERVE_BATCHED = ("none", "moe-beyond")
+# engine policy -> the simulator row it stands beside
+SIM_ROW = {"none": "lru-on-demand", "random": "random",
+           "global-frequency": "global-frequency",
+           "moe-infinity": "moe-infinity", "moe-beyond": "moe-beyond"}
+
+
+def serve_one(torch, dev, handed, engine, frac, label, prompts):
+    """One engine run of ``serve_trained``: ``prompts`` through the batch-1
+    ``OffloadEngine`` (one policy instance, the prompts in turn) or the
+    batched engine (a policy per request). Fails unless
+    ``topk_gating`` and ``expert_ffn`` launched once per MoE layer of each
+    step and prefill chunk, ``paged_flash_decode`` once per layer of each
+    in the batched engine and never at batch 1, nothing else, and hits +
+    misses equal the routed (token, MoE layer, expert) accesses. Returns
+    (row, streams, routed ids)."""
+    from repro_torch.core.tracing import moe_layer_ids
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import build_policy
+    from repro_torch.serving.engine import OffloadEngine
+    from repro_torch.serving.scheduler import BatchedOffloadEngine
+
+    c, h = SERVE, handed
+    max_new = PIPELINE["max_new"]
+    cache_len = len(prompts[0]) + max_new + 1
+    model = h["model"]
+    cfg = model.cfg
+    k = cfg.moe.top_k
+    n_moe = len(moe_layer_ids(cfg))
+    name = label.replace("-untrained", "")
+    pp = h["init"] if label.endswith("-untrained") else h["pp"]
+
+    def policy():
+        return build_policy(name, cfg, h["train_traces"], width=k,
+                            predictor=pp, pcfg=h["pc"])
+    capacity = max(1, int(frac * n_moe * cfg.moe.num_experts))
+    if engine == "batch-1":
+        eng = OffloadEngine(model, h["params"], policy(), capacity,
+                            host_bw=h["host_bw"],
+                            layer_compute_s=c["layer_compute_s"], device=dev)
+    else:
+        capacity = max(c["max_batch"] * k, capacity)
+        eng = BatchedOffloadEngine(
+            model, h["params"], policy, capacity, host_bw=h["host_bw"],
+            max_batch=c["max_batch"], block_size=c["block_size"],
+            prefill_chunk=c["prefill_chunk"],
+            layer_compute_s=c["layer_compute_s"], device=dev)
+    routes = record_routes(eng.core, check_finite=True)
+    where = f"serve_trained ({engine}, {frac:.0%}, {label})"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    if engine == "batch-1":
+        outs = [eng.generate(p, max_new, cache_len) for p in prompts]
+    else:
+        outs = eng.generate(prompts, max_new, cache_len)
+    run_s = since(torch, t0)
+    launches = launch_counts()
+    st = eng.stats
+    calls = st.steps + st.prefill_chunks
+    want = {kernel: 0 for kernel in launches}
+    want["topk_gating"] = want["expert_ffn"] = n_moe * calls
+    if engine == "batched":
+        want["paged_flash_decode"] = cfg.num_layers * calls
+        eng.pool.check_leaks(expected_in_use=0)
+    if launches != want:
+        fail(f"{where}: launches {launches}, want {want}")
+    accesses = sum(len(g) for entry in routes for r in entry for g in r)
+    if st.hits + st.misses != accesses:
+        fail(f"{where}: hits + misses {st.hits} + {st.misses} != "
+             f"{accesses} routed accesses")
+    generated = sum(len(o) for o in outs)
+    if any(len(o) != max_new + 1 for o in outs):
+        fail(f"{where}: a stream of the wrong length: {outs}")
+    cs = eng.core.cache.stats
+    row = {"capacity_slots": capacity, "policy": label,
+           "requests": len(prompts),
+           "hit_rate": st.hit_rate, "hits": st.hits, "misses": st.misses,
+           "prefetch_hits": cs.prefetch_hits,
+           "prefetch_hit_share": cs.prefetch_hits / max(cs.accesses, 1),
+           "prefetches": cs.prefetches, "fetch_bytes": st.fetch_bytes,
+           "fetch_mib": st.fetch_bytes / 2**20,
+           "sim_stall_s": st.sim_stall_s,
+           "blocking_stall_s": st.blocking_stall_s,
+           "overlapped_s": st.overlapped_s, "run_s": run_s,
+           "generated_tokens": generated,
+           "generated_tokens_per_s": generated / run_s,
+           "positions_per_s": st.tokens / run_s, "steps": st.steps,
+           "prefill_chunks": st.prefill_chunks, "launches": launches}
+    if engine == "batched":
+        row["prefill_chunk"] = eng.prefill_chunk
+    del eng
+    return row, outs, routes
+
+
+def serve_trained_run(torch, np, dev, handed):
+    """The deployment loop with a trained predictor: ``pipeline_trained``'s
+    backbone serving held-out prompts, whose traces its simulator
+    replayed, greedy (``SERVE``), through ``serve_one``: batch 1 at the 10%
+    and 20% caches with every ``SERVE_POLICIES`` entry, then batched at
+    10% with ``SERVE_BATCHED``. Fails unless, within each engine, every
+    policy's streams and routed ids equal the ``none`` run's. Each row
+    stands beside the simulator's hit rate for the same policy and cache
+    over the traces of the same prompts (± their standard error) and over
+    all 8; whether the two rank the policies alike is reported, not
+    required."""
+    runs, launches = [], {}
+    every = handed["prompts"]
+    for engine, fracs, names, prompts in (
+            ("batch-1", TRAINED_FRACTIONS, SERVE_POLICIES,
+             every[:SERVE["batch1_prompts"]]),
+            ("batched", (0.1,), SERVE_BATCHED, every)):
+        base = None
+        for frac in fracs:
+            sim = handed["sim"][f"{frac:.0%}"]["policies"]
+            for label in names:
+                row, outs, routes = serve_one(torch, dev, handed, engine,
+                                              frac, label, prompts)
+                if base is None:
+                    base = (outs, routes)
+                elif outs != base[0]:
+                    fail(f"serve_trained ({engine}, {frac:.0%}, {label}): "
+                         f"streams differ from the none run's")
+                elif routes != base[1]:
+                    fail(f"serve_trained ({engine}, {frac:.0%}, {label}): "
+                         f"routed ids differ from the none run's")
+                row.update(engine=engine, cache=f"{frac:.0%}",
+                           sim_cache_hit_rate=None, sim_std_error=None,
+                           sim_cache_hit_rate_all=None)
+                sim_row = sim.get(SIM_ROW.get(label, ""))
+                if sim_row is not None:   # the same prompts' traces
+                    rates = np.asarray(
+                        sim_row["per_trace_cache_hit_rate"][:len(prompts)])
+                    row.update(
+                        sim_cache_hit_rate=float(rates.mean()),
+                        sim_std_error=float(rates.std(ddof=1)
+                                            / len(rates) ** 0.5),
+                        sim_cache_hit_rate_all=sim_row["cache_hit_rate"])
+                runs.append(row)
+                for key, n in row["launches"].items():
+                    launches[key] = launches.get(key, 0) + n
+                log(f"serve_trained: {engine} {frac:.0%} {label}: hit "
+                    f"{row['hit_rate']:.4f} (sim {row['sim_cache_hit_rate']})"
+                    f" {row['run_s']:.1f} s")
+    ranking = {}
+    for frac in TRAINED_FRACTIONS:
+        rows = {r["policy"]: r for r in runs if r["engine"] == "batch-1"
+                and r["cache"] == f"{frac:.0%}" and r["policy"] in SIM_ROW}
+        order = [sorted(rows, key=lambda p: -rows[p][key])
+                 for key in ("hit_rate", "sim_cache_hit_rate")]
+        pairs = [(a, b) for i, a in enumerate(rows) for b in list(rows)[i + 1:]]
+        agree = sum((rows[a]["hit_rate"] - rows[b]["hit_rate"])
+                    * (rows[a]["sim_cache_hit_rate"]
+                       - rows[b]["sim_cache_hit_rate"]) > 0
+                    for a, b in pairs)
+        ranking[f"{frac:.0%}"] = {"engine": order[0], "simulator": order[1],
+                                  "same_order": order[0] == order[1],
+                                  "pairs_ordered_alike": agree,
+                                  "pairs": len(pairs)}
+    c = SERVE
+    return {"config": "hundred_m_config (examples/train_backbone.py)",
+            "requests": len(every), "prompt_len": len(every[0]),
+            "max_new": PIPELINE["max_new"],
+            "cache_len": len(every[0]) + PIPELINE["max_new"] + 1,
+            **c,
+            "width": handed["pc"].top_k,
+            "host_bw_bytes_per_s": handed["host_bw"],
+            "streams_and_routes_identical_across_policies": True,
+            "runs": runs, "ranking": ranking}, launches
 
 
 def parity_run_pipeline(torch, np, dev):
@@ -1511,7 +1781,7 @@ def parity_run_pipeline(torch, np, dev):
     from repro_torch.configs.base import PredictorConfig
     from repro_torch.core import policies as P
     from repro_torch.core.predictor import predictor_apply
-    from repro_torch.core.simulator import SimConfig, simulate
+    from repro_torch.core.simulator import SimConfig, expert_bytes, simulate
     from repro_torch.core.tracing import collect_traces, moe_layer_ids
     from repro_torch.data import make_topic_corpus, sample_prompts
     from repro_torch.models.model import build_model
@@ -1529,7 +1799,7 @@ def parity_run_pipeline(torch, np, dev):
     pp_gpu, pp_cpu = predictor_pair(torch, dev, pc, SEED + 12)
     sim = SimConfig(num_layers=n_moe, num_experts=m.num_experts,
                     capacity_fraction=0.25, warm_tokens=4,
-                    expert_bytes=expert_bytes(torch, cfg), host_bw=25e9,
+                    expert_bytes=expert_bytes(cfg), host_bw=25e9,
                     layer_compute_s=1e-6)
     runs = {}
     for where, p, pp in (("card", to_device(params, dev), pp_gpu),
@@ -1860,42 +2130,57 @@ def main() -> None:
     # the main runs' modeled fetches at this card's host-to-device rate:
     # pinned copies of one DeepSeek-V2-Lite expert, measured once
     from repro_torch.configs import get_config
-    from repro_torch.core.simulator import measured_host_bw
+    from repro_torch.core.simulator import expert_bytes, measured_host_bw
     host_bw = measured_host_bw(dev, expert_bytes(
-        torch, get_config("deepseek-v2-lite")))
+        get_config("deepseek-v2-lite")))
     log(f"host to device: {host_bw / 1e9:.2f} GB/s (main runs 1 and 2)")
 
-    runs, launches = {}, {}
+    # what a phase builds for a later one (the pipelines' backbones and
+    # predictors), taken by the phase that uses it, then freed
+    runs, launches, keep = {}, {}, {}
+    allocated = {"kernel_checks": torch.cuda.memory_allocated()}
+    ds = "deepseek-v2-lite"
+    # (phase, arch, run, the key of its launches in ``launches`` or None)
     phases = (
-        ("main_run", "deepseek-v2-lite",
-         lambda: main_run(torch, np, dev, "deepseek-v2-lite", host_bw)),
-        ("parity_run", "deepseek-v2-lite",
-         lambda: parity_run(torch, np, dev)),
-        ("pipeline", "deepseek-v2-lite",
-         lambda: pipeline_run(torch, np, dev)),
-        ("parity_pipeline", "deepseek-v2-lite",
-         lambda: parity_run_pipeline(torch, np, dev)),
-        ("train", "deepseek-v2-lite", lambda: train_run(torch, np, dev)),
-        ("parity_train", "deepseek-v2-lite",
-         lambda: parity_run_train(torch, np, dev)),
-        ("pipeline_trained", "deepseek-v2-lite",
+        ("main_run", ds, lambda: main_run(torch, np, dev, ds, host_bw), ds),
+        ("parity_run", ds, lambda: parity_run(torch, np, dev), None),
+        ("pipeline", ds, lambda: pipeline_run(torch, np, dev, keep),
+         "pipeline"),
+        ("main_run_trained", ds,
+         lambda: main_run_trained(torch, np, dev, host_bw,
+                                  keep.pop("pipeline"),
+                                  (runs["main_run"], launches[ds])),
+         "main_run_trained"),
+        ("parity_pipeline", ds, lambda: parity_run_pipeline(torch, np, dev),
+         None),
+        ("train", ds, lambda: train_run(torch, np, dev), "train"),
+        ("parity_train", ds, lambda: parity_run_train(torch, np, dev), None),
+        ("pipeline_trained", ds,
          lambda: pipeline_trained_run(torch, np, dev,
-                                      runs["pipeline"]["policies"])),
+                                      runs["pipeline"]["policies"], keep),
+         "pipeline_trained"),
+        ("serve_trained", ds,
+         lambda: serve_trained_run(torch, np, dev,
+                                   keep.pop("pipeline_trained")),
+         "serve_trained"),
         ("main_run_2", LLAMA4,
-         lambda: main_run(torch, np, dev, LLAMA4, host_bw)),
-        ("parity_run_2", LLAMA4, lambda: parity_run_llama4(torch, np, dev)),
-        ("main_run_3", MAMBA2, lambda: mamba_run(torch, np, dev)),
-        ("parity_run_3", MAMBA2, lambda: parity_run_mamba(torch, np, dev)))
-    for phase, arch, run in phases:
+         lambda: main_run(torch, np, dev, LLAMA4, host_bw), LLAMA4),
+        ("parity_run_2", LLAMA4, lambda: parity_run_llama4(torch, np, dev),
+         None),
+        ("main_run_3", MAMBA2, lambda: mamba_run(torch, np, dev), MAMBA2),
+        ("parity_run_3", MAMBA2, lambda: parity_run_mamba(torch, np, dev),
+         None))
+    for phase, arch, run, key in phases:
         t = time.perf_counter()
-        if phase.startswith("main"):
-            runs[phase], launches[arch] = run()
-        elif phase in ("pipeline", "train", "pipeline_trained"):
-            runs[phase], launches[phase] = run()
-        else:
+        if key is None:
             runs[phase] = run()
+        else:
+            runs[phase], launches[key] = run()
         phase_s[phase] = time.perf_counter() - t
         release_host_memory(torch)
+        # device bytes still allocated once the phase's tensors are freed:
+        # what every later phase's peak memory includes
+        allocated[phase] = torch.cuda.memory_allocated()
         log(f"{phase} ({arch}) done in {phase_s[phase]:.1f} s")
 
     kernels = []
@@ -1935,11 +2220,17 @@ def main() -> None:
                 shape: {"max_abs_err": c[shape]["float32"],
                         **timing_fields(c[shape])}
                 for shape in ("train", "train_100m")}
+        serve = {shape: {"max_abs_err": case["float32"],
+                         **timing_fields(case)}
+                 for shape, case in c.items() if shape.startswith("serve_")}
+        if serve:               # serve_trained's engines on the 53.5 M backbone
+            entry["serve_trained_shapes"] = serve
         for shape in ("long", "reduced"):   # ssd_chunk's other shapes
             if shape in c:
                 entry[f"{shape}_shape_max_abs_err"] = c[shape]
         kernels.append(entry)
     report = {"gpu": ident, "build_s": build_s, "phase_s": phase_s,
+              "allocated_bytes_after_phase": allocated,
               "launch_floor_ms": floor_ms,
               "kernels": kernels, "checks": checks, **runs,
               "ptxas": [ln for ln in build.BUILD_LOG.splitlines()
@@ -1947,7 +2238,8 @@ def main() -> None:
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    print(json.dumps({"phase_s": {"build": build_s, **phase_s}}), flush=True)
+    print(json.dumps({"phase_s": {"build": build_s, **phase_s},
+                      "allocated_bytes_after_phase": allocated}), flush=True)
     print(json.dumps({k: runs[k] for k in ("main_run", "main_run_2",
                                            "main_run_3")}), flush=True)
     print(json.dumps({"parity_run_3": {k: runs["parity_run_3"][k] for k in (
@@ -1987,6 +2279,23 @@ def main() -> None:
                              for k, v in row["policies"].items()}
                       for frac, row in pt["caches"].items()},
         "seconds": phase_s["pipeline_trained"]}), flush=True)
+    mt = runs["main_run_trained"]
+    print(json.dumps({"main_run_trained": {k: mt[k] for k in (
+        "predictor", "predictor_max_seq",
+        "same_streams_routes_launches_as_main_run", "main_run",
+        *MAIN_RUN_COUNTERS)}, "seconds": phase_s["main_run_trained"]}),
+        flush=True)
+    st = runs["serve_trained"]
+    print(json.dumps({"serve_trained": {
+        "host_bw_bytes_per_s": st["host_bw_bytes_per_s"],
+        "ranking": st["ranking"],
+        "runs": [{k: r[k] for k in (
+            "engine", "cache", "policy", "requests", "capacity_slots",
+            "hit_rate", "sim_cache_hit_rate", "sim_std_error",
+            "sim_cache_hit_rate_all", "prefetch_hit_share",
+            "fetch_mib", "sim_stall_s", "blocking_stall_s", "overlapped_s",
+            "run_s", "generated_tokens_per_s")} for r in st["runs"]]},
+        "seconds": phase_s["serve_trained"]}), flush=True)
     print(json.dumps({"launch_floor_ms": floor_ms}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ident, flush=True)

@@ -5,6 +5,9 @@
 2. collect batch-1 expert-activation traces (the paper's dataset schema)
 3. train the learned expert-activation predictor (paper §3.2)
 4. replay held-out traces through the cache simulator and compare policies
+5. serve a held-out prompt through the batch-1 ``OffloadEngine`` with the
+   trained predictor online, against three baselines (the engine half of
+   the reference's ``benchmarks/engine_bench.py`` ``run``)
 
 Run on a card (the ~100M config of ``examples/train_backbone.py``, trained
 200 steps at B 8 x S 256 with the reference launcher's recipe):
@@ -16,9 +19,9 @@ or on the CPU at the quickstart's reduced size and recipe (80 batches of
 
     PYTHONPATH=src python examples/pipeline_torch.py --device cpu --reduced
 
-The simulator's stall model needs the host-to-device rate: on a card it
-is measured (pinned copies of one expert); on the CPU there is none, and
-the stall column reads "not measured".
+The simulator's and the engine's stall models need the host-to-device
+rate: on a card it is measured (pinned copies of one expert); on the CPU
+there is none, and the stall columns read "not measured".
 """
 from __future__ import annotations
 
@@ -37,13 +40,15 @@ from repro_torch.core.policies import (CrossLayerPolicy,
                                        NoPrefetchPolicy, OraclePolicy,
                                        RandomPolicy)
 from repro_torch.core.predictor_train import train_predictor
-from repro_torch.core.simulator import SimConfig, measured_host_bw, simulate
+from repro_torch.core.simulator import (SimConfig, expert_bytes,
+                                        measured_host_bw, simulate)
 from repro_torch.core.tracing import collect_traces, moe_layer_ids
 from repro_torch.data import lm_batches, make_topic_corpus, sample_prompts
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch.serve import build_policy
 from repro_torch.launch.train import train, train_step, trainable
-from repro_torch.models.common import dtype_of
 from repro_torch.models.model import build_model
+from repro_torch.serving.engine import OffloadEngine
 from repro_torch.training.optimizer import make_adamw, tree_map
 
 
@@ -111,12 +116,10 @@ def main(argv=None) -> None:
 
     # 4. simulator --------------------------------------------------------
     e, k = cfg.moe.num_experts, cfg.moe.top_k
-    expert_bytes = 3 * cfg.d_model * cfg.moe.d_ff_expert * dtype_of(
-        cfg).itemsize
-    host_bw = (measured_host_bw(dev, expert_bytes) if dev.type == "cuda"
-               else None)
+    nbytes = expert_bytes(cfg)
+    host_bw = measured_host_bw(dev, nbytes) if dev.type == "cuda" else None
     sim = SimConfig(num_layers=n_moe, num_experts=e, capacity_fraction=0.2,
-                    warm_tokens=6, expert_bytes=expert_bytes,
+                    warm_tokens=6, expert_bytes=nbytes,
                     host_bw=host_bw or math.inf)
     where = (f"host->device {host_bw / 1e9:.1f} GB/s" if host_bw
              else "no host-to-device rate")
@@ -132,6 +135,25 @@ def main(argv=None) -> None:
                  else "not measured")
         print(f"    {r.policy:16s} cache-hit {r.cache_hit_rate:.3f}  "
               f"pred-hit {r.prediction_hit_rate:.3f}  stall {stall}")
+
+    # 5. serve -------------------------------------------------------------
+    capacity = max(1, int(0.2 * n_moe * e))
+    prompt = test_tr[0].tokens[:test_tr[0].prompt_len].tolist()
+    print(f"[5] engine @ 20% expert capacity ({capacity} slots), layer "
+          f"compute 50 us, one held-out prompt:")
+    for name in ("none", "next-layer-all", "moe-infinity", "moe-beyond"):
+        policy = build_policy(name, cfg, train_tr, width=6, predictor=pp,
+                              pcfg=pcfg)
+        eng = OffloadEngine(model, params, policy, capacity,
+                            host_bw=host_bw or math.inf,
+                            layer_compute_s=50e-6, device=dev)
+        eng.generate(prompt, max_new=36, cache_len=len(prompt) + 37)
+        s = eng.stats
+        stall = (f"stall {s.sim_stall_s * 1e3:.1f} ms, blocking "
+                 f"{s.blocking_stall_s * 1e3:.1f} ms" if host_bw
+                 else "stall not measured")
+        print(f"    {policy.name:17s} cache-hit {s.hit_rate:.3f}  fetched "
+              f"{s.fetch_bytes / 2**20:.1f} MiB  {stall}")
     print(f"done in {time.time() - t0:.0f}s")
 
 

@@ -57,6 +57,13 @@ class SimResult:
                 f"{self.est_stall_s_per_token * 1e3:.4f}")
 
 
+def expert_bytes(cfg) -> int:
+    """Bytes of one routed SwiGLU expert of ``cfg`` in its dtype: what a
+    cache miss moves."""
+    return (3 * cfg.d_model * cfg.moe.d_ff_expert
+            * getattr(torch, cfg.dtype).itemsize)
+
+
 def measured_host_bw(device, nbytes: int, copies: int = 20) -> float:
     """Host-to-device rate in B/s on CUDA ``device``: ``copies`` copies of
     a pinned ``nbytes`` buffer (one expert's weights) into one device

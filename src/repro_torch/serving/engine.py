@@ -116,6 +116,11 @@ class EngineStats:
     def hit_rate(self):
         return self.hits / max(self.hits + self.misses, 1)
 
+    @property
+    def mean_batch(self):
+        """Mean decode lanes per decode step (prefill excluded)."""
+        return (self.tokens - self.prefill_tokens) / max(self.steps, 1)
+
     def as_dict(self) -> dict:
         """Every field as a JSON-ready dict (``latency`` nested or None)."""
         from dataclasses import asdict
@@ -212,6 +217,13 @@ class DecodeCore:
         """Chunked prefill needs every layer's state reachable through
         block tables: ring kinds fall back to token-by-token prompts."""
         return all(k in T.PAGED_KINDS for k in self.kinds)
+
+    def paged_block_bytes(self, caches) -> int:
+        """Device bytes ONE pool block occupies summed across paged
+        layers: the unit the KV high-water mark scales in."""
+        return sum(v.nbytes // v.shape[0]
+                   for li, c in enumerate(caches)
+                   if self.kinds[li] in T.PAGED_KINDS for v in c.values())
 
     def copy_block(self, caches, src: int, dst: int):
         """Copy pool page ``src -> dst`` in every paged layer, in place."""

@@ -53,6 +53,7 @@ class Request:
     table: Optional[BlockTable] = None
     lane: int = -1
     arrival_s: float = 0.0     # perf_counter at submit
+    admit_s: float = 0.0       # perf_counter at admission
     first_token_s: float = -1.0  # perf_counter at first sampled token
 
     def start(self, cache_len: int) -> None:
@@ -135,13 +136,31 @@ class BatchedOffloadEngine:
         self._policy = None if policy is None else PerRequestPolicy(policy)
         self._queue: Deque[Request] = deque()
         self._records: Dict[int, RequestLatency] = {}
+        self._ttft: Dict[int, float] = {}
+        self.kv_block_bytes = 0          # device bytes per block, set by run
         self._next_rid = 0
 
     @property
     def stats(self) -> EngineStats:
         return self.core.stats
 
+    def ttft(self) -> Dict[int, float]:
+        """Admission-to-first-token seconds per request retired by the
+        latest ``run`` (requests truncated before their first sampled
+        token are absent)."""
+        return dict(self._ttft)
+
+    @property
+    def kv_high_water_bytes(self) -> int:
+        """Peak logical KV working set of the latest paged run: blocks in
+        use at the high-water mark times the device bytes of one block."""
+        if self.pool is None:
+            return 0
+        return self.pool.stats.high_water * self.kv_block_bytes
+
     def _finish_record(self, req: Request, rejected: bool = False) -> None:
+        if req.first_token_s >= 0:
+            self._ttft[req.rid] = req.first_token_s - req.admit_s
         self._records[req.rid] = RequestLatency(
             rid=req.rid, arrival_s=req.arrival_s,
             first_token_s=req.first_token_s, finish_s=time.perf_counter(),
@@ -165,6 +184,7 @@ class BatchedOffloadEngine:
 
     def run(self, cache_len: int) -> Dict[int, List[int]]:
         self._records = {}
+        self._ttft.clear()             # ttft() reports the latest run only
         t0 = time.perf_counter()
         if self.paged:
             results = self._run_paged(cache_len)
@@ -197,6 +217,7 @@ class BatchedOffloadEngine:
                 while rows[s] is None and self._queue:
                     req = self._queue.popleft()
                     req.start(cache_len)
+                    req.admit_s = time.perf_counter()
                     if req.done:
                         # cache_len admits zero steps: retire before ever
                         # stepping, as the paged engine does
@@ -260,6 +281,7 @@ class BatchedOffloadEngine:
                 return                         # FIFO: wait for blocks
             self._queue.popleft()
             req.start(cache_len)
+            req.admit_s = time.perf_counter()
             req.table = BlockTable(self.pool, need)
             req.lane = lane
             if self._policy is not None:
@@ -288,6 +310,7 @@ class BatchedOffloadEngine:
         num_blocks = max(num_blocks, 2)
         self.pool = KVBlockPool(num_blocks, bs)
         caches = self.core.alloc_paged_caches(num_blocks, bs)
+        self.kv_block_bytes = self.core.paged_block_bytes(caches)
         lanes: List[Optional[Request]] = [None] * self.max_batch
         results: Dict[int, List[int]] = {}
 

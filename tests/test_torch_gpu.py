@@ -647,3 +647,35 @@ def test_moe_decode_splits_pairs_on_card(cuda):
     rank = moe.dispatch_rank(cfg, idx.reshape(16, -1), 16)
     assert bool((rank >= moe.capacity(cfg, 16)).any())
     assert (y - yc.cpu()).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("entry", ["launch.serve", "serve_batched_torch"])
+def test_serve_entry_points_run_on_card(cuda, entry, capsys):
+    """The serving CLIs with neither ``--device`` nor ``--host-bw`` run on
+    the card at the rate they measure there, launch the router and expert
+    kernels, and print the reference's lines."""
+    argv = ["--train-steps", "2", "--tokens", "4", "--policy",
+            "moe-infinity"]
+    if entry == "launch.serve":
+        from repro_torch.launch.serve import main
+        argv += ["--n-train-traces", "2"]
+        want = ("policy=moe-infinity", "generated 5 tokens",
+                "cache hit rate: ")
+    else:
+        path = CHIP_SMOKE.parent / "examples" / "serve_batched_torch.py"
+        spec = importlib.util.spec_from_file_location("serve_batched", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        main = mod.main
+        argv += ["--max-batch", "2", "--requests", "3"]
+        want = ("policy=moe-infinity", "decoded ", "cache hit rate: ",
+                "modeled stall: ", "paged KV: ")
+    reset_launch_counts()
+    main(argv)
+    counts = launch_counts()
+    assert counts["topk_gating"] > 0 and counts["expert_ffn"] > 0
+    out = capsys.readouterr().out.splitlines()
+    start = next(i for i, ln in enumerate(out) if ln.startswith("policy="))
+    assert len(out) - start >= len(want), out
+    for line, tag in zip(out[start:], want):
+        assert line.startswith(tag), (tag, out)

@@ -30,7 +30,8 @@ ENTRY_POINTS = [Model.init, Model.init_decode_state,
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "examples", "pipeline_torch.py")] + [
+             os.path.join(REPO, "examples", "pipeline_torch.py"),
+             os.path.join(REPO, "examples", "serve_batched_torch.py")] + [
         os.path.join(REPO, "tools", n)
         for n in ("kernel_phase2.py", "profile_mamba_torch.py")]
     for root, _, names in os.walk(PORT):

@@ -630,14 +630,19 @@ def test_measured_host_bw_needs_a_card():
 def test_pipeline_example_runs_on_cpu(capsys):
     """``examples/pipeline_torch.py --device cpu --reduced`` runs to its
     end and prints the quickstart's lines, the oracle hitting every
-    access."""
+    access, then serves with the four policies of step 5."""
     spec = importlib.util.spec_from_file_location(
         "pipeline_torch", os.path.join(REPO, "examples", "pipeline_torch.py"))
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
     example.main(["--device", "cpu", "--reduced"])
     lines = capsys.readouterr().out.splitlines()
-    for tag in ("[1]", "[2]", "[3]", "[4]", "done in"):
+    for tag in ("[1]", "[2]", "[3]", "[4]", "[5]", "done in"):
         assert any(ln.startswith(tag) for ln in lines), (tag, lines)
     oracle = [ln for ln in lines if ln.strip().startswith("oracle")]
     assert oracle and "cache-hit 1.000" in oracle[0]
+    served = lines[lines.index(next(ln for ln in lines
+                                    if ln.startswith("[5]"))) + 1:][:4]
+    assert [ln.split()[0] for ln in served] == [
+        "lru-on-demand", "next-layer-all", "moe-infinity",
+        "moe-beyond-online"]

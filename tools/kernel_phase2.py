@@ -19,8 +19,9 @@ hash of the kernel's (w, idx) on the seeded logits: equal digests in two
 ``--src`` turns show that two versions give the same outputs. With
 ``--profile`` it also gives, per shape, the device time of each CUDA
 launch a call makes (``torch.profiler`` over 20 eager calls in the type
-the main run calls the kernel with: bfloat16, float32 for ``ssd`` and
-``topk``). It takes seconds, where the whole script takes minutes.
+the run calls the kernel with: bfloat16; float32 for ``ssd``, ``topk``
+and the shapes marked ``timed="float32"``, those of the 53.5 M backbone).
+It takes seconds, where the whole script takes minutes.
 
 Usage, from the repository root::
 
@@ -68,8 +69,9 @@ def profiled_call(torch, cs, dev, kernel, name):
     bf16 = torch.bfloat16
     if kernel == "paged":
         from repro_torch.kernels import paged_attention as pa
-        args, kw = cs.paged_inputs(torch, dev, gen, bf16,
-                                   **cs.PAGED_SHAPES[name])
+        shape = dict(cs.PAGED_SHAPES[name])
+        dtype = getattr(torch, shape.pop("timed", "bfloat16"))
+        args, kw = cs.paged_inputs(torch, dev, gen, dtype, **shape)
         return lambda: pa.paged_flash_decode(*args, **kw)
     if kernel == "flash":
         from repro_torch.kernels import flash_attention as fa

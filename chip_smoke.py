@@ -19,9 +19,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and G 256, and the reduced mamba2 shape; ``topk_gating`` at main run
    1's decode and prefill-chunk shapes, main run 2's, the pipeline's and
    the training forward's (4,096 rows x 64 experts top-6, 2,048 x 16
-   top-2); and the three serving kernels at serve_trained's float32
-   shapes on the 53.5 M backbone), on rows with a tie across the k-th
-   place, all values
+   top-2); the three serving kernels at serve_trained's float32
+   shapes on the 53.5 M backbone; and ``paged_flash_decode`` at the
+   prefix cache's shape, a chunk starting mid-block beside decode lanes
+   whose tables share its first blocks), on rows with a tie across the
+   k-th place, all values
    equal, and probabilities underflowed to 0; for all five, two calls on
    the same inputs must be bit-identical), in bfloat16 and float32 (the
    router in float32 only), and time kernel, plain version and a PyTorch
@@ -37,6 +39,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (and main run 2's) priced at this card's host-to-device rate, measured
    once before the phases (``measured_host_bw``, one expert's pinned
    copies);
+3a. parity workload: the prefix cache and preemption on the reduced
+   DeepSeek-V2-Lite in float32, card against CPU, with the scheduler's
+   clock replaced by ``workload.StepClock`` (one fake second per decode
+   step or prefill chunk): 4 priority-1 requests sharing a 2-block prefix
+   (one ending mid-block inside it) and 2 urgent arrivals that preempt;
+   identical streams, routed ids, ``EngineStats``, ``PoolStats`` and
+   ``PrefixStats``;
+3b. serve workload: main run 1's backbone (full width and depth,
+   bfloat16, its routed experts pinned once in place) serving 8
+   priority-1 requests that share a 64-token system prompt (32 new tokens
+   each) and 2 priority-0 ones (8 new) arriving at 0.25 and 0.5 of a
+   closed-loop run of the same requests, through ``run_workload`` with
+   the prefix cache and preemption on at main run 1's 10% cache; fails
+   unless it preempted, served >= 8 x 64 prompt positions from the index,
+   cut ``prefill_tokens`` by exactly the hit tokens less the positions the
+   preempted requests had processed, leaked no block and launched every
+   kernel of the path;
 4. on-card parity: DeepSeek-V2-Lite at full width, float32, depth cut to 3
    layers; the engine on the card and on the CPU from identical weights
    must give identical streams, routed expert ids and counters;
@@ -104,9 +123,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    script (matmul and cuDNN), and the causal convolution is a
    shift-and-add, never a cuDNN convolution.
 
-Phases 4a-4f are named ``pipeline``, ``main_run_trained``,
+Phases 3a and 3b are named ``parity_workload`` and ``serve_workload`` in
+the output; phases 4a-4f ``pipeline``, ``main_run_trained``,
 ``parity_pipeline``, ``train``, ``parity_train``, ``pipeline_trained`` and
-``serve_trained`` in the output. Host memory: about 32 GB for main run 2's pinned experts (each
+``serve_trained``. Host memory: about 32 GB for main run 2's pinned experts (each
 main run's pinned blocks are released before the next phase), and 16 GB
 of float32 experts for parity run 2. The last stdout line is ``{"ok": true,
 "device": {...}}``; the line before it is the card's name and power limit;
@@ -225,10 +245,12 @@ def bound(nbytes: float, ops: float, dtype: str):
 # (cache_len 128, W 16; ``qk`` the query-key width the scores are scaled
 # by) MLA shared page at decode and at a prefill chunk (8 tokens of one
 # request as 8 lanes sharing its table), GQA layout at decode (main run 2's
-# global layers), and serve_trained's batched runs on the trained 53.5 M
+# global layers), serve_trained's batched runs on the trained 53.5 M
 # backbone in float32 (cache_len 81, W 11): 8 heads over its 64 + 16 latent
 # at decode and at a prefill chunk, 5 tokens (the 11-slot cache clamps the
-# chunk to 11 // top-2 pairs)
+# chunk to 11 // top-2 pairs), and the prefix cache's MLA shape: an 8-token
+# chunk at positions 60-67 (it starts mid-block after a sub-block match)
+# with 3 decode lanes whose tables share the chunk table's first 7 blocks
 PAGED_SHAPES = {
     "mla": dict(kvh=1, g=16, dk=576, dv=512, gqa=False, qk=192),
     "gqa": dict(kvh=8, g=5, dk=128, dv=128, gqa=True, qk=128),
@@ -239,6 +261,9 @@ PAGED_SHAPES = {
     "serve_prefill": dict(kvh=1, g=8, dk=80, dv=64, gqa=False, qk=48,
                           pos_list=tuple(range(55, 60)), shared_table=True,
                           w=11, timed="float32"),
+    "prefix_prefill": dict(kvh=1, g=16, dk=576, dv=512, gqa=False, qk=192,
+                           pos_list=tuple(range(60, 68)) + (95, 90, 84),
+                           shared_prefix=(8, 7)),
 }
 
 
@@ -248,15 +273,23 @@ def check_paged(torch, F, dev, gen):
     from repro_torch.kernels import paged_attention as pa
     out = paged_case(torch, F, dev, gen, pa, **PAGED_SHAPES["mla"])
     for name in list(PAGED_SHAPES)[1:]:
-        out[name] = paged_case(torch, F, dev, gen, pa, **PAGED_SHAPES[name])
+        # the prefix shape draws from a seed of its own: the inputs of
+        # every check after it stay those of the runs before it
+        g = (torch.Generator(dev).manual_seed(SEED + 9)
+             if name == "prefix_prefill" else gen)
+        out[name] = paged_case(torch, F, dev, g, pa, **PAGED_SHAPES[name])
     return out
 
 
 def paged_inputs(torch, dev, gen, dt, kvh, g, dk, dv, gqa, qk,
-                 pos_list=(95, 90, 84, 71), shared_table=False, w=16):
+                 pos_list=(95, 90, 84, 71), shared_table=False, w=16,
+                 shared_prefix=None):
     """(args, keywords) of one call: decode lanes (prompt + decode
     positions) with a table of ``w`` blocks each, or the tokens of one
-    prefill chunk as lanes sharing one table; seeded random q and pools in
+    prefill chunk as lanes sharing one table; with ``shared_prefix`` =
+    (chunk lanes, blocks), the first lanes are one prefill chunk on one
+    table and every other lane's table starts with that table's first
+    blocks (a prefix adopted from the index); seeded random q and pools in
     type ``dt``."""
     n, bs = len(pos_list), 8
     q = torch.randn(n, kvh, g, dk, generator=gen, device=dev).to(dt)
@@ -268,13 +301,17 @@ def paged_inputs(torch, dev, gen, dt, kvh, g, dk, dv, gqa, qk,
               ).to(torch.int32).reshape(n, w)
     if shared_table:
         tables = tables[:1].expand(n, w).contiguous()
+    if shared_prefix is not None:
+        chunk, blocks = shared_prefix
+        tables[:chunk] = tables[0]
+        tables[chunk:, :blocks] = tables[0, :blocks]
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     return (q, pool, v_pool, tables, pos), {"scale": qk ** -0.5, "dv": dv}
 
 
 def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa, qk,
                pos_list=(95, 90, 84, 71), shared_table=False, w=16,
-               timed="bfloat16"):
+               timed="bfloat16", shared_prefix=None):
     """One shape in f32 and bf16 against the plain version; two calls on
     the same inputs must be bit-identical; timed in the ``timed`` dtype
     (the one its run calls it in)."""
@@ -285,7 +322,8 @@ def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa, qk,
     out = {}
     for dtype in ("float32", "bfloat16"):
         args, kw = paged_inputs(torch, dev, gen, getattr(torch, dtype), kvh,
-                                g, dk, dv, gqa, qk, pos_list, shared_table, w)
+                                g, dk, dv, gqa, qk, pos_list, shared_table, w,
+                                shared_prefix)
         q, pool, v_pool, tables, pos = args
         scale = kw["scale"]
         o = pa.paged_flash_decode(*args, **kw)
@@ -337,6 +375,9 @@ def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa, qk,
         pools = (f"K/V pools ({n * w + 1},{bs},{kvh},{dk}) each" if gqa
                  else f"pool ({n * w + 1},{bs},1,{dk}), dv {dv}")
         tabs = "one table shared by the lanes" if shared_table else "tables"
+        if shared_prefix is not None:
+            tabs = (f"tables, the first {shared_prefix[0]} lanes' one, its "
+                    f"first {shared_prefix[1]} blocks in every table")
         short = "bf16" if dtype == "bfloat16" else "f32"
         out.update(bound_ms=b_ms, bound_by=b_by, bit_identical=True,
                    shape=f"q ({n},{kvh},{g},{dk}) {short}, {pools}, {tabs} "
@@ -799,11 +840,13 @@ def digest(obj) -> str:
     return hashlib.sha256(json.dumps(obj).encode()).hexdigest()[:16]
 
 
-def main_run(torch, np, dev, arch, host_bw, predictor=None):
+def main_run(torch, np, dev, arch, host_bw, predictor=None, keep=None):
     """One main run: ``arch`` at full width in bfloat16 through
     ``BatchedOffloadEngine`` with ``OnlineMoEBeyondPolicy``, holding a
     full-size predictor drawn from a seed, or ``predictor`` = (params,
-    config) when given. Returns (result, launches)."""
+    config) when given. With ``keep`` (a dict), the backbone is handed on
+    as ``keep[arch]`` = (model, params, capacity). Returns (result,
+    launches)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import PredictorConfig
     from repro_torch.core.policies import OnlineMoEBeyondPolicy
@@ -896,6 +939,8 @@ def main_run(torch, np, dev, arch, host_bw, predictor=None):
         "distinct_slots_per_expert_call": distinct_slots(routes, kinds),
         "stream_digest": digest(outs), "route_digest": digest(routes),
     }
+    if keep is not None:
+        keep[arch] = (model, params, capacity)
     del eng, params, pp
     return result, launches
 
@@ -984,6 +1029,260 @@ def parity_run(torch, np, dev):
     return {"layers": 3, "dtype": "float32", "streams": runs["card"][0],
             "routing_steps": len(runs["card"][1]),
             "stats": runs["card"][2], "identical": True}
+
+
+# the open-loop phases: ``parity_workload`` replays one schedule on the
+# card and on the CPU under a step clock (``DT`` fake seconds per decode
+# step or prefill chunk); ``serve_workload`` serves a shared system prompt
+# to two priority classes through ``run_workload`` on the real clock
+WORKLOAD_DT = 1.0
+WORKLOAD = dict(background=8, urgent=2, system=64, suffix=12, max_new=32,
+                urgent_max_new=8, arrivals=(0.25, 0.5), max_batch=4,
+                block_size=8, prefill_chunk=8, cache_len=128,
+                urgent_ttft_share=0.1)
+
+
+def parity_run_workload(torch, np, dev):
+    """The prefix cache and preemption in float32 on the reduced
+    DeepSeek-V2-Lite (TF32 off), card against CPU from the same weights,
+    under one step clock. Six requests: four at priority 1 share a 2-block
+    prefix (one is block-aligned, one ends mid-block inside the first
+    one's indexed tail, so its match copies that block on write), then two
+    urgent ones arrive while both lanes are busy and preempt. Fails unless streams,
+    routed ids, ``EngineStats`` (``preemptions`` and ``latency``
+    included), ``PoolStats`` and ``PrefixStats`` are identical, and the
+    card run preempted, hit the index, copied on write and launched every
+    kernel of the path."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import PredictorConfig
+    from repro_torch.core.policies import OnlineMoEBeyondPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import scheduler
+    from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.workload import SLO, StepClock, WorkloadRequest
+
+    cfg = get_reduced("deepseek-v2-lite")          # float32
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(SEED + 5),
+                        device="cpu")
+    pc = predictor_config(PredictorConfig, cfg)
+    pp_gpu, pp_cpu = predictor_pair(torch, dev, pc, SEED + 6)
+    rng = np.random.default_rng(SEED + 7)
+
+    def tokens(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+    shared, tail = tokens(16), tokens(5)
+    # the last prompt ends mid-block inside the first one's indexed tail
+    background = [shared + tail, shared + tokens(3), shared + tokens(8),
+                  shared + tail[:3]]
+    urgent = [(6.0, shared + tokens(4)), (12.0, tokens(6))]
+    wl = ([WorkloadRequest(0.0, p, 10, priority=1, seed=i)
+           for i, p in enumerate(background)]
+          + [WorkloadRequest(at, p, 4, priority=0, seed=10 + i,
+                             slo=SLO(ttft_s=4.0))
+             for i, (at, p) in enumerate(urgent)])
+    serve = ServeConfig(max_batch=2, block_size=8, prefill_chunk=8,
+                        layer_compute_s=2e-4, prefix_cache=True,
+                        preemption=True)
+    runs = {}
+    for where, pp in (("card", pp_gpu), ("cpu", pp_cpu)):
+        eng = scheduler.BatchedOffloadEngine(
+            model, params, lambda pp=pp: OnlineMoEBeyondPolicy(pp, pc), 16,
+            host_bw=PARITY_HOST_BW, serve=serve,
+            device=dev if where == "card" else "cpu")
+        routes = record_routes(eng.core, check_finite=True)
+        reset_launch_counts()
+        # arrivals land at the same step on both sides: the scheduler's
+        # clock counts this engine's steps and chunks
+        scheduler.time = StepClock(WORKLOAD_DT).bind(eng)
+        try:
+            outs = eng.run_workload(wl, 48)
+        finally:
+            scheduler.time = time
+        runs[where] = (outs, routes, eng.stats.as_dict(),
+                       eng.pool.stats.as_dict(), eng.prefix.stats.as_dict(),
+                       launch_counts())
+        del eng
+    card, cpu = runs["card"], runs["cpu"]
+    check_same("parity_workload: ", card[:3], cpu[:3])
+    for i, name in ((3, "PoolStats"), (4, "PrefixStats")):
+        if card[i] != cpu[i]:
+            fail(f"parity_workload: GPU/CPU {name} differ: {card[i]} vs "
+                 f"{cpu[i]}")
+    stats, pool, prefix, launches = card[2:]
+    if stats["preemptions"] < 1 or prefix["hits"] < 1 \
+            or pool["cow_copies"] < 1:
+        fail(f"parity_workload: the traffic did not preempt, hit and copy "
+             f"on write: {stats['preemptions']} preemptions, {prefix}, "
+             f"{pool['cow_copies']} copies")
+    for name in MAIN_RUNS["deepseek-v2-lite"][2]:
+        if launches[name] == 0:
+            fail(f"parity_workload never launched the {name} kernel")
+    return {"layers": cfg.num_layers, "dtype": "float32",
+            "requests": len(wl), "streams": card[0],
+            "routing_steps": len(card[1]), "stats": stats, "pool": pool,
+            "prefix": prefix, "launches": launches, "identical": True}
+
+
+def serve_workload_run(torch, np, dev, host_bw, handed):
+    """Main run 1's backbone (``handed``: model, params, capacity; full
+    width and depth, bfloat16, seeded) serving a shared 64-token system
+    prompt through ``run_workload`` with the prefix cache and preemption
+    on (``WORKLOAD``), a seeded full-size ``OnlineMoEBeyondPolicy`` per
+    request, at main run 1's 10% cache and this card's host rate. Eight
+    priority-1 requests arrive at 0; two priority-0 ones at 0.25 and 0.5
+    of a closed-loop run of the same requests on the same engine
+    configuration with both features off, which also gives the comparison
+    streams. The routed experts are pinned once, in place, and both
+    engines read that one copy. Fails unless the run preempted, served at
+    least 8 x 64 prompt positions from the index, cut ``prefill_tokens``
+    by exactly the hit tokens less the positions preempted requests had
+    processed (a resume brings those back, as hits or as prefill), leaked
+    no block, launched each kernel of the path and gave well-formed
+    streams. The streams are reported against the closed loop's, not
+    required equal: in bfloat16 another batch composition rounds
+    differently."""
+    from repro_torch.configs.base import PredictorConfig
+    from repro_torch.core.metrics import latency_stats
+    from repro_torch.core.policies import OnlineMoEBeyondPolicy
+    from repro_torch.core.predictor import predictor_init
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.offload import ROUTED
+    from repro_torch.serving.scheduler import BatchedOffloadEngine
+    from repro_torch.serving.workload import SLO, WorkloadRequest
+
+    c = WORKLOAD
+    model, params, capacity = handed
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    for lp in params["layers"]:
+        if "moe" in lp:
+            for k in ROUTED:
+                lp["moe"][k] = lp["moe"][k].pin_memory()
+    pin_s = time.perf_counter() - t0
+    pc = predictor_config(PredictorConfig, cfg)
+    pp = predictor_init(torch.Generator(dev).manual_seed(SEED + 1), pc,
+                        device=dev)
+    rng = np.random.default_rng(SEED + 8)
+    system = rng.integers(0, cfg.vocab_size, c["system"]).tolist()
+    n_req = c["background"] + c["urgent"]
+    prompts = [system + rng.integers(0, cfg.vocab_size, c["suffix"]).tolist()
+               for _ in range(n_req)]
+    max_new = [c["max_new"]] * c["background"] + \
+        [c["urgent_max_new"]] * c["urgent"]
+    priority = [1] * c["background"] + [0] * c["urgent"]
+
+    def engine(on):
+        return BatchedOffloadEngine(
+            model, params, lambda: OnlineMoEBeyondPolicy(pp, pc), capacity,
+            host_bw=host_bw, serve=ServeConfig(
+                max_batch=c["max_batch"], block_size=c["block_size"],
+                prefill_chunk=c["prefill_chunk"], prefix_cache=on,
+                preemption=on), device=dev)
+
+    eng = engine(False)
+    for i in range(n_req):
+        eng.submit(prompts[i], max_new[i], priority=priority[i], seed=i)
+    record_routes(eng.core, check_finite=True)
+    t0 = time.perf_counter()
+    closed = eng.run(c["cache_len"])
+    closed_s = since(torch, t0)
+    closed_stats = eng.stats.as_dict()
+    eng.pool.check_leaks(expected_in_use=0)
+    del eng
+    release_host_memory(torch)
+
+    eng = engine(True)
+    ttft_slo = SLO(ttft_s=c["urgent_ttft_share"] * closed_s)
+    wl = [WorkloadRequest(0.0, prompts[i], max_new[i], priority=1, seed=i)
+          for i in range(c["background"])]
+    wl += [WorkloadRequest(at * closed_s, prompts[c["background"] + j],
+                           c["urgent_max_new"], priority=0,
+                           seed=c["background"] + j, slo=ttft_slo)
+           for j, at in enumerate(c["arrivals"])]
+    resumed = []                 # positions each victim had processed
+    preempt = eng._preempt
+
+    def recording_preempt(lanes, victim):
+        resumed.append(victim.t)
+        preempt(lanes, victim)
+    eng._preempt = recording_preempt
+    routes = record_routes(eng.core, check_finite=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = eng.run_workload(wl, c["cache_len"])
+    run_s = since(torch, t0)
+    launches = launch_counts()
+    st, pool, prefix = eng.stats, eng.pool.stats, eng.prefix.stats
+    cached = eng.prefix.cached_blocks
+    eng.pool.check_leaks(expected_in_use=cached)
+    where = "serve_workload"
+    if st.preemptions < 1:
+        fail(f"{where}: no request was preempted")
+    if prefix.hit_tokens < c["background"] * c["system"]:
+        fail(f"{where}: {prefix.hit_tokens} prompt positions from the "
+             f"index, want >= {c['background'] * c['system']}")
+    saved = closed_stats["prefill_tokens"] - st.prefill_tokens
+    if saved != prefix.hit_tokens - sum(resumed):
+        fail(f"{where}: prefill_tokens fell by {saved}, want hit tokens "
+             f"{prefix.hit_tokens} less resumed positions {sum(resumed)}")
+    for name in MAIN_RUNS["deepseek-v2-lite"][2]:
+        if launches[name] == 0:
+            fail(f"{where} never launched the {name} kernel")
+    for rid in range(n_req):
+        s = outs[rid]
+        if len(s) != max_new[rid] + 1 or not all(0 <= x < cfg.vocab_size
+                                                 for x in s):
+            fail(f"{where}: bad stream {rid}: {s}")
+    recs = eng.records()
+    by_class = {}
+    for p in (0, 1):
+        lat = latency_stats([r for r in recs.values() if r.priority == p],
+                            st.latency.elapsed_s)
+        by_class[f"priority_{p}"] = {k: lat.as_dict()[k] for k in (
+            "n", "ttft_p50_s", "ttft_p99_s", "tpot_p50_s", "slo_requests",
+            "slo_met", "slo_attainment", "preemptions")}
+    divergence = {}
+    for rid in range(n_req):
+        a, b = outs[rid], closed[rid]
+        if a != b:
+            divergence[rid] = next((i for i, (x, y) in enumerate(zip(a, b))
+                                    if x != y), min(len(a), len(b)))
+    generated = sum(len(s) for s in outs.values())
+    del eng
+    return {"config": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+            **c, "requests": n_req, "capacity_slots": capacity,
+            "host_bw_bytes_per_s": host_bw, "pin_s": pin_s,
+            "policy": "moe-beyond-online (seeded)",
+            "closed_loop_s": closed_s, "run_s": run_s,
+            "urgent_ttft_slo_s": ttft_slo.ttft_s,
+            "arrival_s": [w.arrival_s for w in wl],
+            "positions_per_s": st.tokens / run_s,
+            "generated_tokens_per_s": generated / run_s,
+            "closed_loop_positions_per_s": closed_stats["tokens"] / closed_s,
+            "latency_by_priority": by_class,
+            "preemptions": st.preemptions, "resumed_positions": resumed,
+            "prefix": prefix.as_dict(), "prefix_hit_rate": prefix.hit_rate,
+            "cached_blocks": cached,
+            "hit_rate": st.hit_rate, "closed_loop_hit_rate":
+                closed_stats["hits"] / max(closed_stats["hits"]
+                                           + closed_stats["misses"], 1),
+            "fetch_bytes": st.fetch_bytes,
+            "closed_loop_fetch_bytes": closed_stats["fetch_bytes"],
+            "prefill_tokens": st.prefill_tokens,
+            "closed_loop_prefill_tokens": closed_stats["prefill_tokens"],
+            "steps": st.steps, "prefill_chunks": st.prefill_chunks,
+            "closed_loop_steps": closed_stats["steps"],
+            "closed_loop_prefill_chunks": closed_stats["prefill_chunks"],
+            "cow_copies": pool.cow_copies, "retains": pool.retains,
+            "preempt_ref_drops": pool.preempt_ref_drops,
+            "kv_high_water_blocks": pool.high_water,
+            "streams_equal_closed_loop": n_req - len(divergence),
+            "first_divergence": divergence, "launches": launches,
+            "stream_digest": digest([outs[r] for r in range(n_req)]),
+            "route_digest": digest(routes)}, launches
 
 
 # the pipeline phase: prompts from the topic corpus, decode steps per
@@ -2142,7 +2441,13 @@ def main() -> None:
     ds = "deepseek-v2-lite"
     # (phase, arch, run, the key of its launches in ``launches`` or None)
     phases = (
-        ("main_run", ds, lambda: main_run(torch, np, dev, ds, host_bw), ds),
+        ("main_run", ds,
+         lambda: main_run(torch, np, dev, ds, host_bw, keep=keep), ds),
+        ("parity_workload", ds, lambda: parity_run_workload(torch, np, dev),
+         None),
+        ("serve_workload", ds,
+         lambda: serve_workload_run(torch, np, dev, host_bw, keep.pop(ds)),
+         "serve_workload"),
         ("parity_run", ds, lambda: parity_run(torch, np, dev), None),
         ("pipeline", ds, lambda: pipeline_run(torch, np, dev, keep),
          "pipeline"),
@@ -2220,6 +2525,11 @@ def main() -> None:
                 shape: {"max_abs_err": c[shape]["float32"],
                         **timing_fields(c[shape])}
                 for shape in ("train", "train_100m")}
+        if "prefix_prefill" in c:   # a chunk after a sub-block match
+            pre = c["prefix_prefill"]
+            entry["prefix_prefill_shape"] = {
+                "max_abs_err": pre["bfloat16"],
+                "max_abs_err_f32": pre["float32"], **timing_fields(pre)}
         serve = {shape: {"max_abs_err": case["float32"],
                          **timing_fields(case)}
                  for shape, case in c.items() if shape.startswith("serve_")}
@@ -2296,6 +2606,22 @@ def main() -> None:
             "fetch_mib", "sim_stall_s", "blocking_stall_s", "overlapped_s",
             "run_s", "generated_tokens_per_s")} for r in st["runs"]]},
         "seconds": phase_s["serve_trained"]}), flush=True)
+    pw = runs["parity_workload"]
+    print(json.dumps({"parity_workload": {k: pw[k] for k in (
+        "identical", "requests", "streams", "stats", "pool", "prefix")},
+        "seconds": phase_s["parity_workload"]}), flush=True)
+    sw = runs["serve_workload"]
+    print(json.dumps({"serve_workload": {k: sw[k] for k in (
+        "layers", "requests", "capacity_slots", "host_bw_bytes_per_s",
+        "closed_loop_s", "run_s", "arrival_s", "positions_per_s",
+        "generated_tokens_per_s", "closed_loop_positions_per_s",
+        "latency_by_priority", "urgent_ttft_slo_s", "preemptions",
+        "resumed_positions", "prefix", "prefix_hit_rate", "hit_rate",
+        "closed_loop_hit_rate", "fetch_bytes", "closed_loop_fetch_bytes",
+        "prefill_tokens", "closed_loop_prefill_tokens", "cow_copies",
+        "retains", "preempt_ref_drops", "streams_equal_closed_loop",
+        "first_divergence", "launches")},
+        "seconds": phase_s["serve_workload"]}), flush=True)
     print(json.dumps({"launch_floor_ms": floor_ms}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ident, flush=True)

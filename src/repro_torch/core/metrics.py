@@ -184,8 +184,8 @@ class LatencyStats:
 
       * ``n`` — requests recorded (completed + rejected).
       * ``completed`` / ``rejected`` — retired with a result / refused.
-      * ``preemptions`` — evict-and-resume events (0 until preemption is
-        ported).
+      * ``preemptions`` — evict-and-resume events summed over the
+        recorded requests.
       * ``ttft_p50_s``/``ttft_p95_s``/``ttft_p99_s`` — arrival-to-first-
         token percentiles.
       * ``tpot_p50_s``/``tpot_p95_s``/``tpot_p99_s`` — per-output-token

@@ -367,6 +367,16 @@ class PerRequestPolicy:
     def end_request(self, rid: int) -> None:
         self._per_req.pop(rid, None)
 
+    def replay_prefix(self, rid: int, experts_by_layer) -> None:
+        """Feed a prefix-cache hit's recorded activations to the request's
+        policy as observations at position 0, in MoE-layer order: the
+        request skips the prefill that would have produced them. No
+        embeddings exist for skipped tokens, so embedding-driven policies
+        ignore the replay."""
+        pol = self._get(rid)
+        for mi in sorted(experts_by_layer):
+            pol.observe(0, mi, np.asarray(experts_by_layer[mi]), None)
+
     def predict_batch(self, rids: Sequence[int], ts: Sequence[int],
                       layer: int) -> List[np.ndarray]:
         if self._shared is not None:

@@ -9,6 +9,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Optional
 
+from repro_torch.serving.workload import SLO
+
 
 @dataclass(frozen=True)
 class ServeConfig:
@@ -27,13 +29,29 @@ class ServeConfig:
       * ``use_kernel`` — True reads KV through the attention kernels
         (paged flash-decode for pools, flash-decode for GQA rows), False
         through the gather-and-materialise route.
-      * ``prefix_cache`` — must be False (prefix sharing is ROADMAP work).
+      * ``prefix_cache`` — turn on the radix prefix index
+        (``serving/prefixcache.py``): common prompt prefixes (whole blocks
+        and partial tails) are matched at admission, their KV blocks are
+        adopted copy-on-write instead of re-prefilled, and the prefix's
+        recorded expert activations are replayed into the ExpertCache and
+        the policy. Needs the chunk-prefill-capable paged engine; stacks
+        with ring layers keep the index off.
+      * ``prefix_cache_blocks`` — soft cap on the pool blocks the index
+        keeps alive (None -> bounded only by pool pressure).
       * ``replacement`` — expert-slot eviction; must be "lru" (LFU and
         learned replacement are ROADMAP work).
       * ``tiers`` — must be None (the tiered store is ROADMAP work).
       * ``layer_compute_s`` — modeled compute seconds per layer half of the
         OverlapTracker's clock (a float).
-      * ``preemption`` — must be False (ROADMAP work).
+      * ``preemption`` — let admission evict a strictly lower-priority
+        running request when a more urgent waiter cannot get a lane or a
+        block reservation (its prompt blocks are published to the prefix
+        index first; its stream resumes token-identically). Paged engine
+        only; False admits in priority order without evicting.
+      * ``default_priority`` — priority of requests that name none (lower
+        = more urgent).
+      * ``default_slo`` — :class:`~repro_torch.serving.workload.SLO`
+        budgets of requests that carry none (None = best effort).
       * ``telemetry`` — must be None (ROADMAP work).
     """
     max_batch: int = 4
@@ -43,19 +61,18 @@ class ServeConfig:
     prefill_chunk: int = 8
     use_kernel: bool = True
     prefix_cache: bool = False
+    prefix_cache_blocks: Optional[int] = None
     replacement: str = "lru"
     tiers: Optional[Any] = None
     layer_compute_s: float = 0.0
     preemption: bool = False
+    default_priority: int = 0
+    default_slo: Optional[SLO] = None
     telemetry: Optional[Any] = None
 
     def check_ported(self) -> None:
         """Raise for a setting the port does not serve yet."""
         todo = {
-            "prefix_cache": (self.prefix_cache, "prefix cache, preemption "
-                             "and run_workload"),
-            "preemption": (self.preemption, "prefix cache, preemption and "
-                           "run_workload"),
             "tiers": (self.tiers is not None, "tiers, dispatch and learned "
                       "replacement"),
             "replacement": (self.replacement != "lru",

@@ -81,6 +81,10 @@ class EngineStats:
         (or ``paged=False``) stream prompts token by token.
       * ``rejected_requests`` — requests refused at admission because
         their worst case exceeds the whole KV pool.
+      * ``preemptions`` — evict-and-resume events: a running request's KV
+        blocks were released (after publishing them to the prefix index)
+        to make room for a more urgent waiter; it re-admits later with its
+        stream intact.
       * ``fetches_by_tier`` / ``fetch_bytes_by_tier`` — slot fills and
         their bytes per source tier: ``{TIER_HOST: ...}`` once anything was
         fetched (the port has one host tier), as the reference reports it.
@@ -104,6 +108,7 @@ class EngineStats:
     prefill_chunks: int = 0
     fallback_prefill_tokens: int = 0
     rejected_requests: int = 0
+    preemptions: int = 0
     fetches_by_tier: Dict[int, int] = field(default_factory=dict)
     fetch_bytes_by_tier: Dict[int, int] = field(default_factory=dict)
     deep_prefetch_hits: int = 0

@@ -198,7 +198,6 @@ def test_block_granular_admission_and_reject():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(prefix_cache=True), dict(preemption=True),
     dict(tiers=object()), dict(replacement="learned"),
     dict(telemetry=object()), dict(layer_compute_s="roofline"),
 ])

@@ -218,6 +218,26 @@ def test_paged_flash_decode_is_deterministic_on_card(cuda, layout):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
+def test_paged_flash_decode_prefix_shape_on_card(cuda, dtype, tol):
+    """The prefix cache's MLA shape at full width: an 8-token chunk at
+    positions 60-67 (it starts mid-block after a sub-block match) on one
+    table, beside 3 decode lanes at 95, 90 and 84 whose tables share that
+    table's first 7 blocks."""
+    pos = list(range(60, 68)) + [95, 90, 84]
+    args, kw = _paged_inputs(cuda, dtype, "mla", len(pos), 16, 16, pos,
+                             seed=5)
+    tab = args[3].clone()      # lane 7 (position 67) reaches block 8
+    tab[:8] = tab[7]
+    tab[8:, :7] = tab[7, :7]
+    args = args[:3] + (tab,) + args[4:]
+    o = paged_attention.paged_flash_decode(*args, **kw)
+    op = paged_attention.paged_flash_decode_plain(*args, **kw)
+    assert torch.equal(o, paged_attention.paged_flash_decode(*args, **kw))
+    assert (o.float() - op.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("s_len", [70, 128, 8192])
 def test_flash_decode_splits_match_plain_on_card(cuda, s_len, dtype, tol):
     """The split-K ``flash_decode`` at full width (40 query heads over 8 kv
@@ -679,3 +699,48 @@ def test_serve_entry_points_run_on_card(cuda, entry, capsys):
     assert len(out) - start >= len(want), out
     for line, tag in zip(out[start:], want):
         assert line.startswith(tag), (tag, out)
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+def test_workload_on_card_matches_cpu(cuda, prefix, monkeypatch):
+    """Preemption (and the prefix cache) on the reduced DeepSeek-V2-Lite
+    in float32 under one step clock: the card and the CPU run the same
+    schedule, with identical streams, routed ids and counters."""
+    from repro_torch.serving import scheduler
+    from repro_torch.serving.workload import StepClock, WorkloadRequest
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_reduced("deepseek-v2-lite")
+    model = build_model(cfg)
+    params = model.init(device="cpu")
+    shared = [7, 99, 23, 5, 81, 3, 250, 17, 44, 2]
+    wl = [WorkloadRequest(0.0, shared + [1, 2], 8, priority=1, seed=0),
+          WorkloadRequest(0.0, shared + [3], 8, priority=1, seed=1,
+                          temperature=0.8),
+          WorkloadRequest(5.0, shared[:7], 3, priority=0, seed=2)]
+    runs = []
+    for dev in ("cpu", "cuda"):
+        reset_launch_counts()
+        serve = ServeConfig(max_batch=2, block_size=4, prefix_cache=prefix,
+                            preemption=True)
+        eng = BatchedOffloadEngine(model, params,
+                                   NextLayerAllPolicy(cfg.moe.num_experts),
+                                   8, serve=serve, host_bw=25e9, device=dev)
+        monkeypatch.setattr(scheduler, "time", StepClock(1.0).bind(eng))
+        routes = []
+        step = eng.core.step
+
+        def rec(*a, _step=step, **kw):
+            out = _step(*a, **kw)
+            routes.append([[sorted(map(int, g)) for g in r] for r in out[2]])
+            return out
+        eng.core.step = rec
+        outs = eng.run_workload(wl, 32)
+        st = eng.stats.as_dict()
+        st.pop("latency")
+        runs.append((outs, routes, st, eng.pool.stats.as_dict()))
+    assert runs[0] == runs[1]
+    assert runs[1][2]["preemptions"] >= 1
+    counts = launch_counts()
+    assert all(counts[k] > 0 for k in ("paged_flash_decode", "expert_ffn",
+                                       "topk_gating")), counts

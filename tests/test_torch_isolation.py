@@ -89,3 +89,23 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         OffloadEngine(model, params, None, 48, host_bw=100e9)
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("module", ["repro_torch.serving.workload",
+                                    "repro_torch.serving.prefixcache",
+                                    "repro_torch.serving.scheduler"])
+def test_serving_modules_import_with_jax_and_reference_blocked(module):
+    """The prefix index, the workload generator and the scheduler that
+    drives them import in a process where ``jax`` and ``repro`` cannot be
+    imported at all."""
+    import subprocess
+    import sys
+    path = os.path.join(PORT, *module.split(".")[1:]) + ".py"
+    assert os.path.isfile(path)
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            f"import {module}\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   timeout=120)

@@ -56,6 +56,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    cut ``prefill_tokens`` by exactly the hit tokens less the positions the
    preempted requests had processed, leaked no block and launched every
    kernel of the path;
+3c. parity tiers: the tiered expert store on the reduced DeepSeek-V2-Lite
+   in float32, card against CPU: 4 shards on the consistent-hash ring, a
+   disk spill, a tier-1 cache of 4, int8 cold tiers, auto fetch-vs-ship
+   dispatch and learned replacement under the learned policy; identical
+   streams, routed ids, ``EngineStats``, ``CacheStats``, ``StoreStats`` and
+   int8 codes (the card quantizes on the card, the CPU on the CPU), with
+   fetches from tiers 2 and 3 and ships;
+3d. serve tiers: main run 1's backbone (its experts pinned once in place)
+   behind the tiered store: 4 shards, 384 home experts a shard in memory
+   and the rest (188 experts, 3.25 GB) in a spill file under ``build/``,
+   a tier-1 cache of 166, main run 1's prompts, slots and predictor at a
+   150 us layer clock: (b) the tiers' horizons, fetch, LRU; (c) auto
+   dispatch with learned replacement; (d) (c) on int8 cold tiers ((a),
+   one-layer horizons, is left out for time). (b) and (c) must give main
+   run 1's stream and route digests; every run must fetch from disk, (b)
+   from peers, (c)-(d) ship, and (d)'s cold fetches move the int8 size;
+   the ``expert_ffn`` check of phase 2 includes the ship rows past the
+   166 slots;
 4. on-card parity: DeepSeek-V2-Lite at full width, float32, depth cut to 3
    layers; the engine on the card and on the CPU from identical weights
    must give identical streams, routed expert ids and counters;
@@ -123,18 +141,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    script (matmul and cuDNN), and the causal convolution is a
    shift-and-add, never a cuDNN convolution.
 
-Phases 3a and 3b are named ``parity_workload`` and ``serve_workload`` in
-the output; phases 4a-4f ``pipeline``, ``main_run_trained``,
-``parity_pipeline``, ``train``, ``parity_train``, ``pipeline_trained`` and
-``serve_trained``. Host memory: about 32 GB for main run 2's pinned experts (each
-main run's pinned blocks are released before the next phase), and 16 GB
-of float32 experts for parity run 2. The last stdout line is ``{"ok": true,
+Phases 3a-3d are named ``parity_workload``, ``serve_workload``,
+``parity_tiers`` and ``serve_tiers`` in the output; phases 4a-4f
+``pipeline``, ``main_run_trained``, ``parity_pipeline``, ``train``,
+``parity_train``, ``pipeline_trained`` and ``serve_trained``. Host memory:
+about 32 GB for main run 2's pinned experts (each main run's pinned blocks
+are released before the next phase), 16 GB of float32 experts for parity
+run 2, and in serve_tiers' run (d) up to ~10.8 GB of int8 peer copies
+beside main run 1's pinned experts. The last stdout line is ``{"ok": true,
 "device": {...}}``; the line before it is the card's name and power limit;
 before that the ``{"kernels": [...]}`` line, whose ``launches`` are the
 counts of the main run that drives each kernel (Llama-4-Scout's for the
 four attention and MoE kernels, mamba2's for ``ssd_chunk``;
-``launches_by_run`` has every main run's and the pipeline,
-main_run_trained, train, pipeline_trained and serve_trained phases'), and
+``launches_by_run`` has every main run's and the serve_workload,
+serve_tiers, pipeline, main_run_trained, train, pipeline_trained and
+serve_trained phases'), and
 before that ``{"launch_floor_ms": ...}`` and the phases' summaries. Details go to
 ``chiprun_out/chip_smoke.json``.
 This script imports nothing of JAX or of the reference package.
@@ -488,6 +509,12 @@ EXPERT_SHAPES = {
     "serve_b1": dict(n=1, k=2, d=256, f=512, slots=11, timed="float32"),
     "serve_decode": dict(n=4, k=2, d=256, f=512, slots=11, timed="float32"),
     "serve_prefill": dict(n=5, k=2, d=256, f=512, slots=11, timed="float32"),
+    # serve_tiers' ship path: main run 1's decode on 166 slots plus the 48
+    # ship rows (max(4 lanes, 8-token chunk) x top-6) past them, 8 of the
+    # 24 distinct experts shipped; drawn from a seed of its own so the
+    # shapes above keep their inputs
+    "ship": dict(n=4, k=6, d=2048, f=1408, slots=166 + 48, ship=48,
+                 seed=SEED + 24),
 }
 
 
@@ -500,33 +527,49 @@ def check_expert(torch, dev, gen):
     return out
 
 
-def expert_inputs(torch, dev, gen, dt, n, k, d, f, slots, distinct=None):
+def expert_inputs(torch, dev, gen, dt, n, k, d, f, slots, distinct=None,
+                  ship=0):
     """(x, weights, slot_idx, wg, wu, wd) of one call: seeded random slot
     buffers, x and weights in type ``dt``; the n*k pairs name ``distinct``
     slots (all different when None), each used in turn, so a row's k slots
-    are distinct as top-k makes them and the first pairs' slots recur."""
+    are distinct as top-k makes them and the first pairs' slots recur.
+    With ``ship`` rows (the last ones), a third of the distinct slots are
+    ship rows, taken in order from the first as the engine stages them."""
     bufs = [(torch.randn(slots, *shape, generator=gen, device=dev)
              * 0.02).to(dt) for shape in ((d, f), (d, f), (f, d))]
     x = torch.randn(n, d, generator=gen, device=dev).to(dt)
     w = torch.rand(n, k, generator=gen, device=dev).to(dt)
     distinct = n * k if distinct is None else distinct
-    pool = torch.randperm(slots, generator=gen, device=dev)[:distinct]
+    if ship:
+        m = distinct // 3
+        pool = torch.cat([
+            torch.randperm(slots - ship, generator=gen,
+                           device=dev)[:distinct - m],
+            torch.arange(slots - ship, slots - ship + m, device=dev)])
+        pool = pool[torch.randperm(distinct, generator=gen, device=dev)]
+    else:
+        pool = torch.randperm(slots, generator=gen, device=dev)[:distinct]
     sl = pool[torch.arange(n * k, device=dev) % distinct].to(
         torch.int32).reshape(n, k)
     return x, w, sl, *bufs
 
 
 def expert_case(torch, dev, gen, n, k, d, f, slots, distinct=None,
-                timed="bfloat16"):
+                timed="bfloat16", ship=0, seed=None):
     """One shape in f32 and bf16 against the plain version; two calls on
     the same inputs must be bit-identical; timed in the ``timed`` dtype
-    (the one its run calls it in)."""
+    (the one its run calls it in). ``seed`` draws the inputs from a
+    generator of their own."""
     from repro_torch.kernels import expert_ffn as ef
+    if seed is not None:
+        gen = torch.Generator(dev).manual_seed(seed)
     out = {}
     for dtype in ("float32", "bfloat16"):
         args = expert_inputs(torch, dev, gen, getattr(torch, dtype), n, k, d,
-                             f, slots, distinct)
+                             f, slots, distinct, ship)
         sl = args[2]
+        if ship and not (sl >= slots - ship).any():
+            fail(f"expert_ffn ship shape names no ship row: {sl.tolist()}")
         y = ef.expert_ffn(*args)
         y2 = ef.expert_ffn(*args)
         yp = ef.expert_ffn_plain(*args)
@@ -555,6 +598,12 @@ def expert_case(torch, dev, gen, n, k, d, f, slots, distinct=None,
             out["shape"] = (f"x ({n},{d}) {short}, k {k}, slot buffers "
                             f"({slots},{d},{f})/({slots},{f},{d}), "
                             f"{n_distinct} distinct slots")
+            if ship:
+                rows = sorted({s for s in sl.reshape(-1).tolist()
+                               if s >= slots - ship})
+                out["ship_rows"] = rows
+                out["shape"] += (f", {len(rows)} of them ship rows "
+                                 f"{rows[0]}-{rows[-1]}")
         del args
     return out
 
@@ -1149,19 +1198,13 @@ def serve_workload_run(torch, np, dev, host_bw, handed):
     from repro_torch.core.predictor import predictor_init
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving.config import ServeConfig
-    from repro_torch.serving.offload import ROUTED
     from repro_torch.serving.scheduler import BatchedOffloadEngine
     from repro_torch.serving.workload import SLO, WorkloadRequest
 
     c = WORKLOAD
     model, params, capacity = handed
     cfg = model.cfg
-    t0 = time.perf_counter()
-    for lp in params["layers"]:
-        if "moe" in lp:
-            for k in ROUTED:
-                lp["moe"][k] = lp["moe"][k].pin_memory()
-    pin_s = time.perf_counter() - t0
+    pin_s = pin_experts(params)
     pc = predictor_config(PredictorConfig, cfg)
     pp = predictor_init(torch.Generator(dev).manual_seed(SEED + 1), pc,
                         device=dev)
@@ -1283,6 +1326,283 @@ def serve_workload_run(torch, np, dev, host_bw, handed):
             "first_divergence": divergence, "launches": launches,
             "stream_digest": digest([outs[r] for r in range(n_req)]),
             "route_digest": digest(routes)}, launches
+
+
+def pin_experts(params) -> float:
+    """Pin the routed experts of ``params`` in place (those not pinned
+    yet), so the engines' stores read them without a copy; returns the
+    seconds it took."""
+    from repro_torch.serving.offload import ROUTED
+    t0 = time.perf_counter()
+    for lp in params["layers"]:
+        if "moe" in lp:
+            for k in ROUTED:
+                if not lp["moe"][k].is_pinned():
+                    lp["moe"][k] = lp["moe"][k].pin_memory()
+    return time.perf_counter() - t0
+
+
+# the tiered phases' spill files: a directory of the checkout on disk (the
+# full-width one is ~2.2 GB), never the temporary directory
+SPILL_DIR = HERE / "build" / "tier3_spill"
+# parity_tiers prices ships as a slow peer computes them (80 GFLOP/s, 1
+# TB/s): an expert one token needs is shipped, one two or more tokens
+# share is fetched, so the reduced run takes both paths of "auto"
+PARITY_TIERS_ROOFLINE = (8e10, 1e12)
+
+
+def parity_run_tiers(torch, np, dev):
+    """The tiered store in float32 on the reduced DeepSeek-V2-Lite (TF32
+    off), card against CPU from the same weights: 4 shards with a disk
+    spill, a tier-1 cache of 4, int8 cold tiers, auto dispatch and learned
+    replacement with the learned policy, one host rate and one roofline
+    on both sides. Fails unless streams, routed ids, every ``EngineStats``
+    field (the by-tier dicts too), ``CacheStats`` and ``StoreStats`` are
+    identical, the int8 codes and scales of every cold copy are equal,
+    the run fetched from tiers 2 and 3 and shipped, each spill file is
+    gone after ``close()``, and every kernel of the path launched."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import PredictorConfig
+    from repro_torch.core.policies import OnlineMoEBeyondPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.expertstore import TierConfig
+    from repro_torch.serving.scheduler import BatchedOffloadEngine
+
+    cfg = get_reduced("deepseek-v2-lite")          # float32
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(SEED + 9),
+                        device="cpu")
+    pc = predictor_config(PredictorConfig, cfg)
+    pp_gpu, pp_cpu = predictor_pair(torch, dev, pc, SEED + 10)
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (13, 5, 9)]
+    SPILL_DIR.mkdir(parents=True, exist_ok=True)
+    tiers = TierConfig(num_shards=4, shard_dram_experts=8, cache_experts=4,
+                       cold_dtype="int8", dispatch="auto",
+                       spill_dir=str(SPILL_DIR))
+    serve = ServeConfig(max_batch=2, block_size=8, prefill_chunk=8,
+                        layer_compute_s=2e-5, tiers=tiers,
+                        replacement="learned")
+    runs, stores = {}, {}
+    for where, pp in (("card", pp_gpu), ("cpu", pp_cpu)):
+        eng = BatchedOffloadEngine(
+            model, params, lambda pp=pp: OnlineMoEBeyondPolicy(pp, pc), 16,
+            host_bw=PARITY_HOST_BW, roofline=PARITY_TIERS_ROOFLINE,
+            serve=serve, device=dev if where == "card" else "cpu")
+        routes = record_routes(eng.core, check_finite=True)
+        reset_launch_counts()
+        outs = eng.generate(prompts, 6, 32)
+        eng.pool.check_leaks(expected_in_use=0)
+        st = eng.stats.as_dict()
+        st.pop("latency")
+        store = eng.core.store
+        runs[where] = (outs, routes, st, eng.core.cache.stats.as_dict(),
+                       store.stats.as_dict(), launch_counts(),
+                       eng.dispatch_summary())
+        path = store._spill_path
+        stores[where] = {k: v for k, v in store._cold.items()}, dict(
+            store._spill_scales)
+        store.close()
+        if path is None or os.path.exists(path):
+            fail(f"parity_tiers: the {where} store's spill file {path} is "
+                 "not gone after close()")
+        del eng, store
+    card, cpu = runs["card"], runs["cpu"]
+    check_same("parity_tiers: ", card[:3], cpu[:3])
+    for i, name in ((3, "CacheStats"), (4, "StoreStats")):
+        if card[i] != cpu[i]:
+            fail(f"parity_tiers: GPU/CPU {name} differ: {card[i]} vs "
+                 f"{cpu[i]}")
+    (cold_card, scales_card), (cold_cpu, scales_cpu) = (stores["card"],
+                                                        stores["cpu"])
+    if sorted(cold_card) != sorted(cold_cpu):
+        fail("parity_tiers: the card and the CPU quantized other keys")
+    for key, (codes, scales) in cold_card.items():
+        for a, b in zip(codes + scales, cold_cpu[key][0] + cold_cpu[key][1]):
+            if not torch.equal(a, b):
+                fail(f"parity_tiers: int8 cold copy of {key} differs "
+                     "between the card's codec and the CPU's")
+    for key, scales in scales_card.items():
+        if not all(torch.equal(a, b) for a, b in zip(scales,
+                                                     scales_cpu[key])):
+            fail(f"parity_tiers: spill scales of {key} differ")
+    stats, store_stats, launches = card[2], card[4], card[5]
+    fetched = stats["fetches_by_tier"]
+    if fetched.get(2, 0) < 1 or fetched.get(3, 0) < 1 or stats["ships"] < 1:
+        fail(f"parity_tiers: the run did not fetch from tiers 2 and 3 and "
+             f"ship: {fetched}, {stats['ships']} ships")
+    for name in MAIN_RUNS["deepseek-v2-lite"][2]:
+        if launches[name] == 0:
+            fail(f"parity_tiers never launched the {name} kernel")
+    return {"layers": cfg.num_layers, "dtype": "float32",
+            "requests": len(prompts), "tiers": tiers.__dict__ | {
+                "spill_dir": "build/tier3_spill"},
+            "roofline": PARITY_TIERS_ROOFLINE, "streams": card[0],
+            "routing_steps": len(card[1]), "stats": stats,
+            "store": store_stats, "dispatch": card[6],
+            "cold_copies_compared": len(cold_card) + len(scales_card),
+            "launches": launches, "identical": True}
+
+
+# serve_tiers: main run 1's backbone behind the tiered store; each run is
+# (label, TierConfig fields, replacement). Run (a), one-layer horizons
+# with fetch and LRU, is left out for time: its tier 0 decides exactly as
+# main run 1's (PERF.md, PR 24), and the phase must stay near 150 s
+SERVE_TIERS = dict(layer_compute_s=150e-6, num_shards=4, local_shard=0,
+                   shard_dram_experts=384, cache_experts=166, max_new=32,
+                   cache_len=128)
+TIER_RUNS = (("b", dict(dispatch="fetch"), "lru"),
+             ("c", dict(dispatch="auto"), "learned"),
+             ("d", dict(dispatch="auto", cold_dtype="int8"), "learned"))
+
+
+def serve_tiers_run(torch, np, dev, host_bw, handed, main1):
+    """Main run 1's backbone (``handed``: model, params, capacity; full
+    width and depth, bfloat16, its experts pinned once in place) behind
+    the tiered store: 4 shards on the consistent-hash ring, this process
+    shard 0, 384 home experts a shard in memory and the rest spilled to a
+    file on disk, a tier-1 cache of 166 experts. Main run 1's 4 prompts,
+    32 new tokens, 166 slots and seeded predictor, a 150 us layer clock
+    (the card's own ``expert_ffn`` at this decode shape, PERF.md §6), this
+    card's host rate and bf16 roofline. Runs (``TIER_RUNS``): (b) the
+    tiers' horizons, fetch, LRU; (c) auto dispatch, learned replacement;
+    (d) as (c) on int8 cold tiers. Fails unless (b) and (c) give main run
+    1's stream and route digests (``main1``), (b) fetched from tier 2,
+    every run from tier 3, (c) and (d) shipped, each (d) fetch from tiers
+    2-3 moved the int8 wire size, every kernel of the path launched in
+    every run and each spill file is gone after ``close()``."""
+    import shutil
+
+    from repro_torch.configs.base import PredictorConfig
+    from repro_torch.core.policies import OnlineMoEBeyondPolicy
+    from repro_torch.core.predictor import predictor_init
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.expertstore import TierConfig
+    from repro_torch.serving.scheduler import BatchedOffloadEngine
+
+    c = SERVE_TIERS
+    model, params, capacity = handed
+    cfg = model.cfg
+    pin_s = pin_experts(params)
+    pc = predictor_config(PredictorConfig, cfg)
+    pp = predictor_init(torch.Generator(dev).manual_seed(SEED + 1), pc,
+                        device=dev)
+    rng = np.random.default_rng(SEED)
+    prompt_len = MAIN_RUNS["deepseek-v2-lite"][1]
+    prompts = [rng.integers(0, cfg.vocab_size, prompt_len).tolist()
+               for _ in range(4)]
+    SPILL_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(SPILL_DIR).free
+    roofline = (PEAK_OPS["bfloat16"], HBM_BYTES_S)
+    results, total, streams = {}, {}, {}
+    for label, kw, replacement in TIER_RUNS:
+        tc = TierConfig(num_shards=c["num_shards"],
+                        local_shard=c["local_shard"],
+                        shard_dram_experts=c["shard_dram_experts"],
+                        cache_experts=c["cache_experts"],
+                        spill_dir=str(SPILL_DIR), **kw)
+        t0 = time.perf_counter()
+        eng = BatchedOffloadEngine(
+            model, params, lambda: OnlineMoEBeyondPolicy(pp, pc), capacity,
+            host_bw=host_bw, roofline=roofline, serve=ServeConfig(
+                max_batch=4, block_size=8, prefill_chunk=8,
+                layer_compute_s=c["layer_compute_s"], tiers=tc,
+                replacement=replacement), device=dev)
+        store = eng.core.store
+        build_s = since(torch, t0)
+        path = store._spill_path
+        spill_bytes = os.path.getsize(path) if path else 0
+        routes = record_routes(eng.core, check_finite=True)
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        outs = eng.generate(prompts, c["max_new"], c["cache_len"])
+        run_s = since(torch, t1)
+        launches = launch_counts()
+        where = f"serve_tiers ({label})"
+        for name in MAIN_RUNS["deepseek-v2-lite"][2]:
+            if launches[name] == 0:
+                fail(f"{where} never launched the {name} kernel")
+        for s in outs:
+            if len(s) != c["max_new"] + 1 or not all(
+                    0 <= x < cfg.vocab_size for x in s):
+                fail(f"{where}: bad stream {s}")
+        eng.pool.check_leaks(expected_in_use=0)
+        st = eng.stats
+        fetched, nbytes = st.fetches_by_tier, st.fetch_bytes_by_tier
+        digests = {"stream_digest": digest(outs),
+                   "route_digest": digest(routes)}
+        if "cold_dtype" not in kw:      # bit-exact tiers: main run 1's
+            for key, value in digests.items():
+                if value != main1[key]:
+                    fail(f"{where}: {key} {value} differs from main run "
+                         f"1's {main1[key]}")
+        if kw["dispatch"] == "fetch" and fetched.get(2, 0) < 1:
+            fail(f"{where}: no fetch from tier 2: {fetched}")
+        if fetched.get(3, 0) < 1:
+            fail(f"{where}: no fetch from tier 3: {fetched}")
+        if kw["dispatch"] != "fetch" and st.ships < 1:
+            fail(f"{where}: nothing shipped")
+        if kw.get("cold_dtype") == "int8":
+            for tier in (2, 3):
+                if nbytes.get(tier, 0) != (fetched.get(tier, 0)
+                                           * store.cold_bytes_per_expert):
+                    fail(f"{where}: tier-{tier} fetches moved {nbytes} "
+                         f"bytes, not {store.cold_bytes_per_expert} each")
+        # the tier-3 read rate of this host: every spilled expert once
+        spilled = list(store._spill_row)
+        t2 = time.perf_counter()
+        read = 0
+        for key in spilled:
+            parts = store._read_spill(key)
+            parts = parts.codes if hasattr(parts, "codes") else parts
+            read += sum(p.numel() * p.element_size() for p in parts)
+        read_s = time.perf_counter() - t2
+        store.close()
+        if path is None or os.path.exists(path):
+            fail(f"{where}: spill file {path} is not gone after close()")
+        streams[label] = outs
+        results[label] = {
+            "tiers": {**kw, "replacement": replacement}, "build_s": build_s,
+            "run_s": run_s, "positions_per_s": st.tokens / run_s,
+            "generated_tokens_per_s": sum(map(len, outs)) / run_s,
+            "hit_rate": st.hit_rate, "hits": st.hits, "misses": st.misses,
+            "sim_stall_s": st.sim_stall_s,
+            "blocking_stall_s": st.blocking_stall_s,
+            "overlapped_s": st.overlapped_s,
+            "stall_by_tier": st.stall_by_tier,
+            "overlapped_by_tier": st.overlapped_by_tier,
+            "fetches_by_tier": fetched, "fetch_bytes_by_tier": nbytes,
+            "fetch_bytes": st.fetch_bytes,
+            "dispatch": eng.dispatch_summary(),
+            "deep_prefetch_hits": st.deep_prefetch_hits,
+            "horizon_clamps": st.horizon_clamps,
+            "evictions_learned": st.evictions_learned,
+            "evictions_lru": st.evictions_lru,
+            "store": store.stats.as_dict(), "spill_bytes": spill_bytes,
+            "spill_read_bytes": read, "spill_read_s": read_s,
+            "spill_read_bytes_per_s": read / read_s if read_s else None,
+            "spill_read_modeled_bytes_per_s": tc.disk_bw,
+            "launches": launches, **digests}
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        del eng, store
+        release_host_memory(torch)
+        log(f"serve_tiers ({label}) done in {run_s:.1f} s "
+            f"(store built in {build_s:.1f} s)")
+    if "d" in results and "c" in results:     # int8 against bf16
+        results["d"]["streams_equal_c"] = sum(
+            a == b for a, b in zip(streams["d"], streams["c"]))
+    return {"config": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+            **c, "requests": len(prompts), "capacity_slots": capacity,
+            "host_bw_bytes_per_s": host_bw, "roofline": roofline,
+            "pin_s": pin_s, "spill_dir_free_bytes": free,
+            "main_run_digests": {k: main1[k] for k in (
+                "stream_digest", "route_digest")},
+            "runs": results, "launches": total}, total
 
 
 # the pipeline phase: prompts from the topic corpus, decode steps per
@@ -2446,8 +2766,13 @@ def main() -> None:
         ("parity_workload", ds, lambda: parity_run_workload(torch, np, dev),
          None),
         ("serve_workload", ds,
-         lambda: serve_workload_run(torch, np, dev, host_bw, keep.pop(ds)),
+         lambda: serve_workload_run(torch, np, dev, host_bw, keep[ds]),
          "serve_workload"),
+        ("parity_tiers", ds, lambda: parity_run_tiers(torch, np, dev), None),
+        ("serve_tiers", ds,
+         lambda: serve_tiers_run(torch, np, dev, host_bw, keep.pop(ds),
+                                 runs["main_run"]),
+         "serve_tiers"),
         ("parity_run", ds, lambda: parity_run(torch, np, dev), None),
         ("pipeline", ds, lambda: pipeline_run(torch, np, dev, keep),
          "pipeline"),
@@ -2520,6 +2845,11 @@ def main() -> None:
             pt = c["pipeline_trained"]
             entry["pipeline_trained_shape"] = {
                 "max_abs_err": pt["float32"], **timing_fields(pt)}
+        if "ship" in c:         # serve_tiers' ship rows past the slots
+            sh = c["ship"]
+            entry["ship_shape"] = {
+                "max_abs_err": sh["bfloat16"],
+                "max_abs_err_f32": sh["float32"], **timing_fields(sh)}
         if "train" in c:        # the training forward's router
             entry["training_shapes"] = {
                 shape: {"max_abs_err": c[shape]["float32"],
@@ -2622,6 +2952,28 @@ def main() -> None:
         "retains", "preempt_ref_drops", "streams_equal_closed_loop",
         "first_divergence", "launches")},
         "seconds": phase_s["serve_workload"]}), flush=True)
+    pt = runs["parity_tiers"]
+    print(json.dumps({"parity_tiers": {k: pt[k] for k in (
+        "identical", "requests", "streams", "stats", "store", "dispatch",
+        "cold_copies_compared", "launches")},
+        "seconds": phase_s["parity_tiers"]}), flush=True)
+    stt = runs["serve_tiers"]
+    print(json.dumps({"serve_tiers": {
+        **{k: stt[k] for k in ("layers", "capacity_slots",
+                               "host_bw_bytes_per_s", "roofline",
+                               "shard_dram_experts", "cache_experts",
+                               "layer_compute_s", "main_run_digests",
+                               "launches")},
+        "runs": {label: {k: r[k] for k in (
+            "tiers", "build_s", "run_s", "positions_per_s", "hit_rate",
+            "sim_stall_s", "stall_by_tier", "overlapped_by_tier",
+            "fetches_by_tier", "fetch_bytes_by_tier", "dispatch",
+            "deep_prefetch_hits", "horizon_clamps", "evictions_learned",
+            "evictions_lru", "spill_bytes", "spill_read_bytes_per_s",
+            "stream_digest", "route_digest", *(
+                ("streams_equal_c",) if label == "d" else ()))}
+            for label, r in stt["runs"].items()}},
+        "seconds": phase_s["serve_tiers"]}), flush=True)
     print(json.dumps({"launch_floor_ms": floor_ms}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ident, flush=True)

@@ -1,11 +1,16 @@
 """GPU-memory-as-expert-cache control plane (paper §2.3): fixed expert-slot
-capacity, LRU eviction, explicit prefetch, pinning, hit/miss accounting.
-Keys are (moe_layer, expert) pairs; the device slot buffer it drives lives
-in ``serving/offload.py``.
+capacity, LRU, LFU or predictor-driven ("learned") eviction, explicit
+prefetch, pinning, hit/miss accounting. Keys are (moe_layer, expert)
+pairs; the device slot buffer it drives lives in ``serving/offload.py``.
 
-A copy of the reference's ``core/cache.py``; its LFU and predictor-driven
-``"learned"`` replacement are ROADMAP work ("tiers, dispatch and learned
-replacement").
+``policy="learned"`` makes the activation predictor the replacement
+policy: a :class:`~repro_torch.core.policies.ReuseDistanceScorer` maps the
+engine's multi-horizon prediction window to a predicted-next-use distance
+per key, and eviction takes the unpinned key predicted furthest from
+reuse. A key no prediction covers counts as infinitely far, and LRU order
+breaks ties, so with no predictions at all the policy is exact LRU.
+Victim provenance (prediction-informed or LRU fallback) is counted in
+:class:`CacheStats`.
 """
 from __future__ import annotations
 
@@ -22,13 +27,14 @@ class CacheStats:
       * ``prefetches`` — prefetches that actually inserted an entry.
       * ``prefetch_hits`` — accesses served by a prefetched entry.
       * ``deep_prefetch_hits`` — accesses served by an entry prefetched
-        more than one MoE layer ahead (always 0 with one-layer lookahead).
+        more than one MoE layer ahead (horizon-aware deep prefetch).
       * ``redundant_prefetches`` — prefetches of an already-resident key
         (recency refresh only, no insert).
-      * ``evictions`` — entries evicted to make room.
-      * ``evictions_learned`` / ``evictions_lru`` — learned-replacement
-        victim provenance, kept for parity with the reference (always 0
-        here: learned replacement is not ported).
+      * ``evictions`` — entries evicted to make room (all policies).
+      * ``evictions_learned`` — learned-mode evictions where at least one
+        candidate had a live reuse-distance prediction.
+      * ``evictions_lru`` — learned-mode evictions that fell back to pure
+        LRU order because no candidate had a prediction.
       * ``demand_fetches`` — misses that triggered an on-demand insert.
     """
     hits: int = 0
@@ -58,18 +64,24 @@ class CacheStats:
 
 class ExpertCache:
     def __init__(self, capacity: int, policy: str = "lru", on_evict=None,
-                 on_insert=None):
+                 on_insert=None, scorer=None):
         assert capacity >= 1
-        if policy != "lru":
-            raise NotImplementedError(
-                f"replacement {policy!r}: ROADMAP, tiers, dispatch and "
-                "learned replacement")
+        if policy not in ("lru", "lfu", "learned"):
+            raise ValueError(f"unknown replacement policy {policy!r}")
+        if policy == "learned" and scorer is None:
+            raise ValueError("policy='learned' needs a ReuseDistanceScorer")
         self.capacity = capacity
+        self.policy = policy
+        self.scorer = scorer
+        # on_evict releases the device slot; a tiered store behind the slot
+        # buffer demotes the expert into its host cache instead of dropping
+        # it (serving/expertstore.py)
         self.on_evict = on_evict      # callback(key) -> None (slot release)
         self.on_insert = on_insert    # callback(key) -> None (slot fill)
         # key -> provenance: None for a demand fetch, else the prefetch
         # lookahead distance in MoE layers (0 = next layer)
         self._entries: OrderedDict[Hashable, Optional[int]] = OrderedDict()
+        self._freq: dict[Hashable, int] = {}
         self._pins: dict[Hashable, int] = {}   # key -> refcount
         self.stats = CacheStats()
 
@@ -96,10 +108,16 @@ class ExpertCache:
         return self._pins.get(key, 0) > 0
 
     def _evict_one(self) -> None:
-        # the least recently used unpinned key (OrderedDict order == LRU
-        # order), found without scanning the whole cache
-        victim = next((k for k in self._entries if not self.pinned(k)),
-                      None)
+        # candidates in LRU order (the OrderedDict's); LRU takes the first
+        # unpinned one without scanning the whole cache
+        evictable = (k for k in self._entries if not self.pinned(k))
+        if self.policy == "lru":
+            victim = next(evictable, None)
+        elif self.policy == "lfu":           # the first minimum: LRU ties
+            victim = min(evictable, key=lambda k: self._freq.get(k, 0),
+                         default=None)
+        else:
+            victim = self._learned_victim(evictable)
         if victim is None:
             raise RuntimeError(
                 f"ExpertCache thrashing: all {len(self._entries)} resident "
@@ -109,6 +127,30 @@ class ExpertCache:
         if self.on_evict is not None:
             self.on_evict(victim)
         self.stats.evictions += 1
+
+    def _learned_victim(self, evictable):
+        """The unpinned key predicted furthest from reuse; a key with no
+        live prediction counts as infinitely far. Candidates come in LRU
+        order and a strict ``>`` keeps the earliest on ties, so equal
+        distances (and no predictions at all) fall back to exact LRU."""
+        victim, best = None, -1.0
+        informed = False
+        distance = self.scorer.distance
+        for k in evictable:
+            d = distance(k)
+            if d is None:
+                d = float("inf")
+            else:
+                informed = True
+            if d > best:
+                victim, best = k, d
+        if victim is None:
+            return None
+        if informed:
+            self.stats.evictions_learned += 1
+        else:
+            self.stats.evictions_lru += 1
+        return victim
 
     def _insert(self, key, provenance: Optional[int]) -> None:
         assert key not in self._entries
@@ -131,6 +173,7 @@ class ExpertCache:
 
     def access(self, key) -> bool:
         """A compute-time expert use. Miss => demand fetch (inserted)."""
+        self._freq[key] = self._freq.get(key, 0) + 1
         if key in self._entries:
             self.stats.hits += 1
             if self._entries[key] is not None:

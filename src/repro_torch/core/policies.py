@@ -16,10 +16,16 @@ to prefetch; after it runs, ``observe(...)`` reveals the routed experts.
 
 The predictor runs on the device its parameters live on, under
 ``torch.no_grad``.
+
+:class:`ReuseDistanceScorer` turns the engine's multi-horizon prediction
+windows into a per-key predicted-next-use distance, which the
+``policy="learned"`` replacement of ``core/cache.ExpertCache`` and the
+tier-1 cache of ``serving/expertstore.TieredExpertStore`` read to evict
+the key predicted furthest from reuse.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +33,60 @@ import torch
 from repro_torch.core.eam import EAMC, REAMBuilder, build_ream
 from repro_torch.core.metrics import select_experts
 from repro_torch.core.predictor import predictor_apply
+
+
+class ReuseDistanceScorer:
+    """Predicted-next-use distances for learned cache replacement.
+
+    The engine records each prediction window it obtains (``record(keys,
+    distance=d)``: these keys are predicted for use ``d`` MoE layers from
+    now) and ticks a logical clock once per MoE layer computed
+    (``tick``). ``distance(key)`` is the number of MoE layers until the
+    key's soonest still-future predicted use, or ``None`` when no live
+    prediction covers it: a prediction whose layer already ran expires.
+    One scorer serves the tier-0 slot cache and the store's tier-1 cache.
+    """
+
+    #: prune expired entries when the map outgrows this
+    PRUNE_AT = 65536
+
+    def __init__(self):
+        self.clock = 0                        # MoE layers computed so far
+        self._next_use: Dict[Tuple[int, int], int] = {}
+
+    def record(self, keys: Sequence, distance: int) -> None:
+        """Keys predicted for use ``distance`` MoE layers from now (0 =
+        the next MoE layer); keeps the soonest live prediction per key."""
+        t = self.clock + distance + 1
+        for k in keys:
+            cur = self._next_use.get(k)
+            if cur is None or cur <= self.clock or t < cur:
+                self._next_use[k] = t
+
+    def tick(self, n: int = 1) -> None:
+        """One (or ``n``) MoE layer(s) of compute completed."""
+        self.clock += n
+        if len(self._next_use) > self.PRUNE_AT:
+            self._next_use = {k: t for k, t in self._next_use.items()
+                              if t > self.clock}
+
+    def distance(self, key) -> Optional[int]:
+        """MoE layers until the soonest predicted use of ``key``; ``None``
+        when no live prediction covers it."""
+        t = self._next_use.get(key)
+        if t is None or t <= self.clock:
+            return None
+        return t - self.clock
+
+    def reset(self) -> None:
+        self.clock = 0
+        self._next_use.clear()
+
+
+def _sigmoid(logits: np.ndarray) -> np.ndarray:
+    """Per-expert confidence: the sigmoid probability the paper's
+    selection rule thresholds, in float64."""
+    return 1.0 / (1.0 + np.exp(-np.asarray(logits, np.float64)))
 
 
 class Policy:
@@ -46,6 +106,13 @@ class Policy:
     def predict(self, t: int, layer: int) -> np.ndarray:
         """Experts to prefetch for (token t, layer)."""
         return np.empty((0,), np.int64)
+
+    def predict_scored(self, t: int, layer: int):
+        """(experts, confidences): a confidence in [0, 1] per predicted
+        expert, or ``None`` for policies without one. The engine fetches a
+        slow-tier key several layers early only when its confidence clears
+        ``TierConfig.deep_confidence``."""
+        return self.predict(t, layer), None
 
     def predict_batch(self, ts: Sequence[int], layer: int) -> List[np.ndarray]:
         return [self.predict(t, layer) for t in ts]
@@ -244,11 +311,17 @@ class OnlineMoEBeyondPolicy(Policy):
         self._seen_t = -1
 
     @torch.no_grad()
-    def _apply(self, emb, lids, mask) -> np.ndarray:
+    def _apply(self, emb, lids, mask, rows=None) -> np.ndarray:
+        """Logits of the rows; with ``rows`` (int64 indices), batch row j
+        reads ``emb[rows[j]]`` and ``mask[rows[j]]``, gathered on the
+        device so each request's embeddings cross to it once."""
         d = self.device
-        logits = predictor_apply(
-            self.params, self.pcfg, torch.from_numpy(emb).to(d),
-            torch.from_numpy(lids).to(d), torch.from_numpy(mask).to(d))
+        emb, mask = torch.from_numpy(emb).to(d), torch.from_numpy(mask).to(d)
+        if rows is not None:
+            rows = torch.from_numpy(rows).to(d)
+            emb, mask = emb[rows], mask[rows]
+        logits = predictor_apply(self.params, self.pcfg, emb,
+                                 torch.from_numpy(lids).to(d), mask)
         return logits.cpu().numpy()
 
     def begin_prompt(self, trace=None):  # noqa: ARG002
@@ -261,16 +334,20 @@ class OnlineMoEBeyondPolicy(Policy):
             self._seen_t = t
 
     def predict(self, t, layer):
+        return self.predict_scored(t, layer)[0]
+
+    def predict_scored(self, t, layer):
         pc = self.pcfg
         n = min(len(self._emb), pc.max_seq)
         if n == 0:
-            return np.empty((0,), np.int64)
+            return np.empty((0,), np.int64), np.empty((0,), np.float64)
         emb = np.zeros((1, n, pc.token_emb_dim), np.float32)
         emb[0] = np.stack(self._emb[-n:])
         logits = self._apply(emb, np.full((1, n), layer, np.int32),
                              np.ones((1, n), bool))[0, -1, : pc.num_experts]
         sel = select_experts(logits, self.width, threshold=-1e9)
-        return np.nonzero(sel)[0]
+        ids = np.nonzero(sel)[0]
+        return ids, _sigmoid(logits[ids])
 
     @staticmethod
     def batchable(policies: Sequence["Policy"]) -> bool:
@@ -293,37 +370,46 @@ class OnlineMoEBeyondPolicy(Policy):
 
     @staticmethod
     def predict_many_layers(policies: Sequence["OnlineMoEBeyondPolicy"],
-                            layers: Sequence[int]
-                            ) -> Dict[int, List[np.ndarray]]:
+                            layers: Sequence[int],
+                            with_scores: bool = False) -> Dict[int, List]:
         """One forward serves every (request, layer) pair. Requests are
         right-padded to a shared power-of-two length; the causal+padding
         mask makes row position ``n_i - 1`` see exactly that request's
-        observed embeddings, so results match the scalar ``predict``."""
+        observed embeddings, so results match the scalar ``predict``.
+        With ``with_scores`` each entry is an ``(experts, confidences)``
+        pair, as ``predict_scored`` gives it."""
         pc = policies[0].pcfg
         ns = [min(len(p._emb), pc.max_seq) for p in policies]
 
-        out: Dict[int, List[np.ndarray]] = {
-            layer: [np.empty((0,), np.int64)] * len(policies)
-            for layer in layers}
+        def empty():
+            ids = np.empty((0,), np.int64)
+            return (ids, np.empty((0,), np.float64)) if with_scores else ids
+
+        out: Dict[int, List] = {
+            layer: [empty()] * len(policies) for layer in layers}
         live = [i for i, n in enumerate(ns) if n > 0]
         if not live or not layers:
             return out
         tb = 1
         while tb < max(ns[i] for i in live):         # pow-of-two seq bucket
             tb *= 2
+        # one padded row per live request; each (layer, request) batch row
+        # reads its request's row
+        emb = np.zeros((len(live), tb, pc.token_emb_dim), np.float32)
+        mask = np.zeros((len(live), tb), bool)
+        for r, i in enumerate(live):
+            emb[r, : ns[i]] = np.stack(policies[i]._emb[-ns[i]:])
+            mask[r, : ns[i]] = True
         rows = [(i, layer) for layer in layers for i in live]
-        emb = np.zeros((len(rows), tb, pc.token_emb_dim), np.float32)
-        mask = np.zeros((len(rows), tb), bool)
-        lids = np.zeros((len(rows), tb), np.int32)
-        for j, (i, layer) in enumerate(rows):
-            emb[j, : ns[i]] = np.stack(policies[i]._emb[-ns[i]:])
-            mask[j, : ns[i]] = True
-            lids[j] = layer
-        logits = policies[0]._apply(emb, lids, mask)
+        lids = np.repeat(np.asarray(layers, np.int32), len(live))
+        logits = policies[0]._apply(
+            emb, np.repeat(lids[:, None], tb, axis=1), mask,
+            rows=np.tile(np.arange(len(live), dtype=np.int64), len(layers)))
         for j, (i, layer) in enumerate(rows):
             lg = logits[j, ns[i] - 1, : pc.num_experts]
             sel = select_experts(lg, policies[i].width, threshold=-1e9)
-            out[layer][i] = np.nonzero(sel)[0]
+            ids = np.nonzero(sel)[0]
+            out[layer][i] = (ids, _sigmoid(lg[ids])) if with_scores else ids
         return out
 
 
@@ -385,6 +471,37 @@ class PerRequestPolicy:
         if len(pols) > 1 and OnlineMoEBeyondPolicy.batchable(pols):
             return OnlineMoEBeyondPolicy.predict_many(pols, layer)
         return [p.predict(t, layer) for p, t in zip(pols, ts)]
+
+    def predict_batch_multi(self, rids: Sequence[int], ts: Sequence[int],
+                            layers: Sequence[int],
+                            ) -> Dict[int, List[np.ndarray]]:
+        """Per-request prefetch sets for a lookahead window of MoE layers
+        (the horizon-aware engine asks for ``mi .. mi+H-1`` at once).
+        Online-predictor policies fuse the window into one forward;
+        everything else loops ``predict_batch``."""
+        pols = [self._get(r) for r in rids]
+        if (self._shared is None and len(layers) > 0
+                and OnlineMoEBeyondPolicy.batchable(pols)):
+            return OnlineMoEBeyondPolicy.predict_many_layers(pols, layers)
+        return {layer: self.predict_batch(rids, ts, layer)
+                for layer in layers}
+
+    def predict_batch_multi_scored(self, rids: Sequence[int],
+                                   ts: Sequence[int],
+                                   layers: Sequence[int],
+                                   ) -> Dict[int, List[tuple]]:
+        """``predict_batch_multi`` with confidences: each entry is an
+        ``(experts, confidences)`` pair (confidences ``None`` for policies
+        without them). The engine's deep-prefetch gate and the
+        ``ReuseDistanceScorer`` read it."""
+        pols = [self._get(r) for r in rids]
+        if (self._shared is None and len(layers) > 0
+                and OnlineMoEBeyondPolicy.batchable(pols)):
+            return OnlineMoEBeyondPolicy.predict_many_layers(
+                pols, layers, with_scores=True)
+        return {layer: [p.predict_scored(t, layer)
+                        for p, t in zip(pols, ts)]
+                for layer in layers}
 
     def observe_batch(self, rids: Sequence[int], ts: Sequence[int],
                       layer: int, experts_per_req, embeddings=None) -> None:

@@ -9,6 +9,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Optional
 
+from repro_torch.serving.expertstore import TierConfig
 from repro_torch.serving.workload import SLO
 
 
@@ -38,9 +39,16 @@ class ServeConfig:
         with ring layers keep the index off.
       * ``prefix_cache_blocks`` — soft cap on the pool blocks the index
         keeps alive (None -> bounded only by pool pressure).
-      * ``replacement`` — expert-slot eviction; must be "lru" (LFU and
-        learned replacement are ROADMAP work).
-      * ``tiers`` — must be None (the tiered store is ROADMAP work).
+      * ``replacement`` — eviction of the tier-0 expert slots and the
+        tier-1 host cache: "lru", "lfu" or "learned" (a
+        ``ReuseDistanceScorer`` fed the multi-horizon predictions evicts
+        the unpinned key predicted furthest from reuse; LRU breaks ties).
+        Streams do not depend on it.
+      * ``tiers`` — a :class:`~repro_torch.serving.expertstore.TierConfig`
+        puts the experts in the tiered host/peer/disk store, with
+        horizon-aware prefetch and, per ``TierConfig.dispatch``, fetch or
+        ship for peer-resident experts (the engine then needs
+        ``roofline``); None keeps every expert in one host's memory.
       * ``layer_compute_s`` — modeled compute seconds per layer half of the
         OverlapTracker's clock (a float).
       * ``preemption`` — let admission evict a strictly lower-priority
@@ -63,7 +71,7 @@ class ServeConfig:
     prefix_cache: bool = False
     prefix_cache_blocks: Optional[int] = None
     replacement: str = "lru"
-    tiers: Optional[Any] = None
+    tiers: Optional[TierConfig] = None
     layer_compute_s: float = 0.0
     preemption: bool = False
     default_priority: int = 0
@@ -72,11 +80,9 @@ class ServeConfig:
 
     def check_ported(self) -> None:
         """Raise for a setting the port does not serve yet."""
+        if self.replacement not in ("lru", "lfu", "learned"):
+            raise ValueError(f"unknown replacement {self.replacement!r}")
         todo = {
-            "tiers": (self.tiers is not None, "tiers, dispatch and learned "
-                      "replacement"),
-            "replacement": (self.replacement != "lru",
-                            "tiers, dispatch and learned replacement"),
             "telemetry": (self.telemetry is not None, "telemetry"),
             "layer_compute_s": (isinstance(self.layer_compute_s, str),
                                 "the roofline/measured compute clock"),

@@ -15,9 +15,16 @@ kernel reads the slot buffer in place. The policy's predictions for the
 next MoE layer are submitted before the layers in between run, so the
 modeled transfers overlap compute (``offload.OverlapTracker``).
 
-``OffloadEngine`` is the batch-1 public API on the same core. Tiers,
-dispatch, learned replacement, telemetry and the ``"roofline"``/
-``"measured"`` compute clocks are ROADMAP work.
+``tiers`` (a ``serving/expertstore.TierConfig``) puts the experts in the
+tiered host/peer/disk store: predictions are asked for a window of MoE
+layers as deep as the slowest tier needs, and with compute dispatch on, a
+peer-resident expert may be computed by shipping its tokens (staged in the
+slot buffer's ship rows, through the same ``expert_ffn`` kernel) instead
+of fetching its weights. ``eviction="learned"`` lets the predictions pick
+the tier-0 and tier-1 victims.
+
+``OffloadEngine`` is the batch-1 public API on the same core. Telemetry
+and the ``"roofline"``/``"measured"`` compute clocks are ROADMAP work.
 """
 from __future__ import annotations
 
@@ -28,13 +35,18 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import LatencyStats
-from repro_torch.core.policies import PerRequestPolicy, Policy
+from repro_torch.core.policies import (PerRequestPolicy, Policy,
+                                       ReuseDistanceScorer)
 from repro_torch.kernels.expert_ffn import expert_ffn
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch.roofline import expert_ffn_roofline
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ffn_apply, rms_norm
-from repro_torch.serving.offload import (ROUTED, TIER_HOST, HostExpertStore,
+from repro_torch.serving.expertstore import (DispatchPlanner,
+                                             TieredExpertStore)
+from repro_torch.serving.offload import (CHANNEL_SHIP, ROUTED, TIER_HOST,
+                                         TIER_PEER, HostExpertStore,
                                          OverlapTracker, make_offload_cache)
 
 
@@ -85,15 +97,33 @@ class EngineStats:
         blocks were released (after publishing them to the prefix index)
         to make room for a more urgent waiter; it re-admits later with its
         stream intact.
+
+    Tier breakdowns (keys are storage tiers: 1 local host memory, 2 a peer
+    shard, 3 the disk spill, 4 the ship channel; a single-host engine
+    reports everything under tier 1):
+      * ``stall_by_tier`` — un-overlapped modeled stall seconds, charged to
+        the tier whose transfer finished last.
+      * ``overlapped_by_tier`` — hidden transfer seconds per tier.
       * ``fetches_by_tier`` / ``fetch_bytes_by_tier`` — slot fills and
-        their bytes per source tier: ``{TIER_HOST: ...}`` once anything was
-        fetched (the port has one host tier), as the reference reports it.
+        their (wire) bytes per source tier.
       * ``deep_prefetch_hits`` — accesses served by an entry prefetched
         more than one MoE layer ahead (the cache's counter).
       * ``fetches_deduped`` — fills that rode a transfer already in flight
         (the tracker's counter).
-      * ``evictions_learned`` / ``evictions_lru`` — learned-replacement
-        victim provenance (the cache's counters; 0 under LRU).
+      * ``evictions_learned`` / ``evictions_lru`` — tier-0 learned-
+        replacement victim provenance (the cache's counters; 0 otherwise).
+      * ``horizon_clamps`` — prefetch distances dropped because their new
+        keys would not fit the tier-0 slots left after the next layer's
+        working set and the pins.
+
+    Compute dispatch (0 unless ``TierConfig.dispatch`` is ``"ship"`` or
+    ``"auto"``):
+      * ``ships`` — expert groups computed by shipping tokens to the peer.
+      * ``ship_bytes`` — activation bytes shipped (tokens out, outputs
+        back).
+      * ``ship_tokens`` — tokens computed remotely.
+
+    Per run:
       * ``latency`` — the latest run's :class:`LatencyStats`, or None.
     """
     tokens: int = 0
@@ -109,12 +139,18 @@ class EngineStats:
     fallback_prefill_tokens: int = 0
     rejected_requests: int = 0
     preemptions: int = 0
+    stall_by_tier: Dict[int, float] = field(default_factory=dict)
+    overlapped_by_tier: Dict[int, float] = field(default_factory=dict)
     fetches_by_tier: Dict[int, int] = field(default_factory=dict)
     fetch_bytes_by_tier: Dict[int, int] = field(default_factory=dict)
     deep_prefetch_hits: int = 0
     fetches_deduped: int = 0
     evictions_learned: int = 0
     evictions_lru: int = 0
+    horizon_clamps: int = 0
+    ships: int = 0
+    ship_bytes: int = 0
+    ship_tokens: int = 0
     latency: Optional[LatencyStats] = None
 
     @property
@@ -148,20 +184,32 @@ class DecodeCore:
     host store only; every other weight is copied to ``device``.
     ``kernel=False`` reads KV through the gather route instead of the
     attention kernels. ``host_bw`` (host to device, bytes/s) prices every
-    modeled fetch and has no default: the reference's 100 GB/s is a TPU
-    host's; on a card pass ``core.simulator.measured_host_bw``.
+    modeled host fetch and has no default: the reference's 100 GB/s is a
+    TPU host's; on a card pass ``core.simulator.measured_host_bw``.
+
+    ``tiers`` (a ``TierConfig``) swaps the host store for the tiered one.
+    ``roofline`` = ``(peak_flops, hbm_bw)`` of the device that computes a
+    shipped expert prices the ship path; it has no default either and is
+    required when ``tiers.dispatch`` is not ``"fetch"``.
+    ``eviction`` is ``"lru"``, ``"lfu"`` or ``"learned"``.
     """
 
     def __init__(self, model, params, capacity: int, eviction: str = "lru",
                  *, host_bw: float, max_batch: int = 1,
                  layer_compute_s: float = 0.0, max_prefill_chunk: int = 8,
-                 kernel: bool = True, device="cuda"):
+                 kernel: bool = True, tiers=None, roofline=None,
+                 device="cuda"):
         cfg = model.cfg
         assert cfg.moe is not None, "offload engine needs an MoE backbone"
         if isinstance(layer_compute_s, str):
             raise NotImplementedError(
                 f"layer_compute_s={layer_compute_s!r}: ROADMAP, the "
                 "roofline/measured compute clock")
+        if (tiers is not None and tiers.dispatch != "fetch"
+                and roofline is None):
+            raise TypeError(
+                f"dispatch={tiers.dispatch!r} needs roofline=(peak_flops, "
+                "hbm_bw) of the device computing shipped experts")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model
@@ -173,9 +221,39 @@ class DecodeCore:
         self.max_prefill_chunk = max_prefill_chunk
         self.kernel = kernel
         layers = params["layers"]
-        self.store = HostExpertStore(
-            [layers[li]["moe"] for li in self.moe_layers],
-            pin=self.device.type == "cuda")
+        store_layers = [layers[li]["moe"] for li in self.moe_layers]
+        # learned replacement: one scorer for the tier-0 slots and the
+        # store's tier-1 cache, fed the raw multi-horizon predictions by
+        # _submit_prefetch and ticked once per MoE layer by _moe_units
+        self.scorer = ReuseDistanceScorer() if eviction == "learned" else None
+        self._conf_threshold = (tiers.deep_confidence
+                                if tiers is not None else None)
+        if tiers is not None:
+            self.store = TieredExpertStore(store_layers, tiers,
+                                           scorer=self.scorer,
+                                           device=self.device)
+        else:
+            self.store = HostExpertStore(store_layers,
+                                         pin=self.device.type == "cuda")
+        # compute dispatch prices fetch against ship per (expert, token
+        # count); a fetch moves the wire size (quantized under int8 cold
+        # tiers), a ship the tokens and the peer's compute
+        self.planner = None
+        if tiers is not None and tiers.dispatch != "fetch":
+            peak_flops, hbm_bw = roofline
+            per_tok_s, base_s = expert_ffn_roofline(
+                cfg, peak_flops=peak_flops, hbm_bw=hbm_bw)
+            self.planner = DispatchPlanner(
+                weight_bytes=(self.store.cold_bytes_per_expert
+                              if tiers.cold_dtype is not None
+                              else self.store.bytes_per_expert),
+                act_bytes_per_token=2 * cfg.d_model
+                * getattr(torch, cfg.dtype).itemsize,
+                ffn_s_per_token=per_tok_s, ffn_s_base=base_s,
+                peer_latency_s=tiers.peer_latency_s, peer_bw=tiers.peer_bw,
+                mode=tiers.dispatch)
+        # MoE layers of lookahead: the store's slowest tier decides
+        self.max_horizon = self.store.max_horizon
         self.layers = []
         for lp in layers:
             lp = dict(lp)
@@ -186,9 +264,13 @@ class DecodeCore:
         self.params = _to_device({k: v for k, v in params.items()
                                   if k != "layers"}, self.device)
         self.tracker = OverlapTracker(host_bw=host_bw)
+        # one step's units route to at most units * top_k distinct experts,
+        # which bounds the ship rows one expert_ffn call can stage
+        ship_slots = (max(max_batch, max_prefill_chunk) * cfg.moe.top_k
+                      if self.planner is not None else 0)
         self.cache, self.slots = make_offload_cache(
             self.store, capacity, self.device, eviction, host_bw=host_bw,
-            tracker=self.tracker)
+            tracker=self.tracker, scorer=self.scorer, ship_slots=ship_slots)
         self.stats = EngineStats()
         self.layer_compute_s = layer_compute_s
         self.dtype = self.params["tok_emb"].dtype
@@ -238,24 +320,129 @@ class DecodeCore:
                                                 src, dst)
         return caches
 
-    def _next_moe(self, li: int) -> Optional[int]:
-        """MoE ordinal of the first MoE layer at/after layer ``li``."""
-        return next((self.moe_index[lj] for lj in self.moe_layers
-                     if lj >= li), None)
+    def _moe_window(self, li: int) -> List[int]:
+        """MoE ordinals of the next ``max_horizon`` MoE layers at/after
+        layer ``li``: the window horizon-aware prefetch fills."""
+        out = []
+        for lj in self.moe_layers:
+            if lj >= li:
+                out.append(self.moe_index[lj])
+                if len(out) == self.max_horizon:
+                    break
+        return out
 
     def _submit_prefetch(self, policy, rids, ts, li_from: int):
-        """Prefetch the policy's predictions for the next MoE layer at or
-        after ``li_from`` (one layer of lookahead: the host store needs no
-        more)."""
+        """Prefetch the policy's predictions for the window of MoE layers
+        from layer ``li_from``. The next MoE layer's (distance 0) are
+        always prefetched; at distance d > 0 a key is prefetched only when
+
+        * its tier needs that much lead (``store.prefetch_horizon(key) >
+          d``);
+        * its confidence clears ``TierConfig.deep_confidence`` (when set
+          and the policy reports confidences);
+        * the distance's new keys fit the tier-0 slots left after the
+          distance-0 working set and the pins: once they do not, that
+          distance and every deeper one are dropped (``horizon_clamps``).
+
+        Under learned replacement every prediction, before these gates, is
+        recorded in the scorer. With compute dispatch on, a predicted
+        peer-resident key the planner would ship (its token count = the
+        prediction rows naming it) is not prefetched at any distance;
+        ``_moe_units`` decides again on the routed tokens."""
         if policy is None:
             return
-        mi = self._next_moe(li_from)
-        if mi is None:
+        mis = self._moe_window(li_from)
+        if not mis:
             return
-        for pred in policy.predict_batch(rids, ts, mi):
-            keys = [(mi, int(e)) for e in pred]
-            if keys:
-                self.cache.prefetch(keys, horizon=0)
+        scored = (self.scorer is not None
+                  or self._conf_threshold is not None)
+        if scored:
+            preds = policy.predict_batch_multi_scored(rids, ts, mis)
+        elif len(mis) == 1:
+            preds = {mis[0]: policy.predict_batch(rids, ts, mis[0])}
+        else:
+            preds = policy.predict_batch_multi(rids, ts, mis)
+        # pass 1: record the whole window and decide what fits before any
+        # insertion, so the distance-0 evictions see the deeper distances
+        plan = []
+        deep_budget, clamped = 0, False
+        for d, mi in enumerate(mis):
+            rows = []
+            if self.planner is not None:
+                mult: Dict = {}
+                for pred in preds[mi]:
+                    for e in (pred[0] if scored else pred):
+                        k = (mi, int(e))
+                        mult[k] = mult.get(k, 0) + 1
+            for pred in preds[mi]:
+                conf = None
+                if scored:
+                    pred, conf = pred
+                keys = [(mi, int(e)) for e in pred]
+                if self.scorer is not None and keys:
+                    self.scorer.record(keys, distance=d)
+                if self.planner is not None:
+                    keep = [i for i, k in enumerate(keys)
+                            if k in self.cache
+                            or self.store.tier_of(k) != TIER_PEER
+                            or self.planner.choose(mult[k]) != "ship"]
+                    keys = [keys[i] for i in keep]
+                    if conf is not None:
+                        conf = [conf[i] for i in keep]
+                if d > 0:
+                    keys = [k for i, k in enumerate(keys)
+                            if self.store.prefetch_horizon(k) > d
+                            and (self._conf_threshold is None
+                                 or conf is None
+                                 or conf[i] >= self._conf_threshold)]
+                rows.append(keys)
+            if d == 0:
+                d0 = {k for keys in rows for k in keys}
+                deep_budget = max(0, self.cache.capacity - len(d0)
+                                  - len(self.cache._pins))
+                plan.append((d, rows))
+            elif not clamped:
+                new = {k for keys in rows for k in keys
+                       if k not in self.cache}
+                if len(new) > deep_budget:
+                    self.stats.horizon_clamps += 1
+                    clamped = True      # this distance and deeper dropped
+                else:
+                    deep_budget -= len(new)
+                    plan.append((d, rows))
+        # pass 2: submit what fits
+        for d, rows in plan:
+            for keys in rows:
+                if keys:
+                    self.cache.prefetch(keys, horizon=d)
+
+    def _ship(self, mi: int, idx_np: np.ndarray, n_real: int) -> Dict:
+        """Compute dispatch: each routed expert that is not in tier 0 and
+        would come from a peer is priced fetch against ship on its token
+        count. A shipped expert skips the ExpertCache (no access, insert
+        or pin): the weights the peer computes with go to a ship row and
+        the round trip is charged to the ship channel. Returns {key: ship
+        row}."""
+        ship_slot: Dict = {}
+        if self.planner is None:
+            return ship_slot
+        tok_count: Dict = {}
+        for i in range(n_real):
+            for e in np.unique(idx_np[i]):
+                key = (mi, int(e))
+                tok_count[key] = tok_count.get(key, 0) + 1
+        for key, n_tok in sorted(tok_count.items()):
+            if (key in self.cache
+                    or self.store.tier_of(key) != TIER_PEER
+                    or self.planner.choose(n_tok) != "ship"):
+                continue
+            wire = self.planner.ship_bytes(n_tok)
+            peer_w = self.store.ship(key, n_tok, wire)
+            ship_slot[key] = self.slots.fill_ship(len(ship_slot), peer_w)
+            self.tracker.submit(key, wire, tier=CHANNEL_SHIP,
+                                duration=self.planner.ship_s(n_tok),
+                                coalesce=False)
+        return ship_slot
 
     # ------------------------------------------------------------------
     def _moe_units(self, mi: int, lp, h, w, x, idx_np: np.ndarray,
@@ -264,12 +451,15 @@ class DecodeCore:
         one token needing top-k experts; h/w/x are (U,1,...) with pad units
         included, idx_np (U,k); only the first n_real units touch the
         cache. Returns (x_out, per-live-unit routed expert sets)."""
+        ship_slot = self._ship(mi, idx_np, n_real)
         gts, pinned = [], []
         for i in range(n_real):
             gt = np.unique(idx_np[i])
             gts.append(gt)
             for e in gt:
                 key = (mi, int(e))
+                if key in ship_slot:
+                    continue            # computed remotely this step
                 hit = self.cache.access(key)
                 self.stats.hits += int(hit)
                 self.stats.misses += int(not hit)
@@ -279,9 +469,18 @@ class DecodeCore:
                 pinned.append(key)
         self.tracker.wait({(mi, int(e)) for gt in gts for e in gt})
         slot_idx = np.zeros(idx_np.shape, np.int32)   # pad units: slot 0
+        slot_of = self.slots.slot_of
         for i in range(n_real):
-            slot_idx[i] = [self.slots.slot_of[(mi, int(e))]
-                           for e in idx_np[i]]
+            slot_idx[i] = [ship_slot[key] if key in ship_slot
+                           else slot_of[key]
+                           for key in ((mi, int(e)) for e in idx_np[i])]
+        # the kernel does not bound-check slot ids: refuse here, before
+        # the upload, rather than read another row's memory
+        rows = self.slots.rows
+        if slot_idx.size and (slot_idx.min() < 0 or slot_idx.max() >= rows):
+            raise ValueError(
+                f"expert slot ids outside the slot buffer's {rows} rows: "
+                f"{sorted(set(slot_idx.ravel().tolist()))}")
         y = expert_ffn(h[:, 0, :].contiguous(), w[:, 0, :].contiguous(),
                        torch.from_numpy(slot_idx).to(self.device),
                        self.slots.w_gate, self.slots.w_up, self.slots.w_down)
@@ -292,6 +491,8 @@ class DecodeCore:
         for key in pinned:
             self.cache.unpin(key)
         self.tracker.advance(self.layer_compute_s)    # the expert-FFN half
+        if self.scorer is not None:
+            self.scorer.tick()    # one MoE layer computed, one clock unit
         return x, gts
 
     def _router(self, lp, x):
@@ -308,11 +509,20 @@ class DecodeCore:
         self.stats.sim_stall_s = self.tracker.stall_s
         self.stats.blocking_stall_s = self.slots.sim_fetch_s
         self.stats.overlapped_s = self.tracker.overlapped_s
+        self.stats.stall_by_tier = dict(self.tracker.stall_by_tier)
+        self.stats.overlapped_by_tier = dict(self.tracker.overlapped_by_tier)
         self.stats.deep_prefetch_hits = self.cache.stats.deep_prefetch_hits
         self.stats.fetches_deduped = self.tracker.fetches_deduped
         self.stats.evictions_learned = self.cache.stats.evictions_learned
         self.stats.evictions_lru = self.cache.stats.evictions_lru
-        if self.slots.fetch_count:
+        st = getattr(self.store, "stats", None)
+        if st is not None:
+            self.stats.fetches_by_tier = dict(st.fetches_by_tier)
+            self.stats.fetch_bytes_by_tier = dict(st.bytes_by_tier)
+            self.stats.ships = st.ships
+            self.stats.ship_bytes = st.ship_bytes
+            self.stats.ship_tokens = st.ship_tokens
+        elif self.slots.fetch_count:
             self.stats.fetches_by_tier = {TIER_HOST: self.slots.fetch_count}
             self.stats.fetch_bytes_by_tier = {TIER_HOST:
                                               self.slots.fetch_bytes}
@@ -446,15 +656,18 @@ class OffloadEngine:
     ``policy`` may keep per-request state: one request is in flight at a
     time, so one instance serves them all. ``device`` defaults to
     ``"cuda"``; the CPU runs the kernels' plain PyTorch versions.
-    ``host_bw`` is required, as for :class:`DecodeCore`.
+    ``host_bw`` is required, and ``roofline`` with a dispatching
+    ``tiers``, as for :class:`DecodeCore`.
     """
 
     def __init__(self, model, params, policy: Optional[Policy],
-                 capacity: int, *, host_bw: float,
-                 layer_compute_s: float = 0.0, device="cuda"):
-        self.core = DecodeCore(model, params, capacity, host_bw=host_bw,
-                               max_batch=1, layer_compute_s=layer_compute_s,
-                               device=device)
+                 capacity: int, eviction: str = "lru", *, host_bw: float,
+                 layer_compute_s: float = 0.0, tiers=None, roofline=None,
+                 device="cuda"):
+        self.core = DecodeCore(model, params, capacity, eviction,
+                               host_bw=host_bw, max_batch=1,
+                               layer_compute_s=layer_compute_s, tiers=tiers,
+                               roofline=roofline, device=device)
         self.cfg = self.core.cfg
         self._prp = (None if policy is None
                      else PerRequestPolicy(policy, force_shared=True))

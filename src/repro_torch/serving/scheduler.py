@@ -52,6 +52,7 @@ from repro_torch.core.policies import PerRequestPolicy, Policy
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.engine import DecodeCore, EngineStats, sample_token
 from repro_torch.serving.kvpool import BlockTable, KVBlockPool, blocks_for
+from repro_torch.serving.offload import CHANNEL_SHIP, TIER_PEER
 from repro_torch.serving.prefixcache import PrefixCache, PrefixMatch
 from repro_torch.serving.workload import SLO, WorkloadRequest
 
@@ -135,7 +136,11 @@ class BatchedOffloadEngine:
     (a :class:`ServeConfig`) overrides the individual keyword arguments.
     ``device`` defaults to ``"cuda"``; the CPU runs the kernels' plain
     PyTorch versions. ``host_bw`` (bytes/s) is required, as for
-    ``DecodeCore``.
+    ``DecodeCore``; so is ``roofline`` = ``(peak_flops, hbm_bw)`` when
+    ``tiers`` (a ``TierConfig``) ships tokens to peer-resident experts
+    (``TierConfig.dispatch`` ``"ship"``/``"auto"``; ``dispatch_summary``
+    splits the traffic). Streams do not depend on the tiers or the
+    dispatch: a ship computes with the bytes a fetch would deliver.
     """
 
     def __init__(self, model, params, policy: PolicySpec, capacity: int,
@@ -143,12 +148,14 @@ class BatchedOffloadEngine:
                  max_batch: int = 4, layer_compute_s: float = 0.0,
                  block_size: int = 8, kv_blocks: Optional[int] = None,
                  prefill_chunk: int = 8, use_kernel: bool = True,
+                 tiers=None, roofline=None,
                  serve: Optional[ServeConfig] = None, device="cuda"):
         if serve is None:
             serve = ServeConfig(max_batch=max_batch, block_size=block_size,
                                 kv_blocks=kv_blocks,
                                 prefill_chunk=prefill_chunk,
                                 use_kernel=use_kernel, replacement=eviction,
+                                tiers=tiers,
                                 layer_compute_s=layer_compute_s)
         serve.check_ported()
         self.serve = serve
@@ -165,7 +172,8 @@ class BatchedOffloadEngine:
                                host_bw=host_bw, max_batch=max_batch,
                                layer_compute_s=serve.layer_compute_s,
                                max_prefill_chunk=self.prefill_chunk,
-                               kernel=serve.use_kernel, device=device)
+                               kernel=serve.use_kernel, tiers=serve.tiers,
+                               roofline=roofline, device=device)
         self.cfg = self.core.cfg
         self.max_batch = max_batch
         self.paged = serve.paged and self.core.paged_ok
@@ -194,6 +202,22 @@ class BatchedOffloadEngine:
     @property
     def stats(self) -> EngineStats:
         return self.core.stats
+
+    def dispatch_summary(self) -> Dict[str, float]:
+        """Fetch-vs-ship traffic of the runs so far: ships and fetches,
+        the wire bytes of each path, and the un-overlapped stall charged
+        to the peer fetch channel (tier 2) and to the ship channel. All
+        zeros on fetch-only and single-host engines."""
+        s = self.core.stats
+        return {
+            "ships": s.ships,
+            "ship_tokens": s.ship_tokens,
+            "fetches": sum(s.fetches_by_tier.values()),
+            "ship_wire_bytes": s.ship_bytes,
+            "fetch_wire_bytes": s.fetch_bytes_by_tier.get(TIER_PEER, 0),
+            "peer_stall_s": s.stall_by_tier.get(TIER_PEER, 0.0),
+            "ship_stall_s": s.stall_by_tier.get(CHANNEL_SHIP, 0.0),
+        }
 
     def ttft(self) -> Dict[int, float]:
         """Admission-to-first-token seconds per request retired by the

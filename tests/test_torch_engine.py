@@ -198,7 +198,8 @@ def test_block_granular_admission_and_reject():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(tiers=object()), dict(replacement="learned"),
+    dict(layer_compute_s="measured"),
+    dict(replacement="learned", telemetry=object()),
     dict(telemetry=object()), dict(layer_compute_s="roofline"),
 ])
 def test_unported_knobs_raise(kw):

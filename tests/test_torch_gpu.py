@@ -338,6 +338,52 @@ def test_engine_on_card_matches_cpu(cuda, arch, paged):
     assert all(counts[k] > 0 for k in want), counts
 
 
+def test_tiered_engine_on_card_matches_single_host(cuda, tmp_path):
+    """The tiered store (peer shards, a disk spill, a tier-1 cache) with
+    auto dispatch and learned replacement on the card: the same streams
+    and routed ids as the single-host engine, ships through the ship
+    rows, and every kernel of the path launched."""
+    import hashlib
+    import json
+
+    from repro_torch.serving.expertstore import TierConfig
+    cfg = get_reduced("deepseek-v2-lite")
+    model = build_model(cfg)
+    params = model.init(device="cpu")
+    prompts = [[3, 17, 5], [99, 255, 7, 42, 11, 4, 9, 250, 33, 2]]
+    tiers = TierConfig(num_shards=4, shard_dram_experts=8, cache_experts=4,
+                       dispatch="auto", spill_dir=str(tmp_path))
+    digests, engines = [], []
+    for tc, replacement in ((None, "lru"), (tiers, "learned")):
+        reset_launch_counts()
+        serve = ServeConfig(max_batch=2, block_size=4, tiers=tc,
+                            replacement=replacement)
+        eng = BatchedOffloadEngine(model, params,
+                                   NextLayerAllPolicy(cfg.moe.num_experts),
+                                   8, serve=serve, host_bw=25e9,
+                                   roofline=(989e12, 3.35e12), device=cuda)
+        routes = []
+        step = eng.core.step
+
+        def rec(*a, step=step, routes=routes, **kw):
+            out = step(*a, **kw)
+            routes.append([[sorted(map(int, g)) for g in r] for r in out[2]])
+            return out
+        eng.core.step = rec
+        outs = eng.generate(prompts, 4, 24)
+        digests.append(hashlib.sha256(
+            json.dumps([outs, routes]).encode()).hexdigest())
+        engines.append(eng)
+    assert digests[0] == digests[1]
+    tiered = engines[1]
+    assert tiered.stats.ships > 0
+    assert tiered.stats.fetches_by_tier.get(3, 0) > 0
+    assert all(launch_counts()[k] > 0 for k in (
+        "paged_flash_decode", "expert_ffn", "topk_gating"))
+    tiered.core.store.close()
+    assert not list(tmp_path.iterdir())
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("g,h,l,n,p,slope", [

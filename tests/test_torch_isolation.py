@@ -93,11 +93,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("module", ["repro_torch.serving.workload",
                                     "repro_torch.serving.prefixcache",
-                                    "repro_torch.serving.scheduler"])
+                                    "repro_torch.serving.scheduler",
+                                    "repro_torch.serving.expertstore",
+                                    "repro_torch.launch.roofline"])
 def test_serving_modules_import_with_jax_and_reference_blocked(module):
-    """The prefix index, the workload generator and the scheduler that
-    drives them import in a process where ``jax`` and ``repro`` cannot be
-    imported at all."""
+    """The prefix index, the workload generator, the tiered expert store,
+    the roofline terms and the scheduler that drives them import in a
+    process where ``jax`` and ``repro`` cannot be imported at all."""
     import subprocess
     import sys
     path = os.path.join(PORT, *module.split(".")[1:]) + ".py"
@@ -109,3 +111,25 @@ def test_serving_modules_import_with_jax_and_reference_blocked(module):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("dispatch", ["ship", "auto"])
+def test_dispatch_needs_a_roofline(dispatch):
+    """Compute dispatch prices a ship with the computing device's peak
+    rate and memory bandwidth: no TPU default stands in for them."""
+    from repro_torch.serving.expertstore import TierConfig
+    model = build_model(get_reduced("deepseek-v2-lite"))
+    params = model.init(device="cpu")
+    tiers = TierConfig(num_shards=2, dispatch=dispatch)
+    with pytest.raises(TypeError, match="roofline"):
+        DecodeCore(model, params, 48, host_bw=100e9, tiers=tiers,
+                   device="cpu")
+    with pytest.raises(TypeError, match="roofline"):
+        OffloadEngine(model, params, None, 48, host_bw=100e9, tiers=tiers,
+                      device="cpu")
+    core = DecodeCore(model, params, 48, host_bw=100e9, tiers=tiers,
+                      roofline=(989e12, 3.35e12), device="cpu")
+    assert core.planner is not None and core.planner.mode == dispatch
+    fetch = DecodeCore(model, params, 48, host_bw=100e9,
+                       tiers=TierConfig(num_shards=2), device="cpu")
+    assert fetch.planner is None and fetch.slots.ship_slots == 0

@@ -90,6 +90,8 @@ def profiled_call(torch, cs, dev, kernel, name):
     from repro_torch.kernels import expert_ffn as ef
     shape = dict(cs.EXPERT_SHAPES[name])
     dtype = getattr(torch, shape.pop("timed", "bfloat16"))
+    if "seed" in shape:
+        gen = torch.Generator(dev).manual_seed(shape.pop("seed"))
     args = cs.expert_inputs(torch, dev, gen, dtype, **shape)
     return lambda: ef.expert_ffn(*args)
 

@@ -39,13 +39,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (and main run 2's) priced at this card's host-to-device rate, measured
    once before the phases (``measured_host_bw``, one expert's pinned
    copies);
+3'. serve telemetry: main run 1 again on its backbone with
+   ``ServeConfig.telemetry`` on; fails unless streams, routed ids,
+   launches, hits, misses, fetch bytes, steps, prefill chunks and tokens
+   and the modeled stall equal main run 1's, the telemetry's counters
+   mirror ``EngineStats``, and ``tools/check_trace.py`` accepts its Chrome
+   trace (``chiprun_out/serve_telemetry_trace.json``); reports its run
+   time beside main run 1's, the trace's size and export time, the
+   per-step and per-chunk wall profile, the predictor scoreboard and the
+   stall instants by critical tier;
 3a. parity workload: the prefix cache and preemption on the reduced
    DeepSeek-V2-Lite in float32, card against CPU, with the scheduler's
    clock replaced by ``workload.StepClock`` (one fake second per decode
    step or prefill chunk): 4 priority-1 requests sharing a 2-block prefix
    (one ending mid-block inside it) and 2 urgent arrivals that preempt;
    identical streams, routed ids, ``EngineStats``, ``PoolStats`` and
-   ``PrefixStats``;
+   ``PrefixStats``, and, with telemetry on at both sides, its
+   deterministic content (``telemetry_content``);
 3b. serve workload: main run 1's backbone (full width and depth,
    bfloat16, its routed experts pinned once in place) serving 8
    priority-1 requests that share a 64-token system prompt (32 new tokens
@@ -61,8 +71,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    disk spill, a tier-1 cache of 4, int8 cold tiers, auto fetch-vs-ship
    dispatch and learned replacement under the learned policy; identical
    streams, routed ids, ``EngineStats``, ``CacheStats``, ``StoreStats`` and
-   int8 codes (the card quantizes on the card, the CPU on the CPU), with
-   fetches from tiers 2 and 3 and ships;
+   int8 codes (the card quantizes on the card, the CPU on the CPU), and
+   telemetry's deterministic content, with fetches from tiers 2 and 3 and
+   ships;
 3d. serve tiers: main run 1's backbone (its experts pinned once in place)
    behind the tiered store: 4 shards, 384 home experts a shard in memory
    and the rest (188 experts, 3.25 GB) in a spill file under ``build/``,
@@ -141,10 +152,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    script (matmul and cuDNN), and the causal convolution is a
    shift-and-add, never a cuDNN convolution.
 
-Phases 3a-3d are named ``parity_workload``, ``serve_workload``,
-``parity_tiers`` and ``serve_tiers`` in the output; phases 4a-4f
-``pipeline``, ``main_run_trained``, ``parity_pipeline``, ``train``,
-``parity_train``, ``pipeline_trained`` and ``serve_trained``. Host memory:
+Phases 3' and 3a-3d are named ``serve_telemetry``, ``parity_workload``,
+``serve_workload``, ``parity_tiers`` and ``serve_tiers`` in the output;
+phases 4a-4f ``pipeline``, ``main_run_trained``, ``parity_pipeline``,
+``train``, ``parity_train``, ``pipeline_trained`` and ``serve_trained``.
+Host memory:
 about 32 GB for main run 2's pinned experts (each main run's pinned blocks
 are released before the next phase), 16 GB of float32 experts for parity
 run 2, and in serve_tiers' run (d) up to ~10.8 GB of int8 peer copies
@@ -153,9 +165,9 @@ beside main run 1's pinned experts. The last stdout line is ``{"ok": true,
 before that the ``{"kernels": [...]}`` line, whose ``launches`` are the
 counts of the main run that drives each kernel (Llama-4-Scout's for the
 four attention and MoE kernels, mamba2's for ``ssd_chunk``;
-``launches_by_run`` has every main run's and the serve_workload,
-serve_tiers, pipeline, main_run_trained, train, pipeline_trained and
-serve_trained phases'), and
+``launches_by_run`` has every main run's and the serve_telemetry,
+serve_workload, serve_tiers, pipeline, main_run_trained, train,
+pipeline_trained and serve_trained phases'), and
 before that ``{"launch_floor_ms": ...}`` and the phases' summaries. Details go to
 ``chiprun_out/chip_smoke.json``.
 This script imports nothing of JAX or of the reference package.
@@ -889,6 +901,36 @@ def digest(obj) -> str:
     return hashlib.sha256(json.dumps(obj).encode()).hexdigest()[:16]
 
 
+MAIN_MAX_NEW, MAIN_CACHE_LEN = 32, 128
+
+
+def drive_main(torch, np, eng, prompt_len, need, label):
+    """Serve a main run's 4 seeded prompts (``MAIN_MAX_NEW`` new tokens
+    each) through ``eng``, counting launches from zero; fails on a kernel
+    of ``need`` never launched or a malformed stream. Returns (streams,
+    routed ids, their kinds, run seconds, launches)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    vocab = eng.cfg.vocab_size
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, vocab, prompt_len).tolist() for _ in range(4)]
+    kinds = []
+    routes = record_routes(eng.core, check_finite=True, kinds=kinds)
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    outs = eng.generate(prompts, MAIN_MAX_NEW, MAIN_CACHE_LEN)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = launch_counts()
+    for name in need:
+        if launches[name] == 0:
+            fail(f"{label} never launched the {name} kernel")
+    for s in outs:
+        if len(s) != MAIN_MAX_NEW + 1 or not all(0 <= x < vocab for x in s):
+            fail(f"bad stream from the {label}: {s}")
+    return outs, routes, kinds, run_s, launches
+
+
 def main_run(torch, np, dev, arch, host_bw, predictor=None, keep=None):
     """One main run: ``arch`` at full width in bfloat16 through
     ``BatchedOffloadEngine`` with ``OnlineMoEBeyondPolicy``, holding a
@@ -900,7 +942,6 @@ def main_run(torch, np, dev, arch, host_bw, predictor=None, keep=None):
     from repro_torch.configs.base import PredictorConfig
     from repro_torch.core.policies import OnlineMoEBeyondPolicy
     from repro_torch.core.predictor import predictor_init
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.model import build_model
     from repro_torch.serving.scheduler import BatchedOffloadEngine
 
@@ -940,33 +981,16 @@ def main_run(torch, np, dev, arch, host_bw, predictor=None, keep=None):
         device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, prompt_len).tolist()
-               for _ in range(4)]
-    max_new, cache_len = 32, 128
-    kinds = []
-    routes = record_routes(eng.core, check_finite=True, kinds=kinds)
-    reset_launch_counts()
-    t1 = time.perf_counter()
-    outs = eng.generate(prompts, max_new, cache_len)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t1
-    launches = launch_counts()
-    for name in need:
-        if launches[name] == 0:
-            fail(f"{arch} main run never launched the {name} kernel")
-    for s in outs:
-        if len(s) != max_new + 1 or not all(0 <= x < cfg.vocab_size
-                                            for x in s):
-            fail(f"bad stream from the {arch} main run: {s}")
+    outs, routes, kinds, run_s, launches = drive_main(
+        torch, np, eng, prompt_len, need, f"{arch} main run")
     st = eng.stats
     generated = sum(len(s) for s in outs)
     result = {
         "config": cfg.name, "dtype": cfg.dtype, "layers": n_layers,
         "full_depth": full_depth, "depth_cut": n_layers != full_depth,
-        "kinds": list(cfg.layer_kinds()), "requests": len(prompts),
-        "prompt_len": prompt_len, "max_new": max_new,
-        "cache_len": cache_len, "max_batch": 4, "block_size": 8,
+        "kinds": list(cfg.layer_kinds()), "requests": len(outs),
+        "prompt_len": prompt_len, "max_new": MAIN_MAX_NEW,
+        "cache_len": MAIN_CACHE_LEN, "max_batch": 4, "block_size": 8,
         "prefill_chunk": 8, "capacity_slots": capacity,
         "routed_experts": n_moe * m.num_experts,
         "pinned_expert_bytes": n_moe * per_layer,
@@ -1017,6 +1041,153 @@ def main_run_trained(torch, np, dev, host_bw, handed, main1):
     result["same_streams_routes_launches_as_main_run"] = True
     result["main_run"] = {k: first[k] for k in MAIN_RUN_COUNTERS}
     return result, launches
+
+
+# telemetry's deterministic content (what a card run and a CPU run, or a
+# telemetry run and main run 1, must share): (a) every metric's total but
+# the two wall histograms, (b) every metric's point count, (c) the channel
+# tracks' events exactly (the modeled clock), (d) the request and engine
+# tracks' events without timestamps (the wall clock), (e) the scoreboard
+WALL_METRICS = ("step.wall_s", "prefill.wall_s")
+SCORE_KEYS = ("tp", "fp", "fn", "t01_hits", "t01_misses")
+
+
+def telemetry_content(tel) -> dict:
+    """(a)-(e) above from a ``Telemetry``; reads host lists only."""
+    from repro_torch.serving.telemetry import METRICS, PID_CHANNELS
+    events = tel.events()
+    total = tel.scoreboard()["total"]
+    return {
+        "totals": {n: tel.total(n) for n in sorted(METRICS)
+                   if n not in WALL_METRICS},
+        "points": {n: sum(p.count for p in tel.series(n, 1.0))
+                   for n in sorted(METRICS)},
+        "channels": [[e["tid"], e["ph"], e["name"], e["ts"], e.get("dur"),
+                      e.get("args")] for e in events
+                     if e["pid"] == PID_CHANNELS],
+        "tracks": [[e["pid"], e["tid"], e["ph"], e["name"], e.get("args")]
+                   for e in events if e["pid"] != PID_CHANNELS],
+        "score": {k: total[k] for k in SCORE_KEYS}}
+
+
+def check_same_telemetry(label, card, cpu) -> None:
+    """card/cpu: ``telemetry_content`` of the two runs."""
+    for part in cpu:
+        if card[part] != cpu[part]:
+            fail(f"{label}GPU/CPU telemetry differs in {part}")
+
+
+def export_trace(tel, path: Path, min_request_tracks: int,
+                 min_channel_tracks: int) -> dict:
+    """Write ``tel``'s Chrome trace with its scoreboard to ``path`` and
+    validate it with ``tools/check_trace.py`` in a subprocess (stdlib
+    only); fails unless it exits 0. Returns the export's figures."""
+    t0 = time.perf_counter()
+    doc = tel.to_chrome_trace()
+    doc["scoreboard"] = tel.scoreboard()
+    text = json.dumps(doc)
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(text)
+    export_s = time.perf_counter() - t0
+    check = subprocess.run(
+        [sys.executable, str(HERE / "tools" / "check_trace.py"), str(path),
+         "--min-request-tracks", str(min_request_tracks),
+         "--min-channel-tracks", str(min_channel_tracks)],
+        capture_output=True, text=True, timeout=300)
+    if check.returncode != 0:
+        fail(f"tools/check_trace.py refused {path.name}: {check.stderr}")
+    return {"events": len(doc["traceEvents"]), "trace_bytes": len(text),
+            "export_s": export_s, "check_trace": check.stdout.strip()}
+
+
+MAIN_RUN_EQUAL = ("hits", "misses", "fetch_bytes", "steps", "prefill_chunks",
+                  "prefill_tokens", "sim_stall_s")
+
+
+def serve_telemetry_run(torch, np, dev, host_bw, handed, main1):
+    """Main run 1 again with ``ServeConfig.telemetry`` on: the backbone
+    main run 1 built (``handed``: model, params, capacity; ``model.init``
+    put its routed experts in pinned host memory), the same seeded
+    predictor, prompts, 10% cache and host rate. Fails unless
+    streams, routed ids, launches and the counters of ``MAIN_RUN_EQUAL``
+    equal main run 1's (``main1``: its result and launches), the
+    telemetry's counters mirror ``EngineStats`` (hits, misses, 4 admitted
+    and retired, one ``step.wall_s`` point a step and one
+    ``prefill.wall_s`` point a chunk), and ``tools/check_trace.py``
+    accepts the trace (``chiprun_out/serve_telemetry_trace.json``)."""
+    from repro_torch.configs.base import PredictorConfig
+    from repro_torch.core.policies import OnlineMoEBeyondPolicy
+    from repro_torch.core.predictor import predictor_init
+    from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.scheduler import BatchedOffloadEngine
+    from repro_torch.serving.telemetry import PID_ENGINE, Telemetry
+
+    model, params, capacity = handed
+    cfg = model.cfg
+    pc = predictor_config(PredictorConfig, cfg)
+    pp = predictor_init(torch.Generator(dev).manual_seed(SEED + 1), pc,
+                        device=dev)
+    tel = Telemetry()
+    eng = BatchedOffloadEngine(
+        model, params, lambda: OnlineMoEBeyondPolicy(pp, pc), capacity,
+        host_bw=host_bw, serve=ServeConfig(max_batch=4, block_size=8,
+                                           prefill_chunk=8, telemetry=tel),
+        device=dev)
+    _, prompt_len, need = MAIN_RUNS["deepseek-v2-lite"]
+    outs, routes, _, run_s, launches = drive_main(
+        torch, np, eng, prompt_len, need, "serve_telemetry run")
+    first, first_launches = main1
+    st = eng.stats
+    where = "serve_telemetry"
+    for key, got in (("stream_digest", digest(outs)),
+                     ("route_digest", digest(routes)),
+                     *((k, getattr(st, k)) for k in MAIN_RUN_EQUAL)):
+        if got != first[key]:
+            fail(f"{where}: {key} {got} differs from main run 1's "
+                 f"{first[key]}")
+    if launches != first_launches:
+        fail(f"{where}: launches {launches} differ from main run 1's "
+             f"{first_launches}")
+    content = telemetry_content(tel)
+    totals, points = content["totals"], content["points"]
+    mirrors = {"cache.hit": (totals["cache.hit"], st.hits),
+               "cache.miss": (totals["cache.miss"], st.misses),
+               "sched.admitted": (totals["sched.admitted"], len(outs)),
+               "sched.retired": (totals["sched.retired"], len(outs)),
+               "step.wall_s points": (points["step.wall_s"], st.steps),
+               "prefill.wall_s points": (points["prefill.wall_s"],
+                                         st.prefill_chunks)}
+    for name, (got, want) in mirrors.items():
+        if got != want:
+            fail(f"{where}: telemetry {name} {got} != {want}")
+    trace = export_trace(tel, HERE / "chiprun_out"
+                         / "serve_telemetry_trace.json",
+                         min_request_tracks=len(outs), min_channel_tracks=1)
+    stalls = {}
+    for e in tel.events():
+        if e["pid"] == PID_ENGINE and e["name"] == "stall":
+            row = stalls.setdefault(str(e["args"]["critical_tier"]),
+                                    {"n": 0, "stall_s": 0.0})
+            row["n"] += 1
+            row["stall_s"] += e["args"]["stall_s"]
+    by_name = {}
+    for e in tel.events():
+        by_name[e["name"]] = by_name.get(e["name"], 0) + 1
+    score = tel.scoreboard()["total"]
+    del eng, pp
+    return {"config": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+            "requests": len(outs), "capacity_slots": capacity,
+            "host_bw_bytes_per_s": host_bw, "run_s": run_s,
+            "main_run_s": first["run_s"],
+            "overhead": run_s / first["run_s"] - 1.0,
+            "same_as_main_run": list(MAIN_RUN_EQUAL) + [
+                "stream_digest", "route_digest", "launches"],
+            "events_by_name": by_name, **trace,
+            "step_wall_s": tel.hist("step.wall_s"),
+            "prefill_wall_s": tel.hist("prefill.wall_s"),
+            "scoreboard_total": score,
+            "stall_instants_by_critical_tier": stalls,
+            "totals": totals, "launches": launches}, launches
 
 
 # the parity runs' modeled host-to-device rate: one value on both sides
@@ -1109,6 +1280,7 @@ def parity_run_workload(torch, np, dev):
     from repro_torch.models.model import build_model
     from repro_torch.serving import scheduler
     from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.telemetry import Telemetry
     from repro_torch.serving.workload import SLO, StepClock, WorkloadRequest
 
     cfg = get_reduced("deepseek-v2-lite")          # float32
@@ -1131,14 +1303,15 @@ def parity_run_workload(torch, np, dev):
           + [WorkloadRequest(at, p, 4, priority=0, seed=10 + i,
                              slo=SLO(ttft_s=4.0))
              for i, (at, p) in enumerate(urgent)])
-    serve = ServeConfig(max_batch=2, block_size=8, prefill_chunk=8,
-                        layer_compute_s=2e-4, prefix_cache=True,
-                        preemption=True)
+    knobs = dict(max_batch=2, block_size=8, prefill_chunk=8,
+                 layer_compute_s=2e-4, prefix_cache=True, preemption=True)
     runs = {}
     for where, pp in (("card", pp_gpu), ("cpu", pp_cpu)):
+        tel = Telemetry()
         eng = scheduler.BatchedOffloadEngine(
             model, params, lambda pp=pp: OnlineMoEBeyondPolicy(pp, pc), 16,
-            host_bw=PARITY_HOST_BW, serve=serve,
+            host_bw=PARITY_HOST_BW,
+            serve=ServeConfig(telemetry=tel, **knobs),
             device=dev if where == "card" else "cpu")
         routes = record_routes(eng.core, check_finite=True)
         reset_launch_counts()
@@ -1151,15 +1324,16 @@ def parity_run_workload(torch, np, dev):
             scheduler.time = time
         runs[where] = (outs, routes, eng.stats.as_dict(),
                        eng.pool.stats.as_dict(), eng.prefix.stats.as_dict(),
-                       launch_counts())
+                       launch_counts(), telemetry_content(tel))
         del eng
     card, cpu = runs["card"], runs["cpu"]
     check_same("parity_workload: ", card[:3], cpu[:3])
+    check_same_telemetry("parity_workload: ", card[6], cpu[6])
     for i, name in ((3, "PoolStats"), (4, "PrefixStats")):
         if card[i] != cpu[i]:
             fail(f"parity_workload: GPU/CPU {name} differ: {card[i]} vs "
                  f"{cpu[i]}")
-    stats, pool, prefix, launches = card[2:]
+    stats, pool, prefix, launches = card[2:6]
     if stats["preemptions"] < 1 or prefix["hits"] < 1 \
             or pool["cow_copies"] < 1:
         fail(f"parity_workload: the traffic did not preempt, hit and copy "
@@ -1171,7 +1345,8 @@ def parity_run_workload(torch, np, dev):
     return {"layers": cfg.num_layers, "dtype": "float32",
             "requests": len(wl), "streams": card[0],
             "routing_steps": len(card[1]), "stats": stats, "pool": pool,
-            "prefix": prefix, "launches": launches, "identical": True}
+            "prefix": prefix, "launches": launches,
+            "telemetry_totals": card[6]["totals"], "identical": True}
 
 
 def serve_workload_run(torch, np, dev, host_bw, handed):
@@ -1369,6 +1544,7 @@ def parity_run_tiers(torch, np, dev):
     from repro_torch.serving.config import ServeConfig
     from repro_torch.serving.expertstore import TierConfig
     from repro_torch.serving.scheduler import BatchedOffloadEngine
+    from repro_torch.serving.telemetry import Telemetry
 
     cfg = get_reduced("deepseek-v2-lite")          # float32
     model = build_model(cfg)
@@ -1383,15 +1559,16 @@ def parity_run_tiers(torch, np, dev):
     tiers = TierConfig(num_shards=4, shard_dram_experts=8, cache_experts=4,
                        cold_dtype="int8", dispatch="auto",
                        spill_dir=str(SPILL_DIR))
-    serve = ServeConfig(max_batch=2, block_size=8, prefill_chunk=8,
-                        layer_compute_s=2e-5, tiers=tiers,
-                        replacement="learned")
+    knobs = dict(max_batch=2, block_size=8, prefill_chunk=8,
+                 layer_compute_s=2e-5, tiers=tiers, replacement="learned")
     runs, stores = {}, {}
     for where, pp in (("card", pp_gpu), ("cpu", pp_cpu)):
+        tel = Telemetry()
         eng = BatchedOffloadEngine(
             model, params, lambda pp=pp: OnlineMoEBeyondPolicy(pp, pc), 16,
             host_bw=PARITY_HOST_BW, roofline=PARITY_TIERS_ROOFLINE,
-            serve=serve, device=dev if where == "card" else "cpu")
+            serve=ServeConfig(telemetry=tel, **knobs),
+            device=dev if where == "card" else "cpu")
         routes = record_routes(eng.core, check_finite=True)
         reset_launch_counts()
         outs = eng.generate(prompts, 6, 32)
@@ -1401,7 +1578,7 @@ def parity_run_tiers(torch, np, dev):
         store = eng.core.store
         runs[where] = (outs, routes, st, eng.core.cache.stats.as_dict(),
                        store.stats.as_dict(), launch_counts(),
-                       eng.dispatch_summary())
+                       eng.dispatch_summary(), telemetry_content(tel))
         path = store._spill_path
         stores[where] = {k: v for k, v in store._cold.items()}, dict(
             store._spill_scales)
@@ -1412,6 +1589,7 @@ def parity_run_tiers(torch, np, dev):
         del eng, store
     card, cpu = runs["card"], runs["cpu"]
     check_same("parity_tiers: ", card[:3], cpu[:3])
+    check_same_telemetry("parity_tiers: ", card[7], cpu[7])
     for i, name in ((3, "CacheStats"), (4, "StoreStats")):
         if card[i] != cpu[i]:
             fail(f"parity_tiers: GPU/CPU {name} differ: {card[i]} vs "
@@ -1444,7 +1622,8 @@ def parity_run_tiers(torch, np, dev):
             "routing_steps": len(card[1]), "stats": stats,
             "store": store_stats, "dispatch": card[6],
             "cold_copies_compared": len(cold_card) + len(scales_card),
-            "launches": launches, "identical": True}
+            "launches": launches, "telemetry_totals": card[7]["totals"],
+            "identical": True}
 
 
 # serve_tiers: main run 1's backbone behind the tiered store; each run is
@@ -2763,6 +2942,10 @@ def main() -> None:
     phases = (
         ("main_run", ds,
          lambda: main_run(torch, np, dev, ds, host_bw, keep=keep), ds),
+        ("serve_telemetry", ds,
+         lambda: serve_telemetry_run(torch, np, dev, host_bw, keep[ds],
+                                     (runs["main_run"], launches[ds])),
+         "serve_telemetry"),
         ("parity_workload", ds, lambda: parity_run_workload(torch, np, dev),
          None),
         ("serve_workload", ds,
@@ -2936,6 +3119,12 @@ def main() -> None:
             "fetch_mib", "sim_stall_s", "blocking_stall_s", "overlapped_s",
             "run_s", "generated_tokens_per_s")} for r in st["runs"]]},
         "seconds": phase_s["serve_trained"]}), flush=True)
+    stl = runs["serve_telemetry"]
+    print(json.dumps({"serve_telemetry": {k: stl[k] for k in (
+        "run_s", "main_run_s", "overhead", "events", "trace_bytes",
+        "export_s", "step_wall_s", "prefill_wall_s", "scoreboard_total",
+        "stall_instants_by_critical_tier", "same_as_main_run")},
+        "seconds": phase_s["serve_telemetry"]}), flush=True)
     pw = runs["parity_workload"]
     print(json.dumps({"parity_workload": {k: pw[k] for k in (
         "identical", "requests", "streams", "stats", "pool", "prefix")},

@@ -10,7 +10,9 @@ per key, and eviction takes the unpinned key predicted furthest from
 reuse. A key no prediction covers counts as infinitely far, and LRU order
 breaks ties, so with no predictions at all the policy is exact LRU.
 Victim provenance (prediction-informed or LRU fallback) is counted in
-:class:`CacheStats`.
+:class:`CacheStats`; with a ``serving/telemetry.Telemetry`` every eviction
+is also an ``evict`` instant naming the mode that chose the victim and how
+the victim came in (demand fetch or prefetch distance).
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ class CacheStats:
 
 class ExpertCache:
     def __init__(self, capacity: int, policy: str = "lru", on_evict=None,
-                 on_insert=None, scorer=None):
+                 on_insert=None, scorer=None, telemetry=None):
         assert capacity >= 1
         if policy not in ("lru", "lfu", "learned"):
             raise ValueError(f"unknown replacement policy {policy!r}")
@@ -84,6 +86,10 @@ class ExpertCache:
         self._freq: dict[Hashable, int] = {}
         self._pins: dict[Hashable, int] = {}   # key -> refcount
         self.stats = CacheStats()
+        # optional serving.telemetry.Telemetry: evictions are reported with
+        # the victim's provenance and the mode that chose it (None records
+        # nothing)
+        self.tel = telemetry
 
     def __contains__(self, key) -> bool:
         return key in self._entries
@@ -113,20 +119,33 @@ class ExpertCache:
         evictable = (k for k in self._entries if not self.pinned(k))
         if self.policy == "lru":
             victim = next(evictable, None)
+            mode = "lru"
         elif self.policy == "lfu":           # the first minimum: LRU ties
             victim = min(evictable, key=lambda k: self._freq.get(k, 0),
                          default=None)
+            mode = "lfu"
         else:
+            informed = self.stats.evictions_learned
             victim = self._learned_victim(evictable)
+            mode = ("learned" if self.stats.evictions_learned > informed
+                    else "lru-fallback")
         if victim is None:
             raise RuntimeError(
                 f"ExpertCache thrashing: all {len(self._entries)} resident "
                 f"experts are pinned by in-flight requests; capacity "
                 f"{self.capacity} is too small for the concurrent working set")
-        del self._entries[victim]
+        provenance = self._entries.pop(victim)
         if self.on_evict is not None:
             self.on_evict(victim)
         self.stats.evictions += 1
+        if self.tel is not None and self.tel.enabled:
+            from repro_torch.serving.telemetry import PID_ENGINE
+            self.tel.counter("cache.evictions")
+            self.tel.instant(
+                PID_ENGINE, 1, "evict",
+                {"key": str(victim), "mode": mode,
+                 "provenance": ("demand" if provenance is None
+                                else f"prefetch-d{provenance}")})
 
     def _learned_victim(self, evictable):
         """The unpinned key predicted furthest from reuse; a key with no

@@ -7,9 +7,10 @@ the ROADMAP item that ports it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Optional
 
 from repro_torch.serving.expertstore import TierConfig
+from repro_torch.serving.telemetry import Telemetry
 from repro_torch.serving.workload import SLO
 
 
@@ -60,7 +61,14 @@ class ServeConfig:
         = more urgent).
       * ``default_slo`` — :class:`~repro_torch.serving.workload.SLO`
         budgets of requests that carry none (None = best effort).
-      * ``telemetry`` — must be None (ROADMAP work).
+      * ``telemetry`` — a :class:`~repro_torch.serving.telemetry.Telemetry`
+        event bus the scheduler, engine, expert store, KV pool, prefix
+        index and overlap tracker emit into: per-request span timelines,
+        the modeled fetch/ship channel timeline, counters, the per-step
+        and per-chunk wall histograms and the predictor scoreboard,
+        exported with ``to_chrome_trace()``. ``None`` (default) routes
+        every emission to the shared no-op ``NULL_TELEMETRY``: nothing is
+        recorded, and streams and stats are identical either way.
     """
     max_batch: int = 4
     paged: bool = True
@@ -76,19 +84,14 @@ class ServeConfig:
     preemption: bool = False
     default_priority: int = 0
     default_slo: Optional[SLO] = None
-    telemetry: Optional[Any] = None
+    telemetry: Optional[Telemetry] = None
 
     def check_ported(self) -> None:
         """Raise for a setting the port does not serve yet."""
         if self.replacement not in ("lru", "lfu", "learned"):
             raise ValueError(f"unknown replacement {self.replacement!r}")
-        todo = {
-            "telemetry": (self.telemetry is not None, "telemetry"),
-            "layer_compute_s": (isinstance(self.layer_compute_s, str),
-                                "the roofline/measured compute clock"),
-        }
-        for name, (bad, item) in todo.items():
-            if bad:
-                raise NotImplementedError(
-                    f"ServeConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet (ROADMAP: {item})")
+        if isinstance(self.layer_compute_s, str):
+            raise NotImplementedError(
+                f"ServeConfig.layer_compute_s={self.layer_compute_s!r} is "
+                "not ported yet (ROADMAP Queue 1 item 7: the roofline/"
+                "measured compute clock)")

@@ -23,18 +23,27 @@ slot buffer's ship rows, through the same ``expert_ffn`` kernel) instead
 of fetching its weights. ``eviction="learned"`` lets the predictions pick
 the tier-0 and tier-1 victims.
 
-``OffloadEngine`` is the batch-1 public API on the same core. Telemetry
-and the ``"roofline"``/``"measured"`` compute clocks are ROADMAP work.
+``telemetry`` (a ``serving/telemetry.Telemetry``) is a passive observer
+every subsystem of the core shares: ``decode_step``/``prefill_chunk`` wall
+spans on the engine track and per-request ``decode``/``prefill`` slices,
+the ``step.wall_s``/``prefill.wall_s`` histograms, the prefetch
+submissions, the cache's hit and miss counters and the predictor
+scoreboard (the raw next-layer prediction against the routed experts). It
+reads only what is already on the host: no hook synchronises the device.
+
+``OffloadEngine`` is the batch-1 public API on the same core. The
+``"roofline"``/``"measured"`` compute clocks are ROADMAP work.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.metrics import LatencyStats
+from repro_torch.core.metrics import LatencyStats, f1_over_window
 from repro_torch.core.policies import (PerRequestPolicy, Policy,
                                        ReuseDistanceScorer)
 from repro_torch.kernels.expert_ffn import expert_ffn
@@ -48,6 +57,8 @@ from repro_torch.serving.expertstore import (DispatchPlanner,
 from repro_torch.serving.offload import (CHANNEL_SHIP, ROUTED, TIER_HOST,
                                          TIER_PEER, HostExpertStore,
                                          OverlapTracker, make_offload_cache)
+from repro_torch.serving.telemetry import (NULL_TELEMETRY, PID_ENGINE,
+                                           PID_REQUESTS)
 
 
 def sample_token(logits: np.ndarray, temperature: float,
@@ -191,14 +202,16 @@ class DecodeCore:
     ``roofline`` = ``(peak_flops, hbm_bw)`` of the device that computes a
     shipped expert prices the ship path; it has no default either and is
     required when ``tiers.dispatch`` is not ``"fetch"``.
-    ``eviction`` is ``"lru"``, ``"lfu"`` or ``"learned"``.
+    ``eviction`` is ``"lru"``, ``"lfu"`` or ``"learned"``. ``telemetry``
+    (None: the shared no-op ``NULL_TELEMETRY``) is handed to the tracker,
+    the store and the cache.
     """
 
     def __init__(self, model, params, capacity: int, eviction: str = "lru",
                  *, host_bw: float, max_batch: int = 1,
                  layer_compute_s: float = 0.0, max_prefill_chunk: int = 8,
                  kernel: bool = True, tiers=None, roofline=None,
-                 device="cuda"):
+                 device="cuda", telemetry=None):
         cfg = model.cfg
         assert cfg.moe is not None, "offload engine needs an MoE backbone"
         if isinstance(layer_compute_s, str):
@@ -220,6 +233,13 @@ class DecodeCore:
         self.scratch_row = max_batch
         self.max_prefill_chunk = max_prefill_chunk
         self.kernel = kernel
+        # a pure observer every subsystem below shares; off, the scoreboard
+        # capture of _submit_prefetch/_moe_units is skipped entirely
+        self.tel = telemetry if telemetry is not None else NULL_TELEMETRY
+        self.tel.ensure_track(PID_ENGINE, 1, "decode driver")
+        # raw distance-0 predicted key sets per MoE ordinal (before the
+        # planner, horizon and fit filters), read by _moe_units
+        self._pred_d0: Dict[int, set] = {}
         layers = params["layers"]
         store_layers = [layers[li]["moe"] for li in self.moe_layers]
         # learned replacement: one scorer for the tier-0 slots and the
@@ -231,7 +251,8 @@ class DecodeCore:
         if tiers is not None:
             self.store = TieredExpertStore(store_layers, tiers,
                                            scorer=self.scorer,
-                                           device=self.device)
+                                           device=self.device,
+                                           telemetry=self.tel)
         else:
             self.store = HostExpertStore(store_layers,
                                          pin=self.device.type == "cuda")
@@ -263,14 +284,15 @@ class DecodeCore:
             self.layers.append(_to_device(lp, self.device))
         self.params = _to_device({k: v for k, v in params.items()
                                   if k != "layers"}, self.device)
-        self.tracker = OverlapTracker(host_bw=host_bw)
+        self.tracker = OverlapTracker(host_bw=host_bw, telemetry=self.tel)
         # one step's units route to at most units * top_k distinct experts,
         # which bounds the ship rows one expert_ffn call can stage
         ship_slots = (max(max_batch, max_prefill_chunk) * cfg.moe.top_k
                       if self.planner is not None else 0)
         self.cache, self.slots = make_offload_cache(
             self.store, capacity, self.device, eviction, host_bw=host_bw,
-            tracker=self.tracker, scorer=self.scorer, ship_slots=ship_slots)
+            tracker=self.tracker, scorer=self.scorer, ship_slots=ship_slots,
+            telemetry=self.tel)
         self.stats = EngineStats()
         self.layer_compute_s = layer_compute_s
         self.dtype = self.params["tok_emb"].dtype
@@ -366,6 +388,8 @@ class DecodeCore:
         # insertion, so the distance-0 evictions see the deeper distances
         plan = []
         deep_budget, clamped = 0, False
+        tel_on = self.tel.enabled
+        raw0: set = set()
         for d, mi in enumerate(mis):
             rows = []
             if self.planner is not None:
@@ -379,6 +403,10 @@ class DecodeCore:
                 if scored:
                     pred, conf = pred
                 keys = [(mi, int(e)) for e in pred]
+                if tel_on and d == 0:
+                    # the scoreboard grades what the predictor said, not
+                    # what the filters below let through
+                    raw0.update(keys)
                 if self.scorer is not None and keys:
                     self.scorer.record(keys, distance=d)
                 if self.planner is not None:
@@ -415,6 +443,17 @@ class DecodeCore:
             for keys in rows:
                 if keys:
                     self.cache.prefetch(keys, horizon=d)
+        if tel_on:
+            self._pred_d0[mis[0]] = raw0
+            submitted = sum(len(keys) for _, rows in plan for keys in rows)
+            self.tel.counter("prefetch.submitted", submitted)
+            if clamped:
+                self.tel.counter("prefetch.clamps")
+            self.tel.instant(PID_ENGINE, 1, "prefetch",
+                             {"li_from": li_from, "window": len(mis),
+                              "submitted": submitted, "clamped": clamped,
+                              "confidence_gated":
+                                  self._conf_threshold is not None})
 
     def _ship(self, mi: int, idx_np: np.ndarray, n_real: int) -> Dict:
         """Compute dispatch: each routed expert that is not in tier 0 and
@@ -452,6 +491,23 @@ class DecodeCore:
         included, idx_np (U,k); only the first n_real units touch the
         cache. Returns (x_out, per-live-unit routed expert sets)."""
         ship_slot = self._ship(mi, idx_np, n_real)
+        tel_on = self.tel.enabled
+        miss_tier: Dict = {}
+        t01_hit = t01_miss = n_hit = n_miss = 0
+        if tel_on:
+            # predictor scoreboard: the raw distance-0 prediction against
+            # the experts the router used on this layer visit
+            actual = {(mi, int(e)) for i in range(n_real)
+                      for e in np.unique(idx_np[i])}
+            pred = self._pred_d0.pop(mi, None)
+            if pred is not None:
+                pw = f1_over_window([{e for _, e in pred}],
+                                    [{e for _, e in actual}])
+                self.tel.predictor_window(pw.tp, pw.fp, pw.fn)
+            # tiers read before any access changes residency: a miss served
+            # from the tier-1 host cache counts toward the tier-0/1 hit rate
+            miss_tier = {k: self.store.tier_of(k) for k in actual
+                         if k not in self.cache and k not in ship_slot}
         gts, pinned = [], []
         for i in range(n_real):
             gt = np.unique(idx_np[i])
@@ -463,10 +519,23 @@ class DecodeCore:
                 hit = self.cache.access(key)
                 self.stats.hits += int(hit)
                 self.stats.misses += int(not hit)
+                if tel_on:
+                    n_hit += int(hit)
+                    n_miss += int(not hit)
+                    if hit or miss_tier.get(key) == TIER_HOST:
+                        t01_hit += 1
+                    else:
+                        t01_miss += 1
                 # pin now: a later unit's demand fetch must not evict an
                 # expert this step still computes with
                 self.cache.pin(key)
                 pinned.append(key)
+        if tel_on:
+            for name, v in (("cache.hit", n_hit), ("cache.miss", n_miss),
+                            ("cache.t01_hit", t01_hit),
+                            ("cache.t01_miss", t01_miss)):
+                if v:
+                    self.tel.counter(name, v)
         self.tracker.wait({(mi, int(e)) for gt in gts for e in gt})
         slot_idx = np.zeros(idx_np.shape, np.int32)   # pad units: slot 0
         slot_of = self.slots.slot_of
@@ -558,6 +627,7 @@ class DecodeCore:
             tab_p[:n] = tables
             tab_p = torch.from_numpy(tab_p).to(dev)
 
+        t_wall = time.perf_counter()
         x = T.embed(self.params, cfg, toks_p)[:, None, :]     # (nb,1,D)
         experts_out = [[] for _ in range(n)]
         self._submit_prefetch(policy, rids, ts, 0)
@@ -590,7 +660,19 @@ class DecodeCore:
         logits = T.unembed(self.params, cfg, x).cpu().numpy()[:n, 0]
         self.stats.tokens += n
         self.stats.steps += 1
+        # the host read of the logits above ends the step's device work
+        wall = time.perf_counter() - t_wall
         self._sync_stats()
+        if self.tel.enabled:
+            t0_s = self.tel.rel(t_wall)
+            self.tel.complete(PID_ENGINE, 1, "decode_step", t0_s, wall,
+                              {"batch": n})
+            self.tel.histogram("step.wall_s", wall)
+            for rid, p in zip(rids, pos):
+                tid = int(rid) + 1
+                self.tel.ensure_track(PID_REQUESTS, tid, f"req {rid}")
+                self.tel.complete(PID_REQUESTS, tid, "decode", t0_s, wall,
+                                  {"pos": int(p)})
         return logits, caches, experts_out
 
     @torch.no_grad()
@@ -616,6 +698,7 @@ class DecodeCore:
         tab = torch.from_numpy(np.asarray(table, np.int32)).to(dev)
         embeddings = self._tok_emb_np[np.asarray(tokens, np.int64)]
 
+        t_wall = time.perf_counter()
         x = T.embed(self.params, cfg, toks_p)[None]            # (1,cb,D)
         experts_out: List[List[np.ndarray]] = []
         self._submit_prefetch(policy, [rid], [t0], 0)
@@ -645,7 +728,17 @@ class DecodeCore:
         self.stats.tokens += n
         self.stats.prefill_tokens += n
         self.stats.prefill_chunks += 1
+        wall = time.perf_counter() - t_wall
         self._sync_stats()
+        if self.tel.enabled:
+            t0_s = self.tel.rel(t_wall)
+            tid = int(rid) + 1
+            self.tel.ensure_track(PID_REQUESTS, tid, f"req {rid}")
+            self.tel.complete(PID_REQUESTS, tid, "prefill", t0_s, wall,
+                              {"t0": int(t0), "n": n})
+            self.tel.complete(PID_ENGINE, 1, "prefill_chunk", t0_s, wall,
+                              {"rid": int(rid), "n": n})
+            self.tel.histogram("prefill.wall_s", wall)
         return logits, caches, experts_out
 
 
@@ -657,17 +750,18 @@ class OffloadEngine:
     time, so one instance serves them all. ``device`` defaults to
     ``"cuda"``; the CPU runs the kernels' plain PyTorch versions.
     ``host_bw`` is required, and ``roofline`` with a dispatching
-    ``tiers``, as for :class:`DecodeCore`.
+    ``tiers``, as for :class:`DecodeCore`; ``telemetry`` is the core's.
     """
 
     def __init__(self, model, params, policy: Optional[Policy],
                  capacity: int, eviction: str = "lru", *, host_bw: float,
                  layer_compute_s: float = 0.0, tiers=None, roofline=None,
-                 device="cuda"):
+                 device="cuda", telemetry=None):
         self.core = DecodeCore(model, params, capacity, eviction,
                                host_bw=host_bw, max_batch=1,
                                layer_compute_s=layer_compute_s, tiers=tiers,
-                               roofline=roofline, device=device)
+                               roofline=roofline, device=device,
+                               telemetry=telemetry)
         self.cfg = self.core.cfg
         self._prp = (None if policy is None
                      else PerRequestPolicy(policy, force_shared=True))

@@ -368,11 +368,13 @@ class TieredExpertStore:
     can serve a cold key); only the modeled timeline changes.
 
     ``device`` runs the int8 codec and pins the tier-1 base on a card; it
-    defaults to ``"cuda"``, as the engines do.
+    defaults to ``"cuda"``, as the engines do. ``telemetry`` (a
+    ``serving/telemetry.Telemetry``) counts tier-1 promotions and
+    demotions.
     """
 
     def __init__(self, expert_params_per_layer, tc: TierConfig, scorer=None,
-                 device="cuda"):
+                 device="cuda", telemetry=None):
         assert tc.num_shards >= 1
         assert 0 <= tc.local_shard < tc.num_shards
         assert len(tc.horizons) == 4 and min(tc.horizons) >= 1
@@ -402,6 +404,8 @@ class TieredExpertStore:
                                        tc.seed)
         self.ledger = ResidencyLedger()
         self.stats = StoreStats()
+        # optional serving.telemetry.Telemetry (None records nothing)
+        self.tel = telemetry
         # tier-1 LRU cache of promoted peer/disk experts: each entry the
         # host form (full-precision tensors, or a Cold)
         self._cache: "OrderedDict[Key, tuple]" = OrderedDict()
@@ -600,6 +604,8 @@ class TieredExpertStore:
             if tier != TIER_HOST and self.tc.cache_experts > 0:
                 self._promote(key, form)
                 self.stats.promotions += 1
+                if self.tel is not None and self.tel.enabled:
+                    self.tel.counter("store.promotions")
         self._on_device[key] = form
         self.ledger.note_access(key)
         self.stats.count(tier, nbytes)
@@ -640,6 +646,8 @@ class TieredExpertStore:
         self._promote(key, form if form is not None
                       else self._materialize(key))
         self.stats.demotions += 1
+        if self.tel is not None and self.tel.enabled:
+            self.tel.counter("store.demotions")
 
     # -- tier-1 cache ------------------------------------------------------
     def _promote(self, key: Key, form) -> None:

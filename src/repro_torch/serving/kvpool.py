@@ -19,10 +19,9 @@ Admission control is reservation-based: the scheduler calls
 before admitting it, which guarantees that lazy growth during decode can
 never fail mid-request (no preemption needed). ``PoolStats`` tracks
 allocation traffic, the high-water mark, and admission failures — the
-fragmentation/memory numbers a benchmark reports.
-
-A copy of the reference's ``serving/kvpool.py`` without the telemetry
-observer (telemetry is ROADMAP work).
+fragmentation/memory numbers a benchmark reports. With a
+``serving/telemetry.Telemetry`` the pool reports its live-block level as
+the ``kv.blocks_in_use`` gauge.
 """
 from __future__ import annotations
 
@@ -100,7 +99,7 @@ class KVBlockPool:
     reference and only returns the block to the free list at zero.
     """
 
-    def __init__(self, num_blocks: int, block_size: int):
+    def __init__(self, num_blocks: int, block_size: int, telemetry=None):
         assert num_blocks >= 2, "need at least one block beyond scratch"
         assert block_size >= 1
         self.num_blocks = num_blocks
@@ -111,6 +110,9 @@ class KVBlockPool:
         self._ref: dict[int, int] = {}
         self._reserved = 0
         self.stats = PoolStats()
+        # optional serving.telemetry.Telemetry: alloc and the release that
+        # frees a block report the live-block level (None records nothing)
+        self.tel = telemetry
 
     # -- capacity ----------------------------------------------------------
     @property
@@ -168,6 +170,8 @@ class KVBlockPool:
         self._ref[bid] = 1
         self.stats.allocs += 1
         self.stats.high_water = max(self.stats.high_water, len(self._ref))
+        if self.tel is not None and self.tel.enabled:
+            self.tel.gauge("kv.blocks_in_use", len(self._ref))
         return bid
 
     def retain(self, bid: int) -> None:
@@ -196,6 +200,8 @@ class KVBlockPool:
             del self._ref[bid]
             self._free.append(bid)
             self.stats.releases += 1
+            if self.tel is not None and self.tel.enabled:
+                self.tel.gauge("kv.blocks_in_use", len(self._ref))
 
     def check_leaks(self, expected_in_use: int | None = None) -> None:
         """Invariant check: every block is either free or refcounted, scratch

@@ -18,7 +18,10 @@ overlap figures stay comparable with the JAX engine: one serial channel
 per storage tier (and one for shipped tokens) against a modeled compute
 clock; ``submit`` queues a transfer on its tier's channel, ``advance``
 credits compute that hides it, ``wait`` charges only the un-overlapped
-remainder as stall, attributed to the tier that finished last.
+remainder as stall, attributed to the tier that finished last. With a
+``serving/telemetry.Telemetry`` each real submission is one ``fetch`` or
+``ship`` span on its channel's track, on the modeled clock, and each wait
+that stalls is a ``stall`` instant on the engine track.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 
 from repro_torch.core.cache import ExpertCache
+from repro_torch.serving.telemetry import (NULL_TELEMETRY, PID_CHANNELS,
+                                           PID_ENGINE)
 
 Key = Tuple[int, int]  # (moe_layer_index, expert_id)
 
@@ -42,6 +47,15 @@ TIER_DEVICE, TIER_HOST, TIER_PEER, TIER_DISK = 0, 1, 2, 3
 # channel of their own, so "waiting on remote compute" is told apart from
 # "waiting on weights".
 CHANNEL_SHIP = 4
+
+# Telemetry track names of the serial channels (the tracks a Chrome-trace
+# export shows under the "channels" process)
+CHANNEL_NAMES = {
+    TIER_HOST: "tier1 host->device",
+    TIER_PEER: "tier2 peer->device",
+    TIER_DISK: "tier3 disk->device",
+    CHANNEL_SHIP: "ship tokens->peer",
+}
 
 ROUTED = ("w_gate", "w_up", "w_down")
 
@@ -107,7 +121,7 @@ class HostExpertStore:
 
 class OverlapTracker:
     """Modeled timeline of the async fetch channels against a compute
-    clock (the reference's tracker, without its telemetry).
+    clock (the reference's tracker).
 
     ``clock`` is modeled compute time. Each storage tier owns one serial
     channel: a transfer submitted at compute time t starts at max(t, the
@@ -120,10 +134,15 @@ class OverlapTracker:
     ``host_bw`` (bytes/s) prices a transfer submitted without a duration
     and has no default: the card's rate is measured, not the reference's
     TPU figure.
+
+    ``telemetry``: each real (non-coalesced) submission becomes one X event
+    on its channel's track, timed on the modeled clock (serial channels
+    keep each track's timestamps monotonic).
     """
 
-    def __init__(self, *, host_bw: float):
+    def __init__(self, *, host_bw: float, telemetry=None):
         self.host_bw = host_bw
+        self.tel = telemetry if telemetry is not None else NULL_TELEMETRY
         self.clock = 0.0
         self._channel_free: Dict[int, float] = {}  # tier -> busy-until time
         self.pending: Dict[Key, float] = {}   # key -> modeled completion time
@@ -162,6 +181,15 @@ class OverlapTracker:
         self._tier[key] = tier
         if coalesce:
             self._wire[key] = (fresh, dur, tier)
+        if self.tel.enabled:
+            self.tel.ensure_track(PID_CHANNELS, tier,
+                                  CHANNEL_NAMES.get(tier, f"tier{tier}"))
+            name = "ship" if tier == CHANNEL_SHIP else "fetch"
+            self.tel.complete(PID_CHANNELS, tier, name, fresh - dur, dur,
+                              {"key": str(key), "bytes": int(nbytes),
+                               "tier": tier})
+            self.tel.counter("ship.bytes" if tier == CHANNEL_SHIP
+                             else "fetch.bytes", int(nbytes))
         return False
 
     def drop(self, key: Key) -> None:
@@ -188,6 +216,10 @@ class OverlapTracker:
         self.stall_s += stall
         self.stall_by_tier[crit_tier] = (
             self.stall_by_tier.get(crit_tier, 0.0) + stall)
+        if self.tel.enabled and stall > 0:
+            self.tel.counter("stall.s", stall)
+            self.tel.instant(PID_ENGINE, 1, "stall",
+                             {"stall_s": stall, "critical_tier": crit_tier})
         # the stall absorbs the latest-completing transfers first (the
         # critical path); the rest of each transfer was hidden
         remaining = stall
@@ -295,12 +327,14 @@ class SlotBuffer:
 def make_offload_cache(store: HostExpertStore, capacity: int, device,
                        eviction: str = "lru", *, host_bw: float,
                        tracker: Optional[OverlapTracker] = None,
-                       scorer=None, ship_slots: int = 0):
+                       scorer=None, ship_slots: int = 0, telemetry=None):
     """(ExpertCache, SlotBuffer) wired together. ``scorer`` (a
     ``core.policies.ReuseDistanceScorer``) is required for
-    ``eviction="learned"``; ``ship_slots`` sizes the buffer's ship rows."""
+    ``eviction="learned"``; ``ship_slots`` sizes the buffer's ship rows;
+    ``telemetry`` lets the cache report evictions with their provenance."""
     buf = SlotBuffer(store, capacity, device, host_bw=host_bw,
                      tracker=tracker, ship_slots=ship_slots)
     cache = ExpertCache(capacity, eviction, on_evict=buf.release,
-                        on_insert=buf.fill, scorer=scorer)
+                        on_insert=buf.fill, scorer=scorer,
+                        telemetry=telemetry)
     return cache, buf

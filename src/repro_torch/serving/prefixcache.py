@@ -25,9 +25,8 @@ map it onto the refcounted blocks ``serving/kvpool.py`` already supports:
 
 The index stores ids, not tensors — the KV bytes live in the pool either
 way, so a cached prefix costs nothing beyond the blocks it keeps alive.
-
-A port of the reference's ``serving/prefixcache.py`` without the telemetry
-observer (telemetry is ROADMAP work, as for ``serving/kvpool.py``).
+With a ``serving/telemetry.Telemetry`` the index counts its pressure
+evictions (``prefix.evicted_blocks``).
 """
 from __future__ import annotations
 
@@ -121,7 +120,7 @@ class PrefixCache:
     """
 
     def __init__(self, pool: KVBlockPool,
-                 max_blocks: Optional[int] = None):
+                 max_blocks: Optional[int] = None, telemetry=None):
         self.pool = pool
         self.bs = pool.block_size
         self.max_blocks = max_blocks
@@ -129,6 +128,9 @@ class PrefixCache:
         self._nodes = 0
         self._tick = 0
         self.stats = PrefixStats()
+        # optional serving.telemetry.Telemetry: pressure evictions are
+        # counted per freed block (None records nothing)
+        self.tel = telemetry
 
     @property
     def cached_blocks(self) -> int:
@@ -332,4 +334,6 @@ class PrefixCache:
                 self._nodes -= 1
                 freed += 1
                 self.stats.evicted_blocks += 1
+        if freed and self.tel is not None and self.tel.enabled:
+            self.tel.counter("prefix.evicted_blocks", freed)
         return freed

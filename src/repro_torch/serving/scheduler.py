@@ -34,8 +34,12 @@ later with a token-identical stream. ``run_workload`` replays an
 open-loop workload against the clock; ``EngineStats.latency`` summarises
 TTFT and per-token percentiles, preemptions and goodput under SLO.
 
-A port of the reference's ``serving/scheduler.py`` without its telemetry
-and tiered-store hooks (ROADMAP work).
+With ``ServeConfig.telemetry`` the scheduler opens one track per request
+on the paged path: a ``queued`` span from the latest (re)queue, a
+``request`` span from admission to retirement or preemption, and
+``preempt``/``retire``/``prefix-adopt``/``prefix-extend`` instants, with
+the ``sched.*`` and ``prefix.adopted_blocks`` counters; the pool and the
+prefix index it builds report into the same ``Telemetry``.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from repro_torch.serving.engine import DecodeCore, EngineStats, sample_token
 from repro_torch.serving.kvpool import BlockTable, KVBlockPool, blocks_for
 from repro_torch.serving.offload import CHANNEL_SHIP, TIER_PEER
 from repro_torch.serving.prefixcache import PrefixCache, PrefixMatch
+from repro_torch.serving.telemetry import PID_ENGINE, PID_REQUESTS
 from repro_torch.serving.workload import SLO, WorkloadRequest
 
 
@@ -173,7 +178,10 @@ class BatchedOffloadEngine:
                                layer_compute_s=serve.layer_compute_s,
                                max_prefill_chunk=self.prefill_chunk,
                                kernel=serve.use_kernel, tiers=serve.tiers,
-                               roofline=roofline, device=device)
+                               roofline=roofline, device=device,
+                               telemetry=serve.telemetry)
+        # the core resolved None to NULL_TELEMETRY: share its choice
+        self.tel = self.core.tel
         self.cfg = self.core.cfg
         self.max_batch = max_batch
         self.paged = serve.paged and self.core.paged_ok
@@ -429,6 +437,12 @@ class BatchedOffloadEngine:
                 results[req.rid] = []
                 self.core.stats.rejected_requests += 1
                 self._finish_record(req, rejected=True)
+                if self.tel.enabled:
+                    self.tel.counter("sched.rejected")
+                    self.tel.instant(PID_ENGINE, 1, "reject",
+                                     {"rid": req.rid,
+                                      "need_blocks":
+                                          blocks_for(n_total, bs)})
                 continue
             if not self.pool.try_reserve(need):
                 # the pressure may be cached prefixes nobody holds: evict
@@ -458,6 +472,23 @@ class BatchedOffloadEngine:
                 req.admit_s = time.perf_counter()
             req.table = BlockTable(self.pool, need)
             req.lane = lane
+            if self.tel.enabled:
+                tid = req.rid + 1
+                self.tel.ensure_track(PID_REQUESTS, tid, f"req {req.rid}")
+                now_s = self.tel.now()
+                q0 = self.tel.rel(req.queued_s)
+                self.tel.complete(PID_REQUESTS, tid, "queued", q0,
+                                  max(0.0, now_s - q0),
+                                  {"priority": req.priority,
+                                   "resumed": req.preemptions > 0})
+                self.tel.begin(PID_REQUESTS, tid, "request",
+                               {"rid": req.rid,
+                                "prompt_len": len(req.prompt),
+                                "max_new": req.max_new,
+                                "priority": req.priority,
+                                "resumed": req.preemptions > 0},
+                               ts=now_s)
+                self.tel.counter("sched.admitted")
             if self._policy is not None:
                 self._policy.begin_request(req.rid)
             if match:
@@ -465,6 +496,13 @@ class BatchedOffloadEngine:
                 req.t = match.tokens             # prefill starts here
                 self.prefix.stats.hits += 1
                 self.prefix.stats.hit_tokens += match.tokens
+                if self.tel.enabled:
+                    self.tel.counter("prefix.adopted_blocks",
+                                     len(match.bids))
+                    self.tel.instant(PID_REQUESTS, req.rid + 1,
+                                     "prefix-adopt",
+                                     {"blocks": len(match.bids),
+                                      "tokens": match.tokens})
                 self._replay(req, match.experts)
             elif self.prefix is not None:
                 self.prefix.stats.misses += 1
@@ -520,6 +558,14 @@ class BatchedOffloadEngine:
         victim.preemptions += 1
         self.core.stats.preemptions += 1
         victim.queued_s = time.perf_counter()
+        if self.tel.enabled:
+            tid = victim.rid + 1
+            self.tel.instant(PID_REQUESTS, tid, "preempt",
+                             {"priority": victim.priority,
+                              "tokens_done": victim.t,
+                              "preemptions": victim.preemptions})
+            self.tel.end(PID_REQUESTS, tid, "request")
+            self.tel.counter("sched.preemptions")
         if self._policy is not None:
             # the request's policy restarts on resume; the index's
             # recorded activations are replayed into the new instance
@@ -529,6 +575,13 @@ class BatchedOffloadEngine:
     def _retire(self, lanes, req: Request, results) -> None:
         results[req.rid] = req.generated
         self._finish_record(req)
+        if self.tel.enabled:
+            tid = req.rid + 1
+            self.tel.instant(PID_REQUESTS, tid, "retire",
+                             {"tokens_out": len(req.generated),
+                              "preemptions": req.preemptions})
+            self.tel.end(PID_REQUESTS, tid, "request")
+            self.tel.counter("sched.retired")
         self._insert_prefix(req)         # index prompt blocks before release
         req.table.release()
         if self.prefix is not None:
@@ -594,6 +647,10 @@ class BatchedOffloadEngine:
             if node is None:
                 break
             req.table.adopt([node.bid])
+            if self.tel.enabled:
+                self.tel.counter("prefix.adopted_blocks")
+                self.tel.instant(PID_REQUESTS, req.rid + 1,
+                                 "prefix-extend", {"block": req.t // bs})
             end = min(req.t + bs, req.prefill_end)
             if end == req.t + bs:
                 # a whole adopted block is an allocation this request will
@@ -636,9 +693,10 @@ class BatchedOffloadEngine:
         num_blocks = (self.kv_blocks if self.kv_blocks is not None
                       else self.max_batch * table_width + 1)
         num_blocks = max(num_blocks, 2)
-        self.pool = KVBlockPool(num_blocks, bs)
+        self.pool = KVBlockPool(num_blocks, bs, telemetry=self.tel)
         # the index is per pool: block ids mean nothing across runs
-        self.prefix = (PrefixCache(self.pool, self.prefix_cache_blocks)
+        self.prefix = (PrefixCache(self.pool, self.prefix_cache_blocks,
+                                   telemetry=self.tel)
                        if self.prefix_enabled else None)
         caches = self.core.alloc_paged_caches(num_blocks, bs)
         self.kv_block_bytes = self.core.paged_block_bytes(caches)

@@ -25,6 +25,7 @@ from repro_torch.models.model import build_model as torch_build_model
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.scheduler import \
     BatchedOffloadEngine as TorchBatchedOffloadEngine
+from repro_torch.serving.telemetry import Telemetry
 
 # ragged prompts: tables end mid-block, span block boundaries, and
 # requests retire at different steps
@@ -199,8 +200,10 @@ def test_block_granular_admission_and_reject():
 
 @pytest.mark.parametrize("kw", [
     dict(layer_compute_s="measured"),
-    dict(replacement="learned", telemetry=object()),
-    dict(telemetry=object()), dict(layer_compute_s="roofline"),
+    dict(replacement="learned", telemetry=Telemetry(),
+         layer_compute_s="measured"),
+    dict(telemetry=Telemetry(), layer_compute_s="roofline"),
+    dict(layer_compute_s="roofline"),
 ])
 def test_unported_knobs_raise(kw):
     """Settings outside the ported slice fail loudly, naming the ROADMAP

@@ -790,3 +790,43 @@ def test_workload_on_card_matches_cpu(cuda, prefix, monkeypatch):
     counts = launch_counts()
     assert all(counts[k] > 0 for k in ("paged_flash_decode", "expert_ffn",
                                        "topk_gating")), counts
+
+
+def test_telemetry_on_card_is_passive_and_matches_cpu(cuda, chip_smoke,
+                                                      monkeypatch):
+    """Telemetry on the card: the same streams and ``EngineStats`` as with
+    it off, the same deterministic content as on the CPU
+    (``chip_smoke.telemetry_content``), and a trace that
+    ``tools/check_trace.py`` accepts."""
+    from repro_torch.serving.telemetry import Telemetry
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_reduced("deepseek-v2-lite")
+    model = build_model(cfg)
+    params = model.init(device="cpu")
+    prompts = [[3, 17, 5, 9, 12, 7], [99, 255, 7, 42, 11, 4], [13, 5, 8, 21],
+               [21, 8, 9, 77]]
+    runs = []
+    for dev, tel in (("cuda", Telemetry()), ("cuda", None),
+                     ("cpu", Telemetry())):
+        serve = ServeConfig(max_batch=2, block_size=4, prefix_cache=True,
+                            layer_compute_s=1e-6, telemetry=tel)
+        eng = BatchedOffloadEngine(model, params,
+                                   NextLayerAllPolicy(cfg.moe.num_experts),
+                                   8, serve=serve, host_bw=25e9, device=dev)
+        outs = eng.generate(prompts, 5, 24)
+        st = eng.stats.as_dict()
+        st.pop("latency")
+        runs.append((outs, st, tel))
+    on, off, cpu = runs
+    assert on[:2] == off[:2] == cpu[:2]
+    assert chip_smoke.telemetry_content(on[2]) == \
+        chip_smoke.telemetry_content(cpu[2])
+    doc = on[2].to_chrome_trace()
+    doc["scoreboard"] = on[2].scoreboard()
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", CHIP_SMOKE.parent / "tools" / "check_trace.py")
+    check_trace = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check_trace)
+    assert check_trace.check_artifact(doc, min_request_tracks=len(prompts),
+                                      min_channel_tracks=1) == []

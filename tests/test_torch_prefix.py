@@ -26,16 +26,19 @@ import torch
 from repro.core import policies as ref_policies
 from repro.serving import kvpool as ref_kvpool
 from repro.serving import prefixcache as ref_prefixcache
+from repro.serving import telemetry as ref_telemetry
 from repro.serving import scheduler as ref_scheduler
 from repro.serving import workload as ref_workload
 from repro.serving.config import ServeConfig as RefServeConfig
 from repro_torch.core import policies as tpol
 from repro_torch.serving import kvpool, prefixcache, scheduler, workload
 from repro_torch.serving.config import ServeConfig
+from repro_torch.serving.telemetry import PID_REQUESTS, Telemetry
 from repro_torch.serving.workload import StepClock
 
 from test_torch_engine import (_FIRST_CORE, _JIT_PROGRAMS, COUNTERS, HOST_BW,
                                TIMES, _backbone, _policies, _record)
+from test_torch_telemetry import _check_trace, assert_same_telemetry
 
 SYS = [7, 99, 23, 5, 81, 3, 250, 17, 44, 2, 9, 60]   # 3 blocks at bs 4
 TAILS = [[11, 42], [200, 9, 71, 30], [5], [88, 14, 3, 97, 21], [61, 7, 7],
@@ -416,9 +419,14 @@ def test_ring_stack_keeps_the_index_off():
 # priorities, preemption and run_workload under one fake clock
 
 
-def _open_loop(monkeypatch, make, rows, cache_len, **knobs):
+def _open_loop(monkeypatch, make, rows, cache_len, telemetry=False,
+               **knobs):
     """``rows``: (arrival, prompt, max_new, priority, seed, temperature,
-    slo) per request. Returns (engine, routed-id log, results)."""
+    slo) per request; ``telemetry`` turns on the package's own.
+    Returns (engine, routed-id log, results)."""
+    if telemetry:
+        knobs["telemetry"] = (ref_telemetry.Telemetry() if make is _reference
+                              else Telemetry())
     eng = make(None, 48, layer_compute_s=LAYER_S, **knobs)
     mod = ref_scheduler if make is _reference else scheduler
     m = ref_workload if make is _reference else workload
@@ -445,6 +453,8 @@ def _pair(monkeypatch, rows, cache_len, **knobs):
     rec = {r: dataclasses.astuple(x) for r, x in eng.records().items()}
     assert rec == {r: dataclasses.astuple(x)
                    for r, x in ref.records().items()}
+    if eng.tel.enabled:
+        assert_same_telemetry(eng.tel, ref.tel)
     return eng, got
 
 
@@ -517,9 +527,26 @@ def test_run_workload_latency_counts(monkeypatch):
             (3.0, [8, 8], 3, 0, 3, 0.0, (0.5, None)),
             (5.0, list(range(40)), 8, 1, 4, 0.0, (1000.0, None))]
     eng, got = _pair(monkeypatch, rows, 48, max_batch=2, block_size=8,
-                     kv_blocks=6, prefix_cache=True, preemption=True)
+                     kv_blocks=6, prefix_cache=True, preemption=True,
+                     telemetry=True)
     lat = eng.stats.latency
     assert (lat.n, lat.completed, lat.rejected) == (5, 4, 1)
     assert lat.preemptions == eng.stats.preemptions >= 1
     assert (lat.slo_requests, lat.slo_met) == (4, 2)
     assert got[sorted(got)[-1]] == []
+    # telemetry, on in both packages, matched (``_pair``); its view of
+    # the preemptions, the reject, the index and the pool
+    tel = eng.tel
+    assert tel.total("sched.preemptions") == eng.stats.preemptions
+    assert tel.total("sched.rejected") == 1
+    resumed = [e for e in tel.events() if e["pid"] == PID_REQUESTS
+               and e.get("args", {}).get("resumed")]
+    assert len(resumed) == 2 * eng.stats.preemptions
+    assert tel.total("prefix.adopted_blocks") == 1
+    assert tel.total("prefix.evicted_blocks") == \
+        eng.prefix.stats.evicted_blocks > 0
+    assert tel.total("kv.blocks_in_use") == eng.pool.blocks_in_use
+    # balanced spans across the preemption (a resumed request opens a new
+    # ``request`` span); the rejected request never got a track
+    assert _check_trace().check_artifact(tel.to_chrome_trace(),
+                                         min_request_tracks=4) == []

@@ -23,6 +23,8 @@ from repro.core import policies as ref_policies
 from repro.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
 from repro.serving import expertstore as ref_store
 from repro.serving import offload as ref_offload
+from repro.serving import telemetry as ref_telemetry
+from repro.serving.config import ServeConfig as RefServeConfig
 from repro.serving.engine import OffloadEngine
 from repro_torch.configs.base import PredictorConfig as TorchPredictorConfig
 from repro_torch.core import cache as tcache
@@ -30,12 +32,15 @@ from repro_torch.core import policies as tpol
 from repro_torch.launch.roofline import expert_ffn_roofline
 from repro_torch.serving import expertstore as tstore
 from repro_torch.serving import offload as toffload
+from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.engine import OffloadEngine as TorchOffloadEngine
 from repro_torch.serving.scheduler import \
     BatchedOffloadEngine as TorchBatchedOffloadEngine
+from repro_torch.serving.telemetry import Telemetry
 
 from test_torch_engine import (_FIRST_CORE, _JIT_PROGRAMS, HOST_BW, PROMPTS,
                                _backbone, _record, _reference_engine)
+from test_torch_telemetry import assert_same_telemetry
 
 ROOFLINE = (PEAK_FLOPS_BF16, HBM_BW)    # the reference's defaults
 MAX_NEW = 4
@@ -530,15 +535,18 @@ def test_batched_tiered_engine_matches_reference(case, tmp_path):
                        if c["tiers"] is not None else (None, None))
     max_batch = c.get("max_batch", 3)
     jpol, tpolicy = _policy_pair(c["policy"], cfg)
+    # telemetry on in both packages: its deterministic content must agree
+    ref_tel, tel = ref_telemetry.Telemetry(), Telemetry()
+    knobs = dict(max_batch=max_batch, block_size=4, layer_compute_s=LAYER_S,
+                 replacement=c["eviction"])
     ref = _reference_engine(model, params, jpol, c["capacity"],
-                            eviction=c["eviction"], max_batch=max_batch,
-                            block_size=4, layer_compute_s=LAYER_S,
-                            tiers=ref_tc)
+                            serve=RefServeConfig(
+                                kernel_backend="jnp", tiers=ref_tc,
+                                telemetry=ref_tel, **knobs))
     eng = TorchBatchedOffloadEngine(
-        tmodel, tparams, tpolicy, c["capacity"], c["eviction"],
-        host_bw=HOST_BW, max_batch=max_batch, block_size=4,
-        layer_compute_s=LAYER_S, tiers=port_tc, roofline=ROOFLINE,
-        device="cpu")
+        tmodel, tparams, tpolicy, c["capacity"], host_bw=HOST_BW,
+        roofline=ROOFLINE, serve=ServeConfig(tiers=port_tc, telemetry=tel,
+                                             **knobs), device="cpu")
     confidences = []
     if port_tc is not None and port_tc.deep_confidence is not None:
         scored = eng._policy.predict_batch_multi_scored
@@ -557,6 +565,7 @@ def test_batched_tiered_engine_matches_reference(case, tmp_path):
         assert log == ref_log
         _same_engine_stats(eng, ref)
         assert eng.dispatch_summary() == ref.dispatch_summary()
+        got = assert_same_telemetry(tel, ref_tel)
     finally:
         for e in (eng, ref):
             if hasattr(e.core.store, "close"):
@@ -564,22 +573,36 @@ def test_batched_tiered_engine_matches_reference(case, tmp_path):
     assert not list(tmp_path.iterdir())
     st = eng.stats
     eng.pool.check_leaks(expected_in_use=0)
+    modes = {e["args"]["mode"] for e in tel.events() if e["name"] == "evict"}
+    assert tel.total("cache.evictions") == eng.core.cache.stats.evictions
+    if c["eviction"] == "learned":
+        assert "learned" in modes
+    else:
+        assert modes <= {c["eviction"]}
+    channels = {tid for tid, *_ in got["channels"]}
     if c["tiers"] is None:
         assert st.fetches_by_tier == {1: eng.core.slots.fetch_count}
         assert st.evictions_learned > 0
+        assert channels == {1}
         return
+    store = eng.core.store.stats
+    assert tel.total("store.promotions") == store.promotions > 0
+    assert tel.total("store.demotions") == store.demotions
+    assert 3 in channels
     assert st.fetches_by_tier.get(3, 0) > 0
     dispatch = port_tc.dispatch
     if dispatch == "fetch":
         assert st.fetches_by_tier.get(2, 0) > 0 and st.ships == 0
     else:
         assert st.ships > 0 and st.stall_by_tier.get(4, 0.0) >= 0.0
+        assert 4 in channels and tel.total("ship.bytes") == st.ship_bytes
         assert eng.core.slots.ship_slots == ref.core.slots.ship_slots == \
             max(max_batch, eng.prefill_chunk) * cfg.moe.top_k
     if case == "fetch-lru":
-        assert st.deep_prefetch_hits > 0
+        assert st.deep_prefetch_hits > 0 and 2 in channels
     if case == "clamp":
         assert st.horizon_clamps > 0
+        assert tel.total("prefetch.clamps") == st.horizon_clamps
     if case == "auto-learned-int8":
         assert eng.core.store.stats.quantized_fetches > 0
         assert st.evictions_learned > 0
@@ -643,8 +666,7 @@ def test_slot_ids_past_the_buffer_raise_before_upload():
 @pytest.mark.parametrize("replacement", ["lru", "lfu", "learned"])
 def test_serve_config_takes_tiers_and_replacement(replacement, tmp_path):
     """``ServeConfig`` serves ``tiers`` and every replacement policy; only
-    telemetry and the string compute clocks stay refused."""
-    from repro_torch.serving.config import ServeConfig
+    the string compute clocks stay refused."""
     _, _, _, tmodel, tparams = _backbone()
     tc = tstore.TierConfig(num_shards=2, shard_dram_experts=10,
                            cache_experts=2, dispatch="auto",

@@ -22,7 +22,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    top-2); the three serving kernels at serve_trained's float32
    shapes on the 53.5 M backbone; and ``paged_flash_decode`` at the
    prefix cache's shape, a chunk starting mid-block beside decode lanes
-   whose tables share its first blocks), on rows with a tie across the
+   whose tables share its first blocks; and the three serving kernels at
+   main_run_236b's decode and prefill-chunk shapes: 128 heads over the
+   576-wide latent page, D 5120 / F 1536 on 48 slots, 160 experts top-6),
+   on rows with a tie across the
    k-th place, all values
    equal, and probabilities underflowed to 0; for all five, two calls on
    the same inputs must be bit-identical), in bfloat16 and float32 (the
@@ -85,6 +88,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    from peers, (c)-(d) ship, and (d)'s cold fetches move the int8 size;
    the ``expert_ffn`` check of phase 2 includes the ship rows past the
    166 slots;
+3e. main run 236B: DeepSeek-V2-236B at full width (128 heads, MLA with
+   the compressed q projection, 160 routed experts top-6, 2 shared) cut
+   to 4 of its 60 layers (1 dense, 3 MoE: 22.6 GB of routed experts in
+   pinned host memory, ~38.7 GB once the pinned allocator rounds each
+   tensor up to a power of two) in bfloat16, main run 1's setup (a 10%
+   cache of 48 slots, the seeded learned policy, 4 requests of 32 new
+   tokens), served three times on one backbone under the compute clocks
+   ``layer_compute_s`` 0.0, ``"roofline"`` and ``"measured"`` (the
+   card's bf16 peak and memory rate); fails unless streams, routed ids,
+   launches, hits, misses and fetch bytes are equal across the clocks;
+   reports each clock's times, modeled stall, mean roofline halves and
+   calibration;
+3f. parity 236B: the reduced DeepSeek-V2-236B in float32 through the
+   paged engine under ``"roofline"``, card against CPU: identical
+   streams, routed ids and every ``EngineStats`` field;
 4. on-card parity: DeepSeek-V2-Lite at full width, float32, depth cut to 3
    layers; the engine on the card and on the CPU from identical weights
    must give identical streams, routed expert ids and counters;
@@ -131,9 +149,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel launched exactly once per (MoE) layer of each step and prefill
    chunk (``paged_flash_decode`` only in the batched engine), and hits +
    misses equal the routed accesses;
-5. main run 2: full-width Llama-4-Scout in bfloat16, depth cut to 8 layers
-   (two 3:1 chunked:global groups; 32.2 GB of routed experts in pinned
-   host memory), paged engine: global layers through the block pools
+5. main run 2: full-width Llama-4-Scout in bfloat16, depth cut to 4 layers
+   (one 3:1 chunked:global group; 16.1 GB of routed experts in pinned
+   host memory; 8 layers until main_run_236b needed the time), paged
+   engine: global layers through the block pools
    (``paged_flash_decode``, GQA layout), chunked layers through contiguous
    rows (``flash_decode``), prompts streamed token by token;
 6. parity run 2: Llama-4-Scout at full width, float32, one chunked and one
@@ -152,12 +171,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    script (matmul and cuDNN), and the causal convolution is a
    shift-and-add, never a cuDNN convolution.
 
-Phases 3' and 3a-3d are named ``serve_telemetry``, ``parity_workload``,
-``serve_workload``, ``parity_tiers`` and ``serve_tiers`` in the output;
+Phases 3' and 3a-3f are named ``serve_telemetry``, ``parity_workload``,
+``serve_workload``, ``parity_tiers``, ``serve_tiers``, ``main_run_236b``
+and ``parity_236b`` in the output;
 phases 4a-4f ``pipeline``, ``main_run_trained``, ``parity_pipeline``,
 ``train``, ``parity_train``, ``pipeline_trained`` and ``serve_trained``.
 Host memory:
-about 32 GB for main run 2's pinned experts (each main run's pinned blocks
+about 26 GB for main run 2's pinned experts, ~38.7 GB for main run 236B's
+(each main run's pinned blocks
 are released before the next phase), 16 GB of float32 experts for parity
 run 2, and in serve_tiers' run (d) up to ~10.8 GB of int8 peer copies
 beside main run 1's pinned experts. The last stdout line is ``{"ok": true,
@@ -165,7 +186,8 @@ beside main run 1's pinned experts. The last stdout line is ``{"ok": true,
 before that the ``{"kernels": [...]}`` line, whose ``launches`` are the
 counts of the main run that drives each kernel (Llama-4-Scout's for the
 four attention and MoE kernels, mamba2's for ``ssd_chunk``;
-``launches_by_run`` has every main run's and the serve_telemetry,
+``launches_by_run`` has every main run's, main_run_236b's and the
+serve_telemetry,
 serve_workload, serve_tiers, pipeline, main_run_trained, train,
 pipeline_trained and serve_trained phases'), and
 before that ``{"launch_floor_ms": ...}`` and the phases' summaries. Details go to
@@ -283,7 +305,10 @@ def bound(nbytes: float, ops: float, dtype: str):
 # at decode and at a prefill chunk, 5 tokens (the 11-slot cache clamps the
 # chunk to 11 // top-2 pairs), and the prefix cache's MLA shape: an 8-token
 # chunk at positions 60-67 (it starts mid-block after a sub-block match)
-# with 3 decode lanes whose tables share the chunk table's first 7 blocks
+# with 3 decode lanes whose tables share the chunk table's first 7 blocks,
+# then main_run_236b's: DeepSeek-V2-236B's 128 heads over the same latent
+# page at decode and at a prefill chunk. A shape with a ``seed`` draws its
+# inputs from a generator of its own, so the shapes before it keep theirs
 PAGED_SHAPES = {
     "mla": dict(kvh=1, g=16, dk=576, dv=512, gqa=False, qk=192),
     "gqa": dict(kvh=8, g=5, dk=128, dv=128, gqa=True, qk=128),
@@ -296,8 +321,22 @@ PAGED_SHAPES = {
                           w=11, timed="float32"),
     "prefix_prefill": dict(kvh=1, g=16, dk=576, dv=512, gqa=False, qk=192,
                            pos_list=tuple(range(60, 68)) + (95, 90, 84),
-                           shared_prefix=(8, 7)),
+                           shared_prefix=(8, 7), seed=SEED + 9),
+    "v236_decode": dict(kvh=1, g=128, dk=576, dv=512, gqa=False, qk=192,
+                        seed=SEED + 33),
+    "v236_prefill": dict(kvh=1, g=128, dk=576, dv=512, gqa=False, qk=192,
+                         pos_list=tuple(range(56, 64)), shared_table=True,
+                         seed=SEED + 34),
 }
+
+
+def seeded(torch, dev, gen, shape: dict):
+    """(generator, keywords) of a phase-2 shape: its own generator when it
+    names a ``seed``, else the shared ``gen``."""
+    kw = dict(shape)
+    seed = kw.pop("seed", None)
+    return (gen if seed is None
+            else torch.Generator(dev).manual_seed(seed)), kw
 
 
 def check_paged(torch, F, dev, gen):
@@ -306,11 +345,8 @@ def check_paged(torch, F, dev, gen):
     from repro_torch.kernels import paged_attention as pa
     out = paged_case(torch, F, dev, gen, pa, **PAGED_SHAPES["mla"])
     for name in list(PAGED_SHAPES)[1:]:
-        # the prefix shape draws from a seed of its own: the inputs of
-        # every check after it stay those of the runs before it
-        g = (torch.Generator(dev).manual_seed(SEED + 9)
-             if name == "prefix_prefill" else gen)
-        out[name] = paged_case(torch, F, dev, g, pa, **PAGED_SHAPES[name])
+        g, kw = seeded(torch, dev, gen, PAGED_SHAPES[name])
+        out[name] = paged_case(torch, F, dev, g, pa, **kw)
     return out
 
 
@@ -502,15 +538,19 @@ def check_flash(torch, F, dev, gen):
 # whose 48 pairs name PREFILL_DISTINCT_SLOTS distinct slots: the mean per
 # call, 18.7, that main run 1 showed on an H100, which main_run reports as
 # `distinct_slots_per_expert_call`), main run 2's (Llama-4-Scout: top-1,
-# D 5120, F 8192, 12 slots), the pipeline's batch-1 trace decode (one
-# token, top-6, the layer's 64 experts as the slot buffer), and
+# D 5120, F 8192, 6 slots at 4 layers), the pipeline's batch-1 trace
+# decode (one token, top-6, the layer's 64 experts as the slot buffer), and
 # serve_trained's engines on the float32 53.5 M backbone at the 10% cache
 # (11 slots): one token (batch 1), 4 decode lanes and a 5-token prefill
-# chunk (batched)
+# chunk (batched), then main_run_236b's (DeepSeek-V2-236B: 4 lanes and an
+# 8-token chunk, top-6, D 5120, F 1536, 48 slots; the chunk's 48 pairs name
+# PREFILL_DISTINCT_SLOTS_236B distinct slots, the mean per call, 28.4, that
+# main_run_236b showed on an H100)
 PREFILL_DISTINCT_SLOTS = 19
+PREFILL_DISTINCT_SLOTS_236B = 28
 EXPERT_SHAPES = {
     "deepseek": dict(n=4, k=6, d=2048, f=1408, slots=166),
-    "llama4": dict(n=4, k=1, d=5120, f=8192, slots=12),
+    "llama4": dict(n=4, k=1, d=5120, f=8192, slots=6),
     "prefill": dict(n=8, k=6, d=2048, f=1408, slots=166,
                     distinct=PREFILL_DISTINCT_SLOTS),
     "pipeline": dict(n=1, k=6, d=2048, f=1408, slots=64),
@@ -527,6 +567,10 @@ EXPERT_SHAPES = {
     # shapes above keep their inputs
     "ship": dict(n=4, k=6, d=2048, f=1408, slots=166 + 48, ship=48,
                  seed=SEED + 24),
+    "v236_decode": dict(n=4, k=6, d=5120, f=1536, slots=48, seed=SEED + 35),
+    "v236_prefill": dict(n=8, k=6, d=5120, f=1536, slots=48,
+                         distinct=PREFILL_DISTINCT_SLOTS_236B,
+                         seed=SEED + 36),
 }
 
 
@@ -626,7 +670,8 @@ def expert_case(torch, dev, gen, n, k, d, f, slots, distinct=None,
 # the training forward's ids: the train phase's B 4 x S 1024 tokens (64
 # experts, top-6) and pipeline_trained's B 8 x S 256 (16 experts, top-2),
 # then serve_trained's batched decode (4 lanes) and prefill chunk (5
-# tokens) on the 53.5 M backbone (its batch-1 row is pipeline_trained's)
+# tokens) on the 53.5 M backbone (its batch-1 row is pipeline_trained's),
+# and main_run_236b's decode and prefill chunk (160 experts, top-6)
 TOPK_SHAPES = {
     "deepseek": dict(t=4, e=64, k=6),
     "prefill": dict(t=8, e=64, k=6),
@@ -637,6 +682,8 @@ TOPK_SHAPES = {
     "pipeline_trained": dict(t=1, e=16, k=2),
     "serve_decode": dict(t=4, e=16, k=2),
     "serve_prefill": dict(t=5, e=16, k=2),
+    "v236_decode": dict(t=4, e=160, k=6, seed=SEED + 37),
+    "v236_prefill": dict(t=8, e=160, k=6, seed=SEED + 38),
 }
 
 
@@ -645,7 +692,8 @@ def check_topk(torch, dev, gen, floor_ms):
     top level; ``floor_ms`` is this run's ``launch_floor_ms``."""
     out = topk_case(torch, dev, gen, floor_ms, **TOPK_SHAPES["deepseek"])
     for name in list(TOPK_SHAPES)[1:]:
-        out[name] = topk_case(torch, dev, gen, floor_ms, **TOPK_SHAPES[name])
+        g, kw = seeded(torch, dev, gen, TOPK_SHAPES[name])
+        out[name] = topk_case(torch, dev, g, floor_ms, **kw)
     return out
 
 
@@ -876,13 +924,22 @@ def host_available_bytes() -> int:
 
 
 # main runs: (arch, depth to cut to or None, prompt length, the kernels
-# the run must launch); each is served at full width in bfloat16
+# the run must launch); each is served at full width in bfloat16.
+# Llama-4-Scout keeps one 3:1 chunked:global group of its 48 layers (the
+# script's time limit); DeepSeek-V2-236B 4 of its 60 layers (1 dense, 3
+# MoE): a MoE layer's 160 routed experts are 7.55 GB, so 59 would pin
+# 445 GB of host memory
 MAIN_RUNS = {
     "deepseek-v2-lite": (None, 64, ("paged_flash_decode", "expert_ffn",
                                     "topk_gating")),
-    "llama4-scout-17b-a16e": (8, 32, ("paged_flash_decode", "flash_decode",
+    "llama4-scout-17b-a16e": (4, 32, ("paged_flash_decode", "flash_decode",
                                       "expert_ffn", "topk_gating")),
+    "deepseek-v2-236b": (4, 64, ("paged_flash_decode", "expert_ffn",
+                                 "topk_gating")),
 }
+# the string compute clocks' constants: this card's bf16 dense peak and
+# memory rate, the ones phase 2's bounds use
+H100_ROOFLINE = (PEAK_OPS["bfloat16"], HBM_BYTES_S)
 
 
 def release_host_memory(torch) -> None:
@@ -931,13 +988,16 @@ def drive_main(torch, np, eng, prompt_len, need, label):
     return outs, routes, kinds, run_s, launches
 
 
-def main_run(torch, np, dev, arch, host_bw, predictor=None, keep=None):
+def main_run(torch, np, dev, arch, host_bw, predictor=None, keep=None,
+             layer_compute_s=0.0, roofline=None, handed=None):
     """One main run: ``arch`` at full width in bfloat16 through
     ``BatchedOffloadEngine`` with ``OnlineMoEBeyondPolicy``, holding a
     full-size predictor drawn from a seed, or ``predictor`` = (params,
-    config) when given. With ``keep`` (a dict), the backbone is handed on
-    as ``keep[arch]`` = (model, params, capacity). Returns (result,
-    launches)."""
+    config) when given, under the compute clock ``layer_compute_s`` (a
+    string clock takes ``roofline`` = (peak_flops, hbm_bw)). With ``keep``
+    (a dict), the backbone is handed on as ``keep[arch]`` = (model,
+    params, capacity); ``handed`` serves such a backbone instead of
+    building one. Returns (result, launches)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import PredictorConfig
     from repro_torch.core.policies import OnlineMoEBeyondPolicy
@@ -951,24 +1011,30 @@ def main_run(torch, np, dev, arch, host_bw, predictor=None, keep=None):
     m = cfg.moe
     per_layer = m.num_experts * 3 * cfg.d_model * m.d_ff_expert * 2
     avail = host_available_bytes()
-    n_layers = min(cfg.num_layers, depth or cfg.num_layers)
-    # routed experts live in pinned host memory: cut depth (never widths)
-    # further only if they would not fit beside a 16 GB margin, keeping
-    # one whole block pattern so every layer kind runs
-    fit = int((avail - 16e9) // per_layer) + m.first_dense_layers
-    if fit < n_layers:
-        n_layers = max(m.first_dense_layers + max(2, len(cfg.block_pattern)),
-                       fit)
-        log(f"{arch}: depth cut to {n_layers} layers: {avail / 1e9:.1f} GB "
-            "host memory available")
-    cfg = cfg.replace(num_layers=n_layers)
-    n_moe = n_layers - m.first_dense_layers
-    capacity = max(int(0.10 * n_moe * m.num_experts), 4 * m.top_k)
     torch.cuda.reset_peak_memory_stats()     # the peak of this run's model
     t0 = time.perf_counter()
-    gen = torch.Generator(dev).manual_seed(SEED)
-    model = build_model(cfg)
-    params = model.init(gen, device=dev, expert_device="cpu")
+    if handed is None:
+        n_layers = min(cfg.num_layers, depth or cfg.num_layers)
+        # routed experts live in pinned host memory: cut depth (never
+        # widths) further only if they would not fit beside a 16 GB
+        # margin, keeping one whole block pattern so every layer kind runs
+        fit = int((avail - 16e9) // per_layer) + m.first_dense_layers
+        if fit < n_layers:
+            n_layers = max(m.first_dense_layers
+                           + max(2, len(cfg.block_pattern)), fit)
+            log(f"{arch}: depth cut to {n_layers} layers: "
+                f"{avail / 1e9:.1f} GB host memory available")
+        cfg = cfg.replace(num_layers=n_layers)
+        n_moe = n_layers - m.first_dense_layers
+        capacity = max(int(0.10 * n_moe * m.num_experts), 4 * m.top_k)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        model = build_model(cfg)
+        params = model.init(gen, device=dev, expert_device="cpu")
+    else:
+        model, params, capacity = handed
+        cfg = model.cfg
+        n_layers = cfg.num_layers
+        n_moe = n_layers - m.first_dense_layers
     if predictor is None:
         pc = predictor_config(PredictorConfig, cfg)
         pp = predictor_init(torch.Generator(dev).manual_seed(SEED + 1), pc,
@@ -978,7 +1044,7 @@ def main_run(torch, np, dev, arch, host_bw, predictor=None, keep=None):
     eng = BatchedOffloadEngine(
         model, params, lambda: OnlineMoEBeyondPolicy(pp, pc), capacity,
         host_bw=host_bw, max_batch=4, block_size=8, prefill_chunk=8,
-        device=dev)
+        layer_compute_s=layer_compute_s, roofline=roofline, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     outs, routes, kinds, run_s, launches = drive_main(
@@ -1011,10 +1077,75 @@ def main_run(torch, np, dev, arch, host_bw, predictor=None, keep=None):
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "distinct_slots_per_expert_call": distinct_slots(routes, kinds),
         "stream_digest": digest(outs), "route_digest": digest(routes),
+        "layer_compute_s": layer_compute_s, "roofline": roofline,
+        "blocking_stall_s": st.blocking_stall_s,
+        "overlapped_s": st.overlapped_s, "calib": eng.core._calib,
+        # the clock's mean (attention, FFN) half per layer before calib
+        "mean_layer_s": [sum(h) / len(h) for h in zip(*eng.core._layer_s)],
     }
     if keep is not None:
         keep[arch] = (model, params, capacity)
     del eng, params, pp
+    return result, launches
+
+
+ARCH_236B = "deepseek-v2-236b"
+# what a compute clock may not move: it only prices the modeled transfers
+CLOCK_EQUAL = ("stream_digest", "route_digest", "hits", "misses",
+               "fetch_bytes", "steps", "prefill_chunks", "prefill_tokens")
+CLOCK_REPORT = ("init_s", "run_s", "generated_tokens_per_s", "hit_rate",
+                "fetch_bytes", "sim_stall_s", "blocking_stall_s",
+                "overlapped_s", "mean_layer_s", "calib",
+                "distinct_slots_per_expert_call")
+
+
+def pinned_bytes(torch, params) -> dict:
+    """The routed experts' bytes, and what PyTorch's pinned host allocator
+    takes for them: it rounds each block up to a power of two, so a
+    2.52 GB (E, D, F) tensor of DeepSeek-V2-236B holds 4 GiB."""
+    from repro_torch.serving.offload import ROUTED
+    tensors = [lp["moe"][k] for lp in params["layers"] if "moe" in lp
+               for k in ROUTED]
+    nbytes = [t.numel() * t.element_size() for t in tensors]
+    out = {"expert_bytes": sum(nbytes),
+           "pow2_rounded_bytes": sum(1 << (n - 1).bit_length()
+                                     for n in nbytes),
+           "all_pinned": all(t.is_pinned() for t in tensors)}
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is not None:   # what the allocator holds, all blocks included
+        out["host_allocator_bytes"] = stats().get("allocated_bytes.current")
+    return out
+
+
+def main_run_236b(torch, np, dev, host_bw):
+    """DeepSeek-V2-236B at full width, 4 of its 60 layers, through
+    ``main_run``: built once, then served three times on that backbone,
+    under ``layer_compute_s`` 0.0, ``"roofline"`` and ``"measured"`` (the
+    clocks at this card's ``H100_ROOFLINE``). A clock moves no token:
+    fails unless every run's ``CLOCK_EQUAL`` entries and launches equal
+    the first's. Returns (the first run's result with every run under
+    ``clocks``, its launches)."""
+    keep = {}
+    first, launches = main_run(torch, np, dev, ARCH_236B, host_bw, keep=keep)
+    first["pinned"] = pinned_bytes(torch, keep[ARCH_236B][1])
+    clocks = {"0.0": first}
+    for clock in ("roofline", "measured"):
+        run, got = main_run(torch, np, dev, ARCH_236B, host_bw,
+                            layer_compute_s=clock, roofline=H100_ROOFLINE,
+                            handed=keep[ARCH_236B])
+        for key in CLOCK_EQUAL:
+            if run[key] != first[key]:
+                fail(f"main_run_236b {clock}: {key} {run[key]} differs from "
+                     f"the 0.0 clock's {first[key]}")
+        if got != launches:
+            fail(f"main_run_236b {clock}: launches {got} differ from the "
+                 f"0.0 clock's {launches}")
+        clocks[clock] = run
+    del keep
+    result = dict(first)
+    result["clocks"] = {c: {k: r[k] for k in CLOCK_REPORT}
+                        for c, r in clocks.items()}
+    result["same_across_clocks"] = list(CLOCK_EQUAL) + ["launches"]
     return result, launches
 
 
@@ -1249,6 +1380,62 @@ def parity_run(torch, np, dev):
     return {"layers": 3, "dtype": "float32", "streams": runs["card"][0],
             "routing_steps": len(runs["card"][1]),
             "stats": runs["card"][2], "identical": True}
+
+
+def parity_run_236b(torch, np, dev):
+    """The reduced DeepSeek-V2-236B in float32 (MLA with the compressed q
+    projection, ``q_lora_rank`` 64), card against CPU, through the paged
+    engine under the ``"roofline"`` clock at ``H100_ROOFLINE`` on both
+    sides: identical streams, routed ids and ``EngineStats`` (every field,
+    the modeled stall bit for bit), every kernel of the path launched on
+    the card."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import PredictorConfig
+    from repro_torch.core.policies import OnlineMoEBeyondPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.scheduler import BatchedOffloadEngine
+
+    cfg = get_reduced(ARCH_236B)
+    model = build_model(cfg)
+    gen = torch.Generator(dev).manual_seed(SEED + 30)
+    params = model.init(gen, device="cpu")          # drawn on the card
+    pc = predictor_config(PredictorConfig, cfg)
+    pp_gpu, pp_cpu = predictor_pair(torch, dev, pc, SEED + 31)
+    rng = np.random.default_rng(SEED + 32)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (11, 6)]
+    capacity = 2 * cfg.moe.top_k          # max_batch x top-k: every expert
+    serve = ServeConfig(max_batch=2, block_size=8, prefill_chunk=8,
+                        layer_compute_s="roofline")
+    runs = {}
+    for where, pp in (("card", pp_gpu), ("cpu", pp_cpu)):
+        reset_launch_counts()
+        eng = BatchedOffloadEngine(
+            model, params, lambda pp=pp: OnlineMoEBeyondPolicy(pp, pc),
+            capacity, host_bw=PARITY_HOST_BW, roofline=H100_ROOFLINE,
+            serve=serve, device=dev if where == "card" else "cpu")
+        routes = record_routes(eng.core, check_finite=True)
+        outs = eng.generate(prompts, 6, 32)
+        eng.pool.check_leaks(expected_in_use=0)
+        st = eng.stats.as_dict()
+        st.pop("latency")
+        runs[where] = (outs, routes, st)
+        if where == "card":
+            launches = launch_counts()
+            for name in MAIN_RUNS[ARCH_236B][2]:
+                if launches[name] == 0:
+                    fail(f"parity_236b never launched the {name} kernel")
+        del eng
+    check_same("parity_236b: ", runs["card"], runs["cpu"])
+    if not runs["card"][2]["sim_stall_s"] > 0:
+        fail("parity_236b: the roofline clock modeled no stall")
+    return {"config": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+            "q_lora_rank": cfg.mla.q_lora_rank, "capacity_slots": capacity,
+            "layer_compute_s": "roofline", "roofline": H100_ROOFLINE,
+            "streams": runs["card"][0], "routing_steps": len(runs["card"][1]),
+            "stats": runs["card"][2], "card_launches": launches,
+            "identical": True}
 
 
 # the open-loop phases: ``parity_workload`` replays one schedule on the
@@ -2956,6 +3143,12 @@ def main() -> None:
          lambda: serve_tiers_run(torch, np, dev, host_bw, keep.pop(ds),
                                  runs["main_run"]),
          "serve_tiers"),
+        # DeepSeek-V2-Lite's backbone left with serve_tiers: its pinned
+        # experts are freed before 236B's are pinned
+        ("main_run_236b", ARCH_236B,
+         lambda: main_run_236b(torch, np, dev, host_bw), ARCH_236B),
+        ("parity_236b", ARCH_236B, lambda: parity_run_236b(torch, np, dev),
+         None),
         ("parity_run", ds, lambda: parity_run(torch, np, dev), None),
         ("pipeline", ds, lambda: pipeline_run(torch, np, dev, keep),
          "pipeline"),
@@ -3048,6 +3241,12 @@ def main() -> None:
                  for shape, case in c.items() if shape.startswith("serve_")}
         if serve:               # serve_trained's engines on the 53.5 M backbone
             entry["serve_trained_shapes"] = serve
+        v236 = {shape: {"max_abs_err": case.get("bfloat16", case["float32"]),
+                        "max_abs_err_f32": case["float32"],
+                        **timing_fields(case)}
+                for shape, case in c.items() if shape.startswith("v236_")}
+        if v236:                # main_run_236b's decode and prefill chunk
+            entry["deepseek_v2_236b_shapes"] = v236
         for shape in ("long", "reduced"):   # ssd_chunk's other shapes
             if shape in c:
                 entry[f"{shape}_shape_max_abs_err"] = c[shape]
@@ -3065,6 +3264,17 @@ def main() -> None:
                       "allocated_bytes_after_phase": allocated}), flush=True)
     print(json.dumps({k: runs[k] for k in ("main_run", "main_run_2",
                                            "main_run_3")}), flush=True)
+    big = runs["main_run_236b"]
+    print(json.dumps({"main_run_236b": {k: big[k] for k in (
+        "layers", "full_depth", "capacity_slots", "routed_experts",
+        "pinned", "host_bw_bytes_per_s", "launches", "stream_digest",
+        "route_digest", "hits", "misses", "max_memory_allocated_bytes",
+        "clocks", "same_across_clocks")},
+        "seconds": phase_s["main_run_236b"]}), flush=True)
+    p236 = runs["parity_236b"]
+    print(json.dumps({"parity_236b": {k: p236[k] for k in (
+        "identical", "q_lora_rank", "streams", "stats", "card_launches")},
+        "seconds": phase_s["parity_236b"]}), flush=True)
     print(json.dumps({"parity_run_3": {k: runs["parity_run_3"][k] for k in (
         "max_abs_logit_err", "tolerance", "identical_streams")}}),
         flush=True)

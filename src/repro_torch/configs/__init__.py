@@ -1,6 +1,7 @@
-"""Architecture registry of the port: the paper's backbone, the MoE
-decoder with GQA attention and the Mamba-2 SSD model. The other
-architectures are ROADMAP work (Queue 1 item 7)."""
+"""Architecture registry of the port: the paper's backbone and its big
+sibling DeepSeek-V2-236B, the MoE decoder with GQA attention and the
+Mamba-2 SSD model. The other architectures are ROADMAP work (Queue 1
+item 8)."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +16,7 @@ from repro_torch.configs.base import (  # noqa: F401 (re-export)
 
 _ARCH_MODULES = {
     "deepseek-v2-lite": "deepseek_v2_lite",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "mamba2-130m": "mamba2_130m",
 }
@@ -23,7 +25,7 @@ _ARCH_MODULES = {
 def _mod(arch: str):
     if arch not in _ARCH_MODULES:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP Queue 1 item 7: "
+            f"arch {arch!r} is not ported yet (ROADMAP Queue 1 item 8: "
             f"the other architectures); ported: "
             f"{sorted(_ARCH_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")

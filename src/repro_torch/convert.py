@@ -10,9 +10,12 @@ chunked:global pattern of Llama-4-Scout, ``("ssd",)`` of mamba2-130m).
 Top-level leaves other than the stack (``tok_emb``, ``final_ln``,
 ``head`` unless the embeddings are tied, ``frontend_proj``) are carried
 as they are, each in its own dtype (an SSD layer's ``A_log``,
-``dt_bias`` and ``D`` stay float32 in a bfloat16 model). Layouts are kept (``w_q`` ``(D,H,qk)``, ``wq`` ``(D,H,hd)``,
-``w_uk`` ``(rank,H,n)``, experts ``(E,D,F)``/``(E,F,D)``). Predictor: the stacked ``enc`` becomes a list
-of per-layer dicts.
+``dt_bias`` and ``D`` stay float32 in a bfloat16 model). Layouts are
+kept: MLA's ``w_q`` ``(D,H,qk)``, or its compressed q projection
+``w_dq`` ``(D,r)``, ``q_ln`` ``(r,)`` and ``w_uq`` ``(r,H,qk)``
+(DeepSeek-V2-236B), ``w_uk`` ``(rank,H,n)``; GQA's ``wq`` ``(D,H,hd)``;
+experts ``(E,D,F)``/``(E,F,D)``. Predictor: the stacked ``enc`` becomes a
+list of per-layer dicts.
 """
 from __future__ import annotations
 

@@ -17,8 +17,8 @@ The reference returns new cache arrays from every write; here caches are
 updated in place (``index_put_``/``copy_``) and the same dict returned.
 :func:`sdpa_any` is the reference's whole-sequence attention (q-chunked
 when long), which MLA's full mode runs in training. The full and prefill
-modes of ``attn_apply`` and ``paged_attn_prefill`` are ROADMAP work: no
-stack the engines serve needs them.
+modes of ``attn_apply`` and ``paged_attn_prefill`` are ROADMAP work
+(Queue 1 item 8): no stack the engines serve needs them.
 """
 from __future__ import annotations
 
@@ -170,8 +170,8 @@ def attn_apply(p, cfg, kind, x, positions, mode, cache=None, pos=None,
     Returns (y (B,1,D), cache)."""
     if mode != "decode":
         raise NotImplementedError(
-            f"attn_apply mode={mode!r}: ROADMAP, GQA/local/chunked attention "
-            "and the other architectures (full/prefill attention)")
+            f"attn_apply mode={mode!r}: ROADMAP Queue 1 item 8 (the full "
+            "and prefill modes of GQA attention)")
     dev = x.device
     pos, rows = decode_lanes(pos, rows, x.shape[0], dev)
     q, k, v = _paged_qkv(p, cfg, x, positions)

@@ -80,8 +80,8 @@ def ffn_init(gen, d_model: int, d_ff: int, dtype, device):
 def ffn_apply(p, x, kind: str = "swiglu"):
     if kind != "swiglu":
         raise NotImplementedError(
-            f"ffn_kind {kind!r} (ROADMAP: GQA/local/chunked attention and "
-            "the other architectures)")
+            f"ffn_kind {kind!r}: ROADMAP Queue 1 item 8 (the other "
+            "architectures)")
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     return (F.silu(g) * u) @ p["w_down"]

@@ -1,8 +1,15 @@
-"""Multi-head Latent Attention (DeepSeek-V2): the full mode of training and
-the decode paths.
+"""Multi-head Latent Attention (DeepSeek-V2): the full and prefill modes
+and the decode paths.
+
+Queries come from a direct projection ``w_q`` (D, H, qk) when
+``q_lora_rank`` is 0 (DeepSeek-V2-Lite), else through the compressed one
+of DeepSeek-V2-236B: ``rms_norm(x @ w_dq, q_ln) @ w_uq`` with ``w_dq``
+(D, r) and ``w_uq`` (r, H, qk). Every mode projects through
+:func:`_project_q`.
 
 The full mode materialises per-head k/v from the compressed latent and
-attends with ``attention.sdpa_any``, as the reference does. Decode uses
+attends with ``attention.sdpa_any``, as the reference does; the prefill
+mode does the same and also returns the contiguous latent cache. Decode uses
 the *absorbed* formulation, so the KV cache is one latent row of
 ``kv_lora_rank + rope_head_dim`` features per token. The contiguous
 cache keeps one ``(R, cache_len, ...)`` row per request
@@ -20,6 +27,7 @@ updated in place (``index_put_``/``copy_``) and the same dict returned.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.paged_attention import paged_flash_decode
 from repro_torch.models.attention import sdpa_any
@@ -33,11 +41,7 @@ def mla_init(gen, cfg, dtype, device):
     m = cfg.mla
     d, h = cfg.d_model, cfg.num_heads
     qk = m.nope_head_dim + m.rope_head_dim
-    if m.q_lora_rank:
-        raise NotImplementedError(
-            "compressed q projection (q_lora_rank > 0): ROADMAP, GQA/local/"
-            "chunked attention and the other architectures")
-    return {
+    p = {
         "w_dkv": dense_init(gen, d, m.kv_lora_rank + m.rope_head_dim, dtype,
                             device),
         "kv_ln": rms_norm_init(m.kv_lora_rank, dtype, device),
@@ -48,15 +52,28 @@ def mla_init(gen, cfg, dtype, device):
                            device).reshape(m.kv_lora_rank, h, m.v_head_dim),
         "wo": dense_init(gen, h * m.v_head_dim, d, dtype, device).reshape(
             h, m.v_head_dim, d),
-        "w_q": dense_init(gen, d, h * qk, dtype, device).reshape(d, h, qk),
     }
+    if m.q_lora_rank:
+        p["w_dq"] = dense_init(gen, d, m.q_lora_rank, dtype, device)
+        p["q_ln"] = rms_norm_init(m.q_lora_rank, dtype, device)
+        p["w_uq"] = dense_init(gen, m.q_lora_rank, h * qk, dtype,
+                               device).reshape(m.q_lora_rank, h, qk)
+    else:
+        p["w_q"] = dense_init(gen, d, h * qk, dtype, device).reshape(d, h,
+                                                                     qk)
+    return p
 
 
 def _project_q(p, cfg, x, positions):
     m = cfg.mla
-    b, t, d = x.shape
-    w_q = p["w_q"]
-    q = (x @ w_q.reshape(d, -1)).reshape(b, t, w_q.shape[1], w_q.shape[2])
+    b, t, _ = x.shape
+    if m.q_lora_rank:
+        x = rms_norm(x @ p["w_dq"], p["q_ln"], cfg.norm_eps)
+        w_q = p["w_uq"]
+    else:
+        w_q = p["w_q"]
+    q = (x @ w_q.reshape(w_q.shape[0], -1)).reshape(b, t, w_q.shape[1],
+                                                     w_q.shape[2])
     q_nope = q[..., : m.nope_head_dim]
     q_rope = apply_rope(q[..., m.nope_head_dim:], positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -103,7 +120,8 @@ def mla_init_cache(cfg, batch, cache_len, dtype, device):
 def _mla_full(p, cfg, x, positions):
     """Causal attention over the whole sequence: per-head k/v from the
     normed latent, the rope key shared by every head, scale
-    ``(nope + rope)^-0.5``. x (B,T,D), positions (B,T) -> y (B,T,D)."""
+    ``(nope + rope)^-0.5``. x (B,T,D), positions (B,T) -> (y (B,T,D),
+    the normed latent ckv (B,T,rank), the roped key k_rope (B,T,rr))."""
     m = cfg.mla
     b, t, _ = x.shape
     h = cfg.num_heads
@@ -116,24 +134,32 @@ def _mla_full(p, cfg, x, positions):
         b, t, h, m.rope_head_dim)], -1)
     qpos = positions[0] if positions.dim() == 2 else positions
     out = sdpa_any(q, k, v, qpos, qpos, "global", cfg, causal=True)
-    return torch.einsum("bthv,hvd->btd", out, p["wo"])
+    return torch.einsum("bthv,hvd->btd", out, p["wo"]), ckv, k_rope
 
 
-def mla_apply(p, cfg, x, positions, mode, cache=None, pos=None, rows=None):
+def mla_apply(p, cfg, x, positions, mode, cache=None, pos=None, rows=None,
+              cache_len: int = 0):
     """``mode="full"``: causal attention over x (B,T,D) at positions
     (B,T), no cache; returns (y, None).
+
+    ``mode="prefill"``: the same, and the contiguous latent cache of the
+    prompt, ``{"ckv" (B,cache_len,rank), "krope" (B,cache_len,rr)}``, its
+    rows past T zero; returns (y, cache).
 
     ``mode="decode"``: one token per batch entry against its latent row:
     x (B,1,D), positions (B,1), pos an int or (B,) positions, entry ``i``
     using row ``rows[i]`` (default ``i``). The new latent is written in
     place at ``pos``, then attended with every slot ``<= pos``. Returns
     (y (B,1,D), cache)."""
-    if mode == "full":
-        return _mla_full(p, cfg, x, positions), None
+    if mode in ("full", "prefill"):
+        y, ckv, k_rope = _mla_full(p, cfg, x, positions)
+        if mode == "full":
+            return y, None
+        pad = cache_len - x.shape[1]
+        return y, {"ckv": F.pad(ckv, (0, 0, 0, pad)),
+                   "krope": F.pad(k_rope, (0, 0, 0, pad))}
     if mode != "decode":
-        raise NotImplementedError(
-            f"mla_apply mode={mode!r}: ROADMAP Queue 1 item 8 (the prefill "
-            "mode of mla_apply)")
+        raise ValueError(f"unknown mode {mode!r}")
     pos, rows = decode_lanes(pos, rows, x.shape[0], x.device)
     pos, rows = pos.long(), rows.long()
     q_nope, q_rope = _project_q(p, cfg, x, positions)

@@ -5,13 +5,14 @@ the reference facade's arguments and keep its decode state
 ``{"pos", "caches"}`` (``caches`` one entry per layer here).
 
 The facade's whole-sequence paths run the layer kinds that
-``transformer.block_apply`` ports in them: ``forward`` and ``loss_fn``
-run ``ssd`` and MLA stacks (DeepSeek-V2-Lite, with the capacity-dispatch
-MoE of training), ``prefill`` ``ssd`` stacks. ``init_decode_state`` and
-``decode_step`` also run MLA stacks on contiguous latent rows with every
-expert on the device, as trace collection does; the offloaded engines
-serve the MoE attention decoders through their per-layer row and paged
-halves.
+``transformer.block_apply`` ports in them: ``forward``, ``loss_fn`` and
+``prefill`` run ``ssd`` and MLA stacks (DeepSeek-V2-Lite and -236B, with
+the capacity-dispatch MoE of training; MLA's prefill hands
+``decode_step`` latent rows padded to ``cache_len``).
+``init_decode_state`` and ``decode_step`` also run MLA stacks on
+contiguous latent rows with every expert on the device, as trace
+collection does; the offloaded engines serve the MoE attention decoders
+through their per-layer row and paged halves.
 """
 from __future__ import annotations
 
@@ -63,7 +64,7 @@ def _xent_chunked(x, labels, unembed_fn):
 def _tokens(params, batch) -> torch.Tensor:
     if batch.get("patches") is not None:
         raise NotImplementedError(
-            "the vision early-fusion prefix: ROADMAP Queue 1 item 7")
+            "the vision early-fusion prefix: ROADMAP Queue 1 item 8")
     return torch.as_tensor(batch["tokens"], device=params["tok_emb"].device)
 
 
@@ -114,11 +115,13 @@ class Model:
     def prefill(self, params, batch, cache_len: int):
         """-> (last-position logits (B, V), decode state). Only the last
         position is unembedded: the full-vocabulary logits of a long
-        prompt are never built. ``cache_len`` sizes attention caches in
-        the reference; an SSD layer's state has no length."""
+        prompt are never built. ``cache_len`` sizes an MLA layer's latent
+        rows (the prompt's, zero past it); an SSD layer's state has no
+        length."""
         tokens = _tokens(params, batch)
         logits, caches, _ = transformer.lm_apply(
-            params, self.cfg, tokens, "prefill", last_only=True)
+            params, self.cfg, tokens, "prefill", last_only=True,
+            cache_len=cache_len)
         return logits[:, -1], {"pos": tokens.shape[1], "caches": caches}
 
     def decode_step(self, params, state, batch):
@@ -138,9 +141,10 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     """Stacks whose every layer is ``ssd`` (mamba2), and MoE decoders whose
-    layers are attention kinds (MLA, or GQA with global/local/chunked
-    masking). Dense attention decoders, ``rglru`` and encoder-decoder
-    models raise ``NotImplementedError`` naming their ROADMAP item."""
+    layers are attention kinds (MLA with a direct or a compressed q
+    projection, or GQA with global/local/chunked masking). Dense attention
+    decoders, ``rglru`` and encoder-decoder models raise
+    ``NotImplementedError`` naming their ROADMAP item (Queue 1 item 8)."""
     kinds = set(cfg.layer_kinds())
     ssm_stack = kinds == {"ssd"} and cfg.ssm is not None
     moe_attn = cfg.moe is not None and kinds <= {"mla", *transformer.GQA_KINDS}
@@ -148,5 +152,5 @@ def build_model(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"{cfg.name}: only Mamba-2 SSD stacks and MoE decoders with "
             "MLA/global/local/chunked attention are ported (ROADMAP Queue 1 "
-            "item 7: the other architectures)")
+            "item 8: the other architectures)")
     return Model(cfg)

@@ -7,10 +7,11 @@ unembed.
 Layer kinds ported: ``mla``, ``global``, ``local``, ``chunked`` (the
 engines' decode halves), ``mla`` whole blocks in full mode (training,
 capacity-dispatch MoE, the load-balance loss and routed ids in
-``extras``) and decode mode (the batch-1 decode of trace collection,
-routed ids in ``extras``) and ``ssd`` (the facade's full, prefill and
-decode modes); ``rglru`` raises ``NotImplementedError`` naming its
-ROADMAP item.
+``extras``), prefill mode (the same, returning the contiguous latent
+cache) and decode mode (the batch-1 decode of trace collection, routed
+ids in ``extras``) and ``ssd`` (the facade's full, prefill and decode
+modes); ``rglru`` raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from repro_torch.models.common import (dense_init, dtype_of, ffn_apply,
 
 Params = Dict[str, Any]
 
-_TODO_KINDS = ("layer kind {!r} is not ported yet (ROADMAP Queue 1 item 7: "
+_TODO_KINDS = ("layer kind {!r} is not ported yet (ROADMAP Queue 1 item 8: "
                "the other attention modes and architectures)")
 GQA_KINDS = ("global", "local", "chunked")
 
@@ -152,9 +153,9 @@ def block_paged_prefill(p, cfg, kind: str, x, cache, table, t0: int,
     and a stack with ring layers streams its prompts token by token."""
     if kind != "mla":
         raise NotImplementedError(
-            f"chunked prefill of layer kind {kind!r}: ROADMAP, GQA/local/"
-            "chunked attention and the other architectures "
-            "(paged_attn_prefill)")
+            f"chunked prefill of layer kind {kind!r}: ROADMAP Queue 1 item 8 "
+            "(paged_attn_prefill, the other attention modes and "
+            "architectures)")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     o, cache = mla.mla_paged_prefill(p["attn"], cfg, h, cache, table, t0,
                                      n_valid, kernel=kernel)
@@ -170,7 +171,8 @@ def block_paged_copy(cfg, kind: str, cache, src: int, dst: int):
     raise ValueError(f"layer kind {kind!r} does not page")
 
 
-def block_apply(p, cfg, kind: str, x, mode: str, cache=None, pos=None):
+def block_apply(p, cfg, kind: str, x, mode: str, cache=None, pos=None,
+                cache_len: int = 0):
     """One whole block in ``mode`` "full", "prefill" or "decode", as the
     reference's ``block_apply``. Returns (x, new_cache, extras), where an
     MoE layer's ``extras["experts"]`` holds its routed ids (B, T, k).
@@ -178,22 +180,24 @@ def block_apply(p, cfg, kind: str, x, mode: str, cache=None, pos=None):
     ``ssd`` runs in every mode (it reads neither positions nor ``pos``).
     ``mla`` runs in full mode (x (B, T, D) at positions 0..T-1, then its
     dense FFN or the capacity dispatch of :func:`moe.moe_apply`, whose
-    load-balance loss goes to ``extras["moe_aux"]``) and in decode mode:
-    x (B, 1, D) against contiguous latent rows, entry ``i`` on row ``i``
-    at position ``pos[i]`` (``pos`` a (B,) int32 tensor), then its dense
-    FFN or :func:`moe.moe_decode` with every expert on the device. The
-    other kinds serve through the engines' halves above."""
-    if kind == "mla" and mode == "full":
+    load-balance loss goes to ``extras["moe_aux"]``), in prefill mode (the
+    same, and its latent cache padded to ``cache_len`` positions) and in
+    decode mode: x (B, 1, D) against contiguous latent rows, entry ``i``
+    on row ``i`` at position ``pos[i]`` (``pos`` a (B,) int32 tensor),
+    then its dense FFN or :func:`moe.moe_decode` with every expert on the
+    device. The other kinds serve through the engines' halves above."""
+    if kind == "mla" and mode in ("full", "prefill"):
         b, t, _ = x.shape
         positions = torch.arange(t, device=x.device).expand(b, t)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        o, _ = mla.mla_apply(p["attn"], cfg, h, positions, "full")
+        o, new_cache = mla.mla_apply(p["attn"], cfg, h, positions, mode,
+                                     cache_len=cache_len)
         x = x + o
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         if "moe" in p:
             y, aux, idx = moe.moe_apply(p["moe"], cfg, h)
-            return x + y, None, {"moe_aux": aux, "experts": idx}
-        return x + ffn_apply(p["ffn"], h, cfg.ffn_kind), None, {}
+            return x + y, new_cache, {"moe_aux": aux, "experts": idx}
+        return x + ffn_apply(p["ffn"], h, cfg.ffn_kind), new_cache, {}
     if kind == "mla" and mode == "decode":
         x, cache = block_row_decode(p, cfg, kind, x, cache, None, pos)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -204,7 +208,7 @@ def block_apply(p, cfg, kind: str, x, mode: str, cache=None, pos=None):
     if kind != "ssd":
         raise NotImplementedError(
             f"block_apply of layer kind {kind!r} in mode {mode!r}: ROADMAP "
-            "Queue 1 item 7 (full and prefill attention, the other "
+            "Queue 1 item 8 (full and prefill attention, the other "
             "architectures)")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if mode == "decode":
@@ -225,15 +229,17 @@ def stack_cache_init(cfg, batch: int, cache_len: int, dtype, device) -> list:
             for kind in cfg.layer_kinds()]
 
 
-def stack_apply(layers, cfg, x, mode: str, caches=None, pos=None):
+def stack_apply(layers, cfg, x, mode: str, caches=None, pos=None,
+                cache_len: int = 0):
     """Every layer in order (the reference scans its stacked groups).
     Returns (x, new_caches, extras): one cache per layer, None in "full"
-    mode; one extras dict per layer. Prefill builds caches and reads
-    none."""
+    mode; one extras dict per layer. Prefill builds caches (attention
+    caches of ``cache_len`` positions) and reads none."""
     new_caches, extras = [], []
     for i, kind in enumerate(cfg.layer_kinds()):
         c = caches[i] if mode == "decode" else None
-        x, nc, ex = block_apply(layers[i], cfg, kind, x, mode, c, pos)
+        x, nc, ex = block_apply(layers[i], cfg, kind, x, mode, c, pos,
+                                cache_len)
         new_caches.append(nc)
         extras.append(ex)
     return x, (None if mode == "full" else new_caches), extras
@@ -298,18 +304,19 @@ def unembed(params, cfg, x):
 
 
 def lm_apply(params, cfg, tokens, mode: str = "full", caches=None,
-             last_only: bool = False, pos=None):
+             last_only: bool = False, pos=None, cache_len: int = 0):
     """Embed, every layer, unembed. Returns (logits, new_caches, extras),
     ``extras`` one dict per layer (an MoE layer's routed ids under
     ``"experts"``). In decode mode ``pos`` is the position of the tokens,
-    an int or a (B,) tensor. ``last_only`` unembeds the last position
-    alone (logits (B, 1, V)), which is all prefill returns."""
+    an int or a (B,) tensor; prefill sizes attention caches to
+    ``cache_len``. ``last_only`` unembeds the last position alone
+    (logits (B, 1, V)), which is all prefill returns."""
     x = embed(params, cfg, tokens)
     if mode == "decode" and pos is not None and not torch.is_tensor(pos):
         pos = torch.full((x.shape[0],), pos, dtype=torch.int32,
                          device=x.device)
     x, new_caches, extras = stack_apply(params["layers"], cfg, x, mode,
-                                        caches, pos)
+                                        caches, pos, cache_len)
     if last_only:
         x = x[:, -1:]
     return unembed(params, cfg, x), new_caches, extras

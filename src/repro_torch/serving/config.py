@@ -1,13 +1,12 @@
-"""Serving-engine configuration of the port (the subset of the reference's
-``ServeConfig`` this slice serves; fields keep the reference's names).
-
-A knob set outside the ported subset raises ``NotImplementedError`` naming
-the ROADMAP item that ports it.
+"""Serving-engine configuration of the port: the reference's
+``ServeConfig`` with its names, every field served, less
+``kernel_backend`` (a kernel wrapper picks its route by the tensor's
+device).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 from repro_torch.serving.expertstore import TierConfig
 from repro_torch.serving.telemetry import Telemetry
@@ -50,8 +49,13 @@ class ServeConfig:
         horizon-aware prefetch and, per ``TierConfig.dispatch``, fetch or
         ship for peer-resident experts (the engine then needs
         ``roofline``); None keeps every expert in one host's memory.
-      * ``layer_compute_s`` — modeled compute seconds per layer half of the
-        OverlapTracker's clock (a float).
+      * ``layer_compute_s`` — the OverlapTracker's modeled compute clock:
+        a float is the seconds of every layer half; ``"roofline"`` gives
+        each layer its own halves from the analytic roofline
+        (``launch/roofline.decode_layer_roofline``) and ``"measured"``
+        rescales those by an EWMA of each step's wall time over its
+        modeled total. A string clock needs the engine's ``roofline=``
+        (the device's peak rate and memory bandwidth).
       * ``preemption`` — let admission evict a strictly lower-priority
         running request when a more urgent waiter cannot get a lane or a
         block reservation (its prompt blocks are published to the prefix
@@ -80,18 +84,14 @@ class ServeConfig:
     prefix_cache_blocks: Optional[int] = None
     replacement: str = "lru"
     tiers: Optional[TierConfig] = None
-    layer_compute_s: float = 0.0
+    layer_compute_s: Union[float, str] = 0.0
     preemption: bool = False
     default_priority: int = 0
     default_slo: Optional[SLO] = None
     telemetry: Optional[Telemetry] = None
 
     def check_ported(self) -> None:
-        """Raise for a setting the port does not serve yet."""
+        """Raise for a setting no engine serves (an unknown
+        replacement)."""
         if self.replacement not in ("lru", "lfu", "learned"):
             raise ValueError(f"unknown replacement {self.replacement!r}")
-        if isinstance(self.layer_compute_s, str):
-            raise NotImplementedError(
-                f"ServeConfig.layer_compute_s={self.layer_compute_s!r} is "
-                "not ported yet (ROADMAP Queue 1 item 7: the roofline/"
-                "measured compute clock)")

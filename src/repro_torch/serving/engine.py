@@ -31,14 +31,19 @@ submissions, the cache's hit and miss counters and the predictor
 scoreboard (the raw next-layer prediction against the routed experts). It
 reads only what is already on the host: no hook synchronises the device.
 
-``OffloadEngine`` is the batch-1 public API on the same core. The
-``"roofline"``/``"measured"`` compute clocks are ROADMAP work.
+``layer_compute_s`` is the tracker's compute clock per layer half: a
+float for every half, ``"roofline"`` for each layer's own halves from
+``launch/roofline.decode_layer_roofline`` at the device's ``roofline``
+constants, or ``"measured"``, those halves rescaled after each step or
+chunk by an EWMA of its wall time over its modeled total.
+
+``OffloadEngine`` is the batch-1 public API on the same core.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -48,7 +53,8 @@ from repro_torch.core.policies import (PerRequestPolicy, Policy,
                                        ReuseDistanceScorer)
 from repro_torch.kernels.expert_ffn import expert_ffn
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.launch.roofline import expert_ffn_roofline
+from repro_torch.launch.roofline import (decode_layer_roofline,
+                                         expert_ffn_roofline)
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ffn_apply, rms_norm
@@ -199,9 +205,11 @@ class DecodeCore:
     TPU host's; on a card pass ``core.simulator.measured_host_bw``.
 
     ``tiers`` (a ``TierConfig``) swaps the host store for the tiered one.
-    ``roofline`` = ``(peak_flops, hbm_bw)`` of the device that computes a
-    shipped expert prices the ship path; it has no default either and is
-    required when ``tiers.dispatch`` is not ``"fetch"``.
+    ``roofline`` = ``(peak_flops, hbm_bw)`` of the device prices the ship
+    path (the device that computes a shipped expert) and the string
+    compute clocks (``layer_compute_s`` ``"roofline"``/``"measured"``);
+    it has no default either and is required when ``tiers.dispatch`` is
+    not ``"fetch"`` or the clock is a string.
     ``eviction`` is ``"lru"``, ``"lfu"`` or ``"learned"``. ``telemetry``
     (None: the shared no-op ``NULL_TELEMETRY``) is handed to the tracker,
     the store and the cache.
@@ -209,15 +217,22 @@ class DecodeCore:
 
     def __init__(self, model, params, capacity: int, eviction: str = "lru",
                  *, host_bw: float, max_batch: int = 1,
-                 layer_compute_s: float = 0.0, max_prefill_chunk: int = 8,
+                 layer_compute_s: Union[float, str] = 0.0,
+                 max_prefill_chunk: int = 8,
                  kernel: bool = True, tiers=None, roofline=None,
                  device="cuda", telemetry=None):
         cfg = model.cfg
         assert cfg.moe is not None, "offload engine needs an MoE backbone"
         if isinstance(layer_compute_s, str):
-            raise NotImplementedError(
-                f"layer_compute_s={layer_compute_s!r}: ROADMAP, the "
-                "roofline/measured compute clock")
+            if layer_compute_s not in ("roofline", "measured"):
+                raise ValueError(
+                    f"layer_compute_s must be a float, 'roofline' or "
+                    f"'measured', got {layer_compute_s!r}")
+            if roofline is None:
+                raise TypeError(
+                    f"layer_compute_s={layer_compute_s!r} needs roofline="
+                    "(peak_flops, hbm_bw) of the device computing the "
+                    "layers")
         if (tiers is not None and tiers.dispatch != "fetch"
                 and roofline is None):
             raise TypeError(
@@ -294,9 +309,47 @@ class DecodeCore:
             tracker=self.tracker, scorer=self.scorer, ship_slots=ship_slots,
             telemetry=self.tel)
         self.stats = EngineStats()
-        self.layer_compute_s = layer_compute_s
+        self._init_layer_compute(layer_compute_s, roofline)
         self.dtype = self.params["tok_emb"].dtype
         self._tok_emb_np = self.params["tok_emb"].float().cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def _init_layer_compute(self, layer_compute_s: Union[float, str],
+                            roofline):
+        """The OverlapTracker's compute clock per layer half: every layer
+        advances its attention half after attention and its FFN half after
+        the dense or expert FFN. A float is one time for every half;
+        ``"roofline"`` takes each layer's ``(attn_s, ffn_s)`` from
+        ``decode_layer_roofline`` at ``batch=max_batch`` and the device's
+        ``roofline`` constants; ``"measured"`` starts from those and
+        rescales them by an EWMA of each step's wall time over its modeled
+        total (:meth:`_calibrate`)."""
+        self.layer_compute_s = layer_compute_s
+        self._calib = 1.0
+        self._measure = False
+        if isinstance(layer_compute_s, str):
+            peak_flops, hbm_bw = roofline
+            self._layer_s = decode_layer_roofline(
+                self.cfg, batch=self.max_batch, peak_flops=peak_flops,
+                hbm_bw=hbm_bw)
+            self._measure = layer_compute_s == "measured"
+        else:
+            self._layer_s = [(layer_compute_s, layer_compute_s)
+                             ] * self.cfg.num_layers
+        self._step_advanced = 0.0
+
+    def _advance(self, li: int, half: int) -> None:
+        dt = self._layer_s[li][half] * self._calib
+        self.tracker.advance(dt)
+        self._step_advanced += dt
+
+    def _calibrate(self, wall_s: float) -> None:
+        """``"measured"``: move the scale toward the one that would have
+        made this step's modeled compute equal its wall time (EWMA)."""
+        if not self._measure or self._step_advanced <= 0:
+            return
+        target = self._calib * wall_s / self._step_advanced
+        self._calib = 0.7 * self._calib + 0.3 * target
 
     # ------------------------------------------------------------------
     def alloc_caches(self, cache_len: int):
@@ -559,7 +612,7 @@ class DecodeCore:
             x = x + ffn_apply(shared, h, "swiglu")
         for key in pinned:
             self.cache.unpin(key)
-        self.tracker.advance(self.layer_compute_s)    # the expert-FFN half
+        self._advance(self.moe_layers[mi], 1)     # the expert-FFN half
         if self.scorer is not None:
             self.scorer.tick()    # one MoE layer computed, one clock unit
         return x, gts
@@ -628,6 +681,7 @@ class DecodeCore:
             tab_p = torch.from_numpy(tab_p).to(dev)
 
         t_wall = time.perf_counter()
+        self._step_advanced = 0.0
         x = T.embed(self.params, cfg, toks_p)[:, None, :]     # (nb,1,D)
         experts_out = [[] for _ in range(n)]
         self._submit_prefetch(policy, rids, ts, 0)
@@ -642,7 +696,7 @@ class DecodeCore:
                 x, caches[li] = T.block_row_decode(
                     lp, cfg, kind, x, caches[li], rows_p, pos_p,
                     kernel=self.kernel)
-            self.tracker.advance(self.layer_compute_s)    # attention half
+            self._advance(li, 0)                          # attention half
             if li in self.moe_index:
                 mi = self.moe_index[li]
                 h, w, idx = self._router(lp, x)
@@ -656,12 +710,13 @@ class DecodeCore:
                 self._submit_prefetch(policy, rids, ts, li + 1)
             elif "ffn" in lp:
                 x = self._dense_ffn(lp, x)
-                self.tracker.advance(self.layer_compute_s)
+                self._advance(li, 1)
         logits = T.unembed(self.params, cfg, x).cpu().numpy()[:n, 0]
         self.stats.tokens += n
         self.stats.steps += 1
         # the host read of the logits above ends the step's device work
         wall = time.perf_counter() - t_wall
+        self._calibrate(wall)
         self._sync_stats()
         if self.tel.enabled:
             t0_s = self.tel.rel(t_wall)
@@ -699,6 +754,7 @@ class DecodeCore:
         embeddings = self._tok_emb_np[np.asarray(tokens, np.int64)]
 
         t_wall = time.perf_counter()
+        self._step_advanced = 0.0
         x = T.embed(self.params, cfg, toks_p)[None]            # (1,cb,D)
         experts_out: List[List[np.ndarray]] = []
         self._submit_prefetch(policy, [rid], [t0], 0)
@@ -707,7 +763,7 @@ class DecodeCore:
             x, caches[li] = T.block_paged_prefill(
                 lp, cfg, self.kinds[li], x, caches[li], tab, t0, n,
                 kernel=self.kernel)
-            self.tracker.advance(self.layer_compute_s)
+            self._advance(li, 0)
             if li in self.moe_index:
                 mi = self.moe_index[li]
                 h, w, idx = self._router(lp, x)                # (1,cb,...)
@@ -723,12 +779,13 @@ class DecodeCore:
                 self._submit_prefetch(policy, [rid], [t0 + n - 1], li + 1)
             elif "ffn" in lp:
                 x = self._dense_ffn(lp, x)
-                self.tracker.advance(self.layer_compute_s)
+                self._advance(li, 1)
         logits = T.unembed(self.params, cfg, x).cpu().numpy()[0, :n]
         self.stats.tokens += n
         self.stats.prefill_tokens += n
         self.stats.prefill_chunks += 1
         wall = time.perf_counter() - t_wall
+        self._calibrate(wall)
         self._sync_stats()
         if self.tel.enabled:
             t0_s = self.tel.rel(t_wall)
@@ -750,12 +807,14 @@ class OffloadEngine:
     time, so one instance serves them all. ``device`` defaults to
     ``"cuda"``; the CPU runs the kernels' plain PyTorch versions.
     ``host_bw`` is required, and ``roofline`` with a dispatching
-    ``tiers``, as for :class:`DecodeCore`; ``telemetry`` is the core's.
+    ``tiers`` or a string ``layer_compute_s``, as for :class:`DecodeCore`;
+    ``telemetry`` is the core's.
     """
 
     def __init__(self, model, params, policy: Optional[Policy],
                  capacity: int, eviction: str = "lru", *, host_bw: float,
-                 layer_compute_s: float = 0.0, tiers=None, roofline=None,
+                 layer_compute_s: Union[float, str] = 0.0, tiers=None,
+                 roofline=None,
                  device="cuda", telemetry=None):
         self.core = DecodeCore(model, params, capacity, eviction,
                                host_bw=host_bw, max_batch=1,

@@ -144,13 +144,15 @@ class BatchedOffloadEngine:
     ``DecodeCore``; so is ``roofline`` = ``(peak_flops, hbm_bw)`` when
     ``tiers`` (a ``TierConfig``) ships tokens to peer-resident experts
     (``TierConfig.dispatch`` ``"ship"``/``"auto"``; ``dispatch_summary``
-    splits the traffic). Streams do not depend on the tiers or the
+    splits the traffic) or ``layer_compute_s`` is ``"roofline"`` or
+    ``"measured"``. Streams do not depend on the tiers or the
     dispatch: a ship computes with the bytes a fetch would deliver.
     """
 
     def __init__(self, model, params, policy: PolicySpec, capacity: int,
                  eviction: str = "lru", *, host_bw: float,
-                 max_batch: int = 4, layer_compute_s: float = 0.0,
+                 max_batch: int = 4,
+                 layer_compute_s: Union[float, str] = 0.0,
                  block_size: int = 8, kv_blocks: Optional[int] = None,
                  prefill_chunk: int = 8, use_kernel: bool = True,
                  tiers=None, roofline=None,

@@ -329,10 +329,10 @@ def test_bridge_carries_llama4_tree():
 def test_build_model_takes_attention_moe_decoders_only():
     tcfg = torch_get_reduced(LLAMA4)
     assert torch_build_model(tcfg).cfg is tcfg
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
         torch_build_model(tcfg.replace(block_pattern=("rglru",)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
         torch_build_model(tcfg.replace(moe=None))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
         tattn.attn_apply(None, tcfg, "global", torch.zeros(1, 2, 8), None,
                          "prefill")

@@ -2,7 +2,8 @@
 bridged reduced DeepSeek-V2-Lite backbone (untrained ``model.init``) served
 by the reference ``BatchedOffloadEngine`` and by the port's on the CPU
 must give identical token streams, identical per-step routed expert ids
-and identical ``EngineStats`` counters, for the three ported policies."""
+and identical ``EngineStats`` counters, for the three ported policies and
+under the ``"roofline"`` and ``"measured"`` compute clocks."""
 import functools
 
 import jax
@@ -16,16 +17,22 @@ from repro.core.policies import (NextLayerAllPolicy, NoPrefetchPolicy,
 from repro.core.predictor import predictor_init
 from repro.core.tracing import moe_layer_ids
 from repro.models import build_model
+from repro.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+from repro.serving import engine as ref_engine_mod
+from repro.serving.engine import OffloadEngine
 from repro.serving.scheduler import BatchedOffloadEngine
 from repro_torch import convert
 from repro_torch.configs import get_reduced as torch_get_reduced
 from repro_torch.configs.base import PredictorConfig as TorchPredictorConfig
 from repro_torch.core import policies as tpol
 from repro_torch.models.model import build_model as torch_build_model
+from repro_torch.serving import engine as T_engine_mod
 from repro_torch.serving.config import ServeConfig
+from repro_torch.serving.engine import OffloadEngine as TorchOffloadEngine
 from repro_torch.serving.scheduler import \
     BatchedOffloadEngine as TorchBatchedOffloadEngine
 from repro_torch.serving.telemetry import Telemetry
+from repro_torch.serving.workload import StepClock
 
 # ragged prompts: tables end mid-block, span block boundaries, and
 # requests retire at different steps
@@ -198,22 +205,98 @@ def test_block_granular_admission_and_reject():
     eng.pool.check_leaks(expected_in_use=0)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(layer_compute_s="measured"),
-    dict(replacement="learned", telemetry=Telemetry(),
-         layer_compute_s="measured"),
-    dict(telemetry=Telemetry(), layer_compute_s="roofline"),
-    dict(layer_compute_s="roofline"),
-])
-def test_unported_knobs_raise(kw):
-    """Settings outside the ported slice fail loudly, naming the ROADMAP
-    item that ports them."""
-    _, _, _, tmodel, tparams = _backbone()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchBatchedOffloadEngine(tmodel, tparams, None, 48,
-                                  serve=ServeConfig(**kw), host_bw=HOST_BW,
-                                  device="cpu")
+# The compute clocks against the reference. "roofline" prices each layer
+# half from the analytic roofline at the reference's own TPU constants,
+# given to the port as roofline=; "measured" rescales those halves by each
+# step's wall time, read here from a StepClock patched in as both engine
+# modules' ``time``: every step and chunk then lasts CLOCK_DT fake seconds,
+# a few times its modeled compute, so the calibration moves.
+ROOFLINE = (PEAK_FLOPS_BF16, HBM_BW)    # the reference's defaults
+CLOCK_DT = 2e-5
+CLOCK_PROMPTS, CLOCK_NEW = PROMPTS[:3], 3
 
+
+def _same_stats_exactly(eng, ref):
+    got, want = eng.stats.as_dict(), ref.stats.as_dict()
+    got.pop("latency")
+    want.pop("latency")
+    assert got == want
+    assert eng.core.cache.stats.as_dict() == ref.core.cache.stats.as_dict()
+
+
+def _step_clocks(monkeypatch, eng, ref):
+    monkeypatch.setattr(T_engine_mod, "time", StepClock(CLOCK_DT).bind(eng))
+    monkeypatch.setattr(ref_engine_mod, "time",
+                        StepClock(CLOCK_DT).bind(ref))
+
+
+@pytest.mark.parametrize("clock,policy,replacement,telemetry", [
+    ("measured", "next-layer-all", "lru", False),
+    ("measured", "moe-beyond", "learned", True),
+    ("roofline", "next-layer-all", "lru", True),
+    ("roofline", "moe-beyond", "lru", False),
+])
+def test_compute_clock_matches_reference(clock, policy, replacement,
+                                         telemetry, monkeypatch):
+    """``ServeConfig(layer_compute_s="roofline"|"measured")`` through the
+    paged ``BatchedOffloadEngine`` of both packages: identical streams,
+    routed ids, every ``EngineStats`` field (the modeled stall exactly),
+    the calibration scale and, with telemetry on, its content."""
+    from repro.serving import telemetry as ref_telemetry
+    from repro.serving.config import ServeConfig as RefServeConfig
+    from test_torch_telemetry import assert_same_telemetry
+    cfg, model, params, tmodel, tparams = _backbone()
+    jpol, tpolicy = _policies(policy, cfg)
+    knobs = dict(max_batch=3, block_size=4, layer_compute_s=clock,
+                 replacement=replacement)
+    ref_tel, tel = ((ref_telemetry.Telemetry(), Telemetry()) if telemetry
+                    else (None, None))
+    ref = _reference_engine(model, params, jpol, 6, serve=RefServeConfig(
+        kernel_backend="jnp", telemetry=ref_tel, **knobs))
+    eng = TorchBatchedOffloadEngine(
+        tmodel, tparams, tpolicy, 6, host_bw=HOST_BW, roofline=ROOFLINE,
+        serve=ServeConfig(telemetry=tel, **knobs), device="cpu")
+    assert eng.core._layer_s == ref.core._layer_s
+    if clock == "measured":
+        _step_clocks(monkeypatch, eng, ref)
+    ref_log, log = _record(ref.core), _record(eng.core)
+    ref_out = ref.generate(CLOCK_PROMPTS, CLOCK_NEW, CACHE_LEN)
+    out = eng.generate(CLOCK_PROMPTS, CLOCK_NEW, CACHE_LEN)
+    assert out == ref_out
+    assert log == ref_log
+    _same_stats_exactly(eng, ref)
+    assert eng.core._calib == ref.core._calib
+    assert (eng.core._calib != 1.0) == (clock == "measured")
+    assert eng.stats.sim_stall_s > 0
+    if replacement == "learned":
+        assert eng.stats.evictions_learned > 0
+    if telemetry:
+        assert_same_telemetry(tel, ref_tel)
+    eng.pool.check_leaks(expected_in_use=0)
+
+
+def test_batch1_measured_clock_matches_reference(monkeypatch):
+    """The batch-1 ``OffloadEngine`` under ``"measured"``, the calibration
+    carried across two requests."""
+    cfg, model, params, tmodel, tparams = _backbone()
+    jpol, tpolicy = _policies("next-layer-all", cfg)
+    ref = OffloadEngine(model, params, jpol, 6, host_bw=HOST_BW,
+                        layer_compute_s="measured")
+    if _FIRST_CORE:
+        for name in _JIT_PROGRAMS:
+            setattr(ref.core, name, getattr(_FIRST_CORE[0], name))
+    eng = TorchOffloadEngine(tmodel, tparams, tpolicy, 6, host_bw=HOST_BW,
+                             layer_compute_s="measured", roofline=ROOFLINE,
+                             device="cpu")
+    _step_clocks(monkeypatch, eng, ref)
+    ref_log, log = _record(ref.core), _record(eng.core)
+    prompts = PROMPTS[:2]
+    ref_out = [ref.generate(p, CLOCK_NEW, CACHE_LEN) for p in prompts]
+    out = [eng.generate(p, CLOCK_NEW, CACHE_LEN) for p in prompts]
+    assert out == ref_out
+    assert log == ref_log
+    _same_stats_exactly(eng, ref)
+    assert eng.core._calib == ref.core._calib != 1.0
 
 
 @pytest.mark.parametrize("name", ["OverlapTracker", "SlotBuffer",

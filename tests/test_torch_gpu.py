@@ -338,6 +338,42 @@ def test_engine_on_card_matches_cpu(cuda, arch, paged):
     assert all(counts[k] > 0 for k in want), counts
 
 
+def test_236b_engine_on_card_matches_cpu_under_roofline_clock(cuda,
+                                                              chip_smoke):
+    """Reduced DeepSeek-V2-236B (MLA's compressed q projection) through the
+    paged engine under the ``"roofline"`` clock, on the card and on the
+    CPU from identical float32 weights (TF32 off): identical streams,
+    routed ids and every ``EngineStats`` field, the modeled stall bit for
+    bit, and every kernel of the path launched on the card."""
+    cfg = get_reduced("deepseek-v2-236b")
+    model = build_model(cfg)
+    params = model.init(device="cpu")
+    prompts = [[3, 17, 5], [99, 255, 7, 42, 11, 4, 9, 250, 33, 2]]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = []
+    try:
+        for dev in ("cpu", "cuda"):
+            reset_launch_counts()
+            eng = BatchedOffloadEngine(
+                model, params, NextLayerAllPolicy(cfg.moe.num_experts), 4,
+                serve=ServeConfig(max_batch=2, block_size=4,
+                                  layer_compute_s="roofline"),
+                host_bw=25e9, roofline=(989e12, 3.35e12), device=dev)
+            routes = chip_smoke.record_routes(eng.core)
+            outs = eng.generate(prompts, 4, 24)
+            st = eng.stats.as_dict()
+            st.pop("latency")
+            runs.append((outs, routes, st))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert runs[0] == runs[1]
+    assert runs[1][2]["sim_stall_s"] > 0
+    counts = launch_counts()
+    assert all(counts[k] > 0 for k in ("paged_flash_decode", "expert_ffn",
+                                       "topk_gating")), counts
+
+
 def test_tiered_engine_on_card_matches_single_host(cuda, tmp_path):
     """The tiered store (peer shards, a disk spill, a tier-1 cache) with
     auto dispatch and learned replacement on the card: the same streams

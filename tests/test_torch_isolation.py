@@ -95,7 +95,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                     "repro_torch.serving.prefixcache",
                                     "repro_torch.serving.scheduler",
                                     "repro_torch.serving.expertstore",
-                                    "repro_torch.launch.roofline"])
+                                    "repro_torch.launch.roofline",
+                                    "repro_torch.configs.deepseek_v2_236b"])
 def test_serving_modules_import_with_jax_and_reference_blocked(module):
     """The prefix index, the workload generator, the tiered expert store,
     the roofline terms and the scheduler that drives them import in a
@@ -133,3 +134,33 @@ def test_dispatch_needs_a_roofline(dispatch):
     fetch = DecodeCore(model, params, 48, host_bw=100e9,
                        tiers=TierConfig(num_shards=2), device="cpu")
     assert fetch.planner is None and fetch.slots.ship_slots == 0
+
+
+@pytest.mark.parametrize("clock", ["roofline", "measured"])
+def test_clock_needs_a_roofline(clock):
+    """The string compute clocks price each layer with the device's peak
+    rate and memory bandwidth: no TPU default stands in for them, and an
+    unknown clock is refused."""
+    from repro_torch.serving.config import ServeConfig
+    model = build_model(get_reduced("deepseek-v2-lite"))
+    params = model.init(device="cpu")
+    for make in (
+            lambda **kw: DecodeCore(model, params, 48, host_bw=100e9,
+                                    layer_compute_s=clock, device="cpu",
+                                    **kw),
+            lambda **kw: OffloadEngine(model, params, None, 48,
+                                       host_bw=100e9, layer_compute_s=clock,
+                                       device="cpu", **kw),
+            lambda **kw: BatchedOffloadEngine(
+                model, params, None, 48, host_bw=100e9, device="cpu",
+                serve=ServeConfig(layer_compute_s=clock), **kw)):
+        with pytest.raises(TypeError, match="roofline"):
+            make()
+        core = make(roofline=(989e12, 3.35e12))
+        core = getattr(core, "core", core)
+        assert len(core._layer_s) == model.cfg.num_layers
+        assert core._measure == (clock == "measured")
+    with pytest.raises(ValueError, match="'roofline' or 'measured'"):
+        DecodeCore(model, params, 48, host_bw=100e9,
+                   layer_compute_s=clock[:4], roofline=(989e12, 3.35e12),
+                   device="cpu")

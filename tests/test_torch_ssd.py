@@ -407,7 +407,8 @@ def test_bridge_and_own_init_keep_the_tree(dtype):
 def test_block_apply_runs_ssd_only():
     tcfg = torch_get_reduced("llama4-scout-17b-a16e")
     for mode in ("full", "prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 8"):
             tT.block_apply({}, tcfg, "global", torch.zeros(1, 2, 8), mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
         torch_build_model(tcfg.replace(moe=None))

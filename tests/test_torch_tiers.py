@@ -665,8 +665,8 @@ def test_slot_ids_past_the_buffer_raise_before_upload():
 
 @pytest.mark.parametrize("replacement", ["lru", "lfu", "learned"])
 def test_serve_config_takes_tiers_and_replacement(replacement, tmp_path):
-    """``ServeConfig`` serves ``tiers`` and every replacement policy; only
-    the string compute clocks stay refused."""
+    """``ServeConfig`` serves ``tiers`` and every replacement policy; an
+    unknown replacement is refused."""
     _, _, _, tmodel, tparams = _backbone()
     tc = tstore.TierConfig(num_shards=2, shard_dram_experts=10,
                            cache_experts=2, dispatch="auto",

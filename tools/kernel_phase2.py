@@ -69,7 +69,7 @@ def profiled_call(torch, cs, dev, kernel, name):
     bf16 = torch.bfloat16
     if kernel == "paged":
         from repro_torch.kernels import paged_attention as pa
-        shape = dict(cs.PAGED_SHAPES[name])
+        gen, shape = cs.seeded(torch, dev, gen, cs.PAGED_SHAPES[name])
         dtype = getattr(torch, shape.pop("timed", "bfloat16"))
         args, kw = cs.paged_inputs(torch, dev, gen, dtype, **shape)
         return lambda: pa.paged_flash_decode(*args, **kw)
@@ -84,14 +84,12 @@ def profiled_call(torch, cs, dev, kernel, name):
         return lambda: sc.ssd_chunk(*args)
     if kernel == "topk":
         from repro_torch.kernels import topk_gating as tg
-        shape = cs.TOPK_SHAPES[name]
+        gen, shape = cs.seeded(torch, dev, gen, cs.TOPK_SHAPES[name])
         logits = cs.topk_inputs(torch, dev, gen, **shape)
         return lambda: tg.topk_gating(logits, shape["k"])
     from repro_torch.kernels import expert_ffn as ef
-    shape = dict(cs.EXPERT_SHAPES[name])
+    gen, shape = cs.seeded(torch, dev, gen, cs.EXPERT_SHAPES[name])
     dtype = getattr(torch, shape.pop("timed", "bfloat16"))
-    if "seed" in shape:
-        gen = torch.Generator(dev).manual_seed(shape.pop("seed"))
     args = cs.expert_inputs(torch, dev, gen, dtype, **shape)
     return lambda: ef.expert_ffn(*args)
 

@@ -24,7 +24,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prefix cache's shape, a chunk starting mid-block beside decode lanes
    whose tables share its first blocks; and the three serving kernels at
    main_run_236b's decode and prefill-chunk shapes: 128 heads over the
-   576-wide latent page, D 5120 / F 1536 on 48 slots, 160 experts top-6),
+   576-wide latent page, D 5120 / F 1536 on 48 slots, 160 experts top-6;
+   and the GQA slice's: ``flash_decode`` on facade_gemma3's full
+   1,024-slot local ring (32 heads over 16 kv heads) and at phi3-mini's
+   head width 96, ``paged_flash_decode``'s GQA layout on an 8-token
+   prefill chunk of Llama-4-Scout's global layer, its lanes sharing one
+   table),
    on rows with a tie across the
    k-th place, all values
    equal, and probabilities underflowed to 0; for all five, two calls on
@@ -108,14 +113,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    must give identical streams, routed expert ids and counters;
 4a. pipeline: the paper's pipeline on main run 1's backbone (full width
    and depth, bfloat16, the same seed), every routed expert on the device
-   (~31 GB): 32 batch-1 traces of 64 prompt tokens from the topic corpus
-   and 16 sampled ones (2,560 decode steps through the facade's decode
+   (~31 GB): 24 batch-1 traces of 64 prompt tokens from the topic corpus
+   and 16 sampled ones (1,920 decode steps through the facade's decode
    mode, ``topk_gating`` and ``expert_ffn`` on every MoE layer), the
-   paper's full-size predictor trained on 24 of them with
+   paper's full-size predictor trained on 16 of them with
    ``train_predictor``'s defaults, and the other 8 replayed through the
    cache simulator at a 10% cache with all seven policies, each with its
    per-trace standard error; fails unless both kernels launched exactly
-   once per MoE layer and step (26 x 2,560), every loss is finite, the
+   once per MoE layer and step (26 x 1,920), every loss is finite, the
    trained predictor's validation loss is below the untrained one's and
    the oracle hits every access; it hands the trained predictor on;
 4a'. main run trained: main run 1 again with that trained predictor in
@@ -169,13 +174,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    on the card and on the CPU from identical weights; identical streams
    and last-position logits within 1e-3. TF32 is off for the whole
    script (matmul and cuDNN), and the causal convolution is a
-   shift-and-add, never a cuDNN convolution.
+   shift-and-add, never a cuDNN convolution;
+9. facade Scout: Llama-4-Scout at full width in bfloat16, 4 of 48 layers
+   (one 3:1 chunked:global group, every expert on the card, ~21.8 GB),
+   drop-free capacity: ``Model.prefill`` of 256 patches of width 1,408
+   (the vision early-fusion prefix) and a 64-token prompt at B 2, 32
+   greedy ``decode_step``s, then ``collect_trace`` of one 64-token prompt
+   with 32 new tokens at batch 1; the prefill's last logits and the
+   first 8 steps' against ``forward`` on the fused sequence (reported);
+   fails on non-finite logits or launches off one ``flash_decode`` a
+   layer and step and one ``expert_ffn``/``topk_gating`` a MoE layer and
+   step (and the prefill's router);
+10. facade gemma3: gemma3-27b at full width in bfloat16, 6 of 62 layers
+   (one 5 local : 1 global group, ~7.8 GB): a 1,100-token prompt (the
+   1,024-slot ring wraps) and 32 greedy steps, against ``forward``;
+11. parity GQA: the reduced yi-6b, internlm2-1.8b, phi3-mini-3.8b,
+   gemma3-27b, pixtral-12b and Llama-4-Scout (the last two with patches)
+   in float32 through ``prefill`` and 8 greedy steps, Scout's greedy
+   trace, and Scout cut to global layers through the paged engine's
+   chunked prefill (``paged_attn_prefill``) with the prefix index off and
+   on: card against CPU, identical streams, routed ids and
+   ``EngineStats``, logits within 1e-4.
 
 Phases 3' and 3a-3f are named ``serve_telemetry``, ``parity_workload``,
 ``serve_workload``, ``parity_tiers``, ``serve_tiers``, ``main_run_236b``
 and ``parity_236b`` in the output;
 phases 4a-4f ``pipeline``, ``main_run_trained``, ``parity_pipeline``,
-``train``, ``parity_train``, ``pipeline_trained`` and ``serve_trained``.
+``train``, ``parity_train``, ``pipeline_trained`` and ``serve_trained``;
+phases 9-11 ``facade_scout``, ``facade_gemma3`` and ``parity_gqa``.
 Host memory:
 about 26 GB for main run 2's pinned experts, ~38.7 GB for main run 236B's
 (each main run's pinned blocks
@@ -189,7 +215,8 @@ four attention and MoE kernels, mamba2's for ``ssd_chunk``;
 ``launches_by_run`` has every main run's, main_run_236b's and the
 serve_telemetry,
 serve_workload, serve_tiers, pipeline, main_run_trained, train,
-pipeline_trained and serve_trained phases'), and
+pipeline_trained, serve_trained, facade_scout and facade_gemma3
+phases'), and
 before that ``{"launch_floor_ms": ...}`` and the phases' summaries. Details go to
 ``chiprun_out/chip_smoke.json``.
 This script imports nothing of JAX or of the reference package.
@@ -327,6 +354,11 @@ PAGED_SHAPES = {
     "v236_prefill": dict(kvh=1, g=128, dk=576, dv=512, gqa=False, qk=192,
                          pos_list=tuple(range(56, 64)), shared_table=True,
                          seed=SEED + 34),
+    # paged_attn_prefill at Llama-4-Scout's width: a global layer's 8-token
+    # prompt chunk, each token a lane on the request's one table
+    "gqa_prefill": dict(kvh=8, g=5, dk=128, dv=128, gqa=True, qk=128,
+                        pos_list=tuple(range(56, 64)), shared_table=True,
+                        seed=SEED + 42),
 }
 
 
@@ -457,79 +489,104 @@ def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa, qk,
 # flash_decode's shapes on main run 2 (Llama-4-Scout's chunked layers): 4
 # lanes of 40 query heads over 8 kv heads, hd 128, valid_len up to 96 of
 # a row of the chunked ring (S = 8192, the timed case) or of a global row
-# (S = cache_len = 128)
+# (S = cache_len = 128); then the dense decoders' (FLASH_DENSE_SHAPES,
+# each timed in bfloat16, its inputs from a generator of its own):
+# facade_gemma3's decode on the full 1,024-slot local ring (1 lane, 32
+# heads over 16 kv heads) and phi3-mini's head width 96 (32 heads, 32 kv
+# heads, 4 lanes on rows of cache_len 128)
 FLASH_SHAPES = {"ring": dict(s_len=8192), "global": dict(s_len=128)}
+FLASH_DENSE_SHAPES = {
+    "gemma3_ring": dict(s_len=1024, vl_list=(1024,), n=1, h=32, kvh=16,
+                        hd=128, rows=(1,), seed=SEED + 40),
+    "phi3_hd96": dict(s_len=128, n=4, h=32, kvh=32, hd=96, seed=SEED + 41),
+}
 
 
-def flash_inputs(torch, dev, gen, dt, s_len, vl_list=(96, 90, 84, 71)):
-    """(q, k_cache, v_cache, rows, valid_len) of one call: 5 cache rows,
-    lanes on rows 3, 0, 2, 1; seeded random q and caches in type ``dt``."""
-    n, h, kvh, hd, r = 4, 40, 8, 128, 5
+def flash_inputs(torch, dev, gen, dt, s_len, vl_list=(96, 90, 84, 71), n=4,
+                 h=40, kvh=8, hd=128, rows=(3, 0, 2, 1)):
+    """(q, k_cache, v_cache, rows, valid_len) of one call: ``n`` lanes on
+    ``rows`` of ``max(rows) + 2`` cache rows; seeded random q and caches
+    in type ``dt``."""
+    r = max(rows) + 2
     q = torch.randn(n, h, hd, generator=gen, device=dev).to(dt)
     kc = torch.randn(r, s_len, kvh, hd, generator=gen, device=dev).to(dt)
     vc = torch.randn(r, s_len, kvh, hd, generator=gen, device=dev).to(dt)
-    rows = torch.tensor([3, 0, 2, 1], dtype=torch.int32, device=dev)
+    rows = torch.tensor(rows, dtype=torch.int32, device=dev)
     vl = torch.tensor(vl_list, dtype=torch.int32, device=dev)
     return q, kc, vc, rows, vl
 
 
 def check_flash(torch, F, dev, gen):
-    """``flash_decode`` at every shape of ``FLASH_SHAPES`` in f32 and bf16
-    against its plain version; two calls on the same inputs must be
-    bit-identical; bf16 at S = 8192 timed."""
-    from repro_torch.kernels import flash_attention as fa
+    """``flash_decode`` at every shape of ``FLASH_SHAPES`` and
+    ``FLASH_DENSE_SHAPES`` in f32 and bf16 against its plain version; two
+    calls on the same inputs must be bit-identical; bf16 at S = 8192 and
+    at each dense shape timed (the latter under the shape's name)."""
     out = {}
     for s_len in (FLASH_SHAPES["global"]["s_len"],
                   FLASH_SHAPES["ring"]["s_len"]):
-        for dtype in ("float32", "bfloat16"):
-            args = flash_inputs(torch, dev, gen, getattr(torch, dtype), s_len)
-            q, kc, vc, rows, vl = args
-            n, h, hd = q.shape
-            kvh = kc.shape[2]
-            o = fa.flash_decode(*args)
-            o2 = fa.flash_decode(*args)
-            op = fa.flash_decode_plain(*args)
-            torch.cuda.synchronize()
-            if not torch.equal(o, o2):
-                fail(f"flash_decode S={s_len} {dtype}: two calls on the same "
-                     "inputs differ")
-            err = (o.float() - op.float()).abs().max().item()
-            tol = 1e-4 if dtype == "float32" else 3e-2
-            if not err <= tol:
-                fail(f"flash_decode S={s_len} {dtype}: max abs err {err} "
-                     f"> {tol}")
-            out[dtype if s_len == 8192 else f"{dtype}_S{s_len}"] = err
-            if dtype != "bfloat16" or s_len != 8192:
-                continue
-            vl_list = vl.tolist()
-            vmax = max(vl_list)
-            mask = (torch.arange(vmax, device=dev)[None, :]
-                    < vl[:, None].long())[:, None, None, :]
-            g = h // kvh
+        case = flash_case(torch, F, dev, gen, s_len, timed=s_len == 8192)
+        if s_len == 8192:
+            out.update(case)
+        else:
+            out.update({f"{k}_S{s_len}": v for k, v in case.items()})
+    for name, shape in FLASH_DENSE_SHAPES.items():
+        g, kw = seeded(torch, dev, gen, shape)
+        out[name] = flash_case(torch, F, dev, g, timed=True, **kw)
+    return out
 
-            def library():  # rows sliced to the longest valid_len, one SDPA
-                idx = rows.long()
-                k = kc[idx, :vmax][:, :, :, None].expand(
-                    n, vmax, kvh, g, hd).reshape(n, vmax, h, hd)
-                v = vc[idx, :vmax][:, :, :, None].expand(
-                    n, vmax, kvh, g, hd).reshape(n, vmax, h, hd)
-                return F.scaled_dot_product_attention(
-                    q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
-                    attn_mask=mask)
-            out.update(timings(torch, lambda: fa.flash_decode(*args),
-                               lambda: fa.flash_decode_plain(*args),
-                               library))
-            keys = sum(vl_list)
-            el = 2
-            nbytes = (keys * kvh * hd * 2 * el + 2 * q.numel() * el
-                      + 2 * n * 4)
-            ops = keys * h * 4 * hd
-            out["bound_ms"], out["bound_by"] = bound(nbytes, ops,
-                                                     "bfloat16")
-            out["bit_identical"] = True
-            out["shape"] = (f"q ({n},{h},{hd}) bf16, K/V rows "
-                            f"({kc.shape[0]},{s_len},{kvh},{hd}) each, rows "
-                            f"{rows.tolist()}, valid_len {vl_list}")
+
+def flash_case(torch, F, dev, gen, s_len, timed, **geometry):
+    """One ``flash_decode`` shape (``flash_inputs``' keywords) in f32 and
+    bf16 against the plain version, two calls bit-identical; with
+    ``timed``, the bf16 call's timings, bound and shape."""
+    from repro_torch.kernels import flash_attention as fa
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        args = flash_inputs(torch, dev, gen, getattr(torch, dtype), s_len,
+                            **geometry)
+        q, kc, vc, rows, vl = args
+        n, h, hd = q.shape
+        kvh = kc.shape[2]
+        label = f"flash_decode S={s_len} H {h} KVH {kvh} hd {hd} {dtype}"
+        o = fa.flash_decode(*args)
+        o2 = fa.flash_decode(*args)
+        op = fa.flash_decode_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(o, o2):
+            fail(f"{label}: two calls on the same inputs differ")
+        err = (o.float() - op.float()).abs().max().item()
+        tol = 1e-4 if dtype == "float32" else 3e-2
+        if not err <= tol:
+            fail(f"{label}: max abs err {err} > {tol}")
+        out[dtype] = err
+        if dtype != "bfloat16" or not timed:
+            continue
+        vl_list = vl.tolist()
+        vmax = max(vl_list)
+        mask = (torch.arange(vmax, device=dev)[None, :]
+                < vl[:, None].long())[:, None, None, :]
+        g = h // kvh
+
+        def library():  # rows sliced to the longest valid_len, one SDPA
+            idx = rows.long()
+            k = kc[idx, :vmax][:, :, :, None].expand(
+                n, vmax, kvh, g, hd).reshape(n, vmax, h, hd)
+            v = vc[idx, :vmax][:, :, :, None].expand(
+                n, vmax, kvh, g, hd).reshape(n, vmax, h, hd)
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask)
+        out.update(timings(torch, lambda: fa.flash_decode(*args),
+                           lambda: fa.flash_decode_plain(*args), library))
+        keys = sum(vl_list)
+        el = 2
+        nbytes = keys * kvh * hd * 2 * el + 2 * q.numel() * el + 2 * n * 4
+        ops = keys * h * 4 * hd
+        out["bound_ms"], out["bound_by"] = bound(nbytes, ops, "bfloat16")
+        out["bit_identical"] = True
+        out["shape"] = (f"q ({n},{h},{hd}) bf16, K/V rows "
+                        f"({kc.shape[0]},{s_len},{kvh},{hd}) each, rows "
+                        f"{rows.tolist()}, valid_len {vl_list}")
     return out
 
 
@@ -1974,7 +2031,9 @@ def serve_tiers_run(torch, np, dev, host_bw, handed, main1):
 # the pipeline phase: prompts from the topic corpus, decode steps per
 # trace, predictor training split, and the simulator's cache (the paper's
 # 10%) and warm-up prefix
-PIPELINE = dict(prompts=32, prompt_len=64, max_new=16, train=24,
+# 24 traces, 16 of them training the predictor and 8 held out (32 and 24
+# until the GQA phases of phases 9-11 needed the time)
+PIPELINE = dict(prompts=24, prompt_len=64, max_new=16, train=16,
                 temperature=0.8, capacity_fraction=0.1, warm_tokens=8)
 
 
@@ -2921,16 +2980,18 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-def greedy(torch, model, params, prompts, steps: int):
-    """Facade prefill, then ``steps`` greedy decode steps on the prompts'
-    device, nothing read back to the host until the end. Returns (streams
-    (B, steps) as lists, last-position logits of the prefill and of every
-    step (steps + 1, B, V), final state, prefill seconds, decode
-    seconds)."""
+def greedy(torch, model, params, batch, steps: int, cache_len=None):
+    """Facade prefill of ``batch`` (its ``tokens`` (B, T), and a vision
+    config's ``patches``), then ``steps`` greedy decode steps on the
+    batch's device, nothing read back to the host until the end;
+    ``cache_len`` defaults to T + steps. Returns (tokens (B, steps), the
+    last-position logits of the prefill and of every step (steps + 1, B,
+    V), final state, prefill seconds, decode seconds)."""
+    if cache_len is None:
+        cache_len = batch["tokens"].shape[1] + steps
     torch.cuda.synchronize()
     t = time.perf_counter()
-    logits, state = model.prefill(params, {"tokens": prompts},
-                                  prompts.shape[1] + steps)
+    logits, state = model.prefill(params, batch, cache_len)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     toks, outs = [], [logits]
@@ -2943,8 +3004,8 @@ def greedy(torch, model, params, prompts, steps: int):
         outs.append(logits)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t
-    return (torch.stack(toks).T.tolist(), torch.stack(outs), state,
-            prefill_s, decode_s)
+    return (torch.stack(toks, 1), torch.stack(outs), state, prefill_s,
+            decode_s)
 
 
 def mamba_run(torch, np, dev):
@@ -2973,12 +3034,12 @@ def mamba_run(torch, np, dev):
     for name, batch, prompt_len, steps in MAMBA_PARTS:
         prompts = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (batch, prompt_len))).to(dev)
-        greedy(torch, model, params, prompts, 2)     # warm-up, not counted
+        greedy(torch, model, params, {"tokens": prompts}, 2)   # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        streams, outs, state, prefill_s, decode_s = greedy(
-            torch, model, params, prompts, steps)
+        toks, outs, state, prefill_s, decode_s = greedy(
+            torch, model, params, {"tokens": prompts}, steps)
         launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         if tuple(outs.shape) != (steps + 1, batch, cfg.vocab_size):
@@ -3002,7 +3063,7 @@ def mamba_run(torch, np, dev):
             "decode_tokens_per_s": batch * steps / decode_s,
             "decode_ms_per_step": decode_s / steps * 1e3,
             "max_memory_allocated_bytes": peak,
-            "launches": launches, "stream_head": [s[:8] for s in streams]}
+            "launches": launches, "stream_head": toks[:, :8].tolist()}
         del outs, state
     result["launches"] = total
     del params
@@ -3027,11 +3088,11 @@ def parity_run_mamba(torch, np, dev):
     runs = {}
     for where, p, d in (("card", to_device(params, dev), dev),
                         ("cpu", params, torch.device("cpu"))):
-        streams, outs, _, _, _ = greedy(torch, model, p, prompts.to(d),
-                                        steps)
+        toks, outs, _, _, _ = greedy(torch, model, p,
+                                     {"tokens": prompts.to(d)}, steps)
         if not torch.isfinite(outs).all():
             fail(f"parity run 3: non-finite logits on the {where}")
-        runs[where] = (streams, outs.cpu())
+        runs[where] = (toks.tolist(), outs.cpu())
     if runs["card"][0] != runs["cpu"][0]:
         fail(f"parity run 3: GPU/CPU streams differ: {runs['card'][0]} vs "
              f"{runs['cpu'][0]}")
@@ -3044,6 +3105,292 @@ def parity_run_mamba(torch, np, dev):
             "tolerance": tol,
             "logit_abs_max": runs["cpu"][1].abs().max().item(),
             "identical_streams": True}
+
+
+# ---------------------------------------------------------------------------
+# phases 9-11: the GQA modes, the vision prefix and the dense GQA decoders
+
+GQA_ARCHS = ("yi-6b", "internlm2-1.8b", "phi3-mini-3.8b", "gemma3-27b",
+             "pixtral-12b", "llama4-scout-17b-a16e")
+# parity_gqa: prompts of PARITY_GQA_TEXT tokens (after the reduced vision
+# prefix of 16 patches: past Scout's 64-slot chunk and gemma3's 32-slot
+# window), greedy steps; Scout's trace; the global-only Scout stack
+PARITY_GQA_TEXT, PARITY_GQA_STEPS, PARITY_GQA_TOL = 52, 8, 1e-4
+# facade_scout: Llama-4-Scout at full width, 4 of 48 layers (one 3:1
+# chunked:global group), every expert on the card, drop-free capacity so
+# the full-mode forward and the decode steps route alike
+FACADE_SCOUT = dict(layers=4, batch=2, patches=256, prompt=64, cache_len=512,
+                    steps=32, compared=8, trace_prompt=64, trace_new=32)
+# facade_gemma3: gemma3-27b at full width, 6 of 62 layers (one 5 local : 1
+# global group); the 1,100-token prompt wraps the 1,024-slot local ring
+FACADE_GEMMA3 = dict(layers=6, batch=1, prompt=1100, cache_len=1200,
+                     steps=32, compared=8)
+
+
+def facade_against_forward(torch, model, params, batch, toks, outs,
+                           compared, label):
+    """Max abs differences of the prefill's last logits and the first
+    ``compared`` decode steps' logits from ``Model.forward`` on the fused
+    sequence (prompt, then the tokens those steps were fed)."""
+    text = torch.cat([batch["tokens"], toks[:, :compared]], 1)
+    fwd = model.forward(params, {**batch, "tokens": text})
+    n = fwd.shape[1] - compared          # the prompt's last position + 1
+    want = fwd[:, n - 1:].transpose(0, 1)                  # (compared+1,B,V)
+    if not torch.isfinite(fwd).all():
+        fail(f"{label}: non-finite forward logits")
+    diff = (outs[:compared + 1].float() - want.float()).abs()
+    return {"prefill_max_abs_diff": diff[0].max().item(),
+            "decode_max_abs_diff": diff[1:].amax(dim=(1, 2)).tolist(),
+            "logit_abs_max": want.abs().max().item(),
+            "greedy_agrees_with_forward": (
+                want[:-1].argmax(-1).T == toks[:, :compared]).float()
+            .mean().item()}
+
+
+def facade_run(torch, np, dev, label, cfg, c, patches_dim=None,
+               trace=None):
+    """Seeded weights on the card at ``cfg``'s full width, then
+    ``c["batch"]`` prompts (after ``c["patches"]`` random patches when
+    ``patches_dim``) through ``greedy``, compared with ``forward``;
+    launches counted over prefill and decode (``want``, per kernel), then
+    over ``trace`` = (prompt length, new tokens) through ``collect_trace``
+    at batch 1. Fails on non-finite logits, a decode position off the
+    fused length or a launch count off its expected value."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tracing import collect_trace, moe_layer_ids
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(SEED + 43),
+                        device=dev)
+    init_s = since(torch, t0)
+    param_bytes = sum(t.numel() * t.element_size() for t in tensors(params))
+    gen = torch.Generator(dev).manual_seed(SEED + 44)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (c["batch"], c["prompt"]),
+                                     generator=gen, device=dev)}
+    n_prefix = 0
+    if patches_dim is not None:
+        n_prefix = c["patches"]
+        batch["patches"] = torch.randn(c["batch"], n_prefix, patches_dim,
+                                       generator=gen, device=dev)
+    greedy(torch, model, params, batch, 2, c["cache_len"])   # warm-up
+    reset_launch_counts()
+    toks, outs, state, prefill_s, decode_s = greedy(
+        torch, model, params, batch, c["steps"], c["cache_len"])
+    launches = launch_counts()
+    if not torch.isfinite(outs).all():
+        fail(f"{label}: non-finite logits")
+    if state["pos"] != n_prefix + c["prompt"] + c["steps"]:
+        fail(f"{label}: decode state at {state['pos']}")
+    n_moe = len(moe_layer_ids(cfg)) if cfg.moe else 0
+    want = {k: 0 for k in launches}
+    want["flash_decode"] = cfg.num_layers * c["steps"]
+    if n_moe:   # the prefill's router once a MoE layer, decode's each step
+        want["expert_ffn"] = n_moe * c["steps"]
+        want["topk_gating"] = n_moe * (c["steps"] + 1)
+    if launches != want:
+        fail(f"{label}: launches {launches}, want {want}")
+    vs_forward = facade_against_forward(torch, model, params, batch, toks,
+                                        outs, c["compared"], label)
+    result = {"config": cfg.name, "dtype": cfg.dtype,
+              "layers": cfg.num_layers,
+              "full_depth": get_config(cfg.name).num_layers,
+              "param_bytes_on_device": param_bytes, "init_s": init_s,
+              **c, "n_prefix": n_prefix, "prefill_s": prefill_s,
+              "prefill_tokens_per_s": c["batch"] * (n_prefix + c["prompt"])
+              / prefill_s, "decode_s": decode_s,
+              "decode_ms_per_step": decode_s / c["steps"] * 1e3,
+              "decode_tokens_per_s": c["batch"] * c["steps"] / decode_s,
+              "launches": launches, "vs_forward": vs_forward,
+              "stream_head": toks[:, :8].tolist()}
+    if trace is not None:
+        plen, new = trace
+        prompt = torch.randint(0, cfg.vocab_size, (plen,), generator=gen,
+                               device=dev).tolist()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = collect_trace(model, params, prompt, new, plen + new, 0.0)
+        trace_s = since(torch, t0)
+        tl = launch_counts()
+        steps = plen + new
+        tw = {k: 0 for k in tl}
+        tw["flash_decode"] = cfg.num_layers * steps
+        tw["expert_ffn"] = tw["topk_gating"] = n_moe * steps
+        if tl != tw:
+            fail(f"{label}: trace launches {tl}, want {tw}")
+        if (tr.experts.shape != (steps, n_moe, cfg.moe.top_k)
+                or not ((0 <= tr.experts)
+                        & (tr.experts < cfg.moe.num_experts)).all()):
+            fail(f"{label}: a malformed trace")
+        result.update(trace_steps=steps, trace_s=trace_s,
+                      trace_steps_per_s=steps / trace_s, trace_launches=tl,
+                      trace_experts_head=tr.experts[:4, :, 0].tolist())
+        launches = {k: launches[k] + tl[k] for k in launches}
+    result["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    del params, outs, state
+    return result, launches
+
+
+def facade_scout_run(torch, np, dev):
+    """Phase 9: Llama-4-Scout through the facade at full width, bfloat16,
+    ``FACADE_SCOUT``: prefill of 256 patches (width 1,408) and a 64-token
+    prompt at B 2, 32 greedy decode steps (``flash_decode`` on the
+    8,192-slot chunked rings and the global rows, ``topk_gating`` and
+    ``expert_ffn`` over the (E, D, F) experts on the card), compared with
+    ``forward`` on the fused sequence; then ``collect_trace`` of one
+    64-token prompt with 32 new tokens at batch 1."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    c = FACADE_SCOUT
+    cfg = get_config(LLAMA4)
+    moe = dataclasses.replace(cfg.moe,
+                              capacity_factor=float(cfg.moe.num_experts))
+    cfg = cfg.replace(num_layers=c["layers"], moe=moe)
+    result, launches = facade_run(
+        torch, np, dev, "facade_scout", cfg, c, patches_dim=cfg.frontend_dim,
+        trace=(c["trace_prompt"], c["trace_new"]))
+    result["capacity_factor"] = moe.capacity_factor
+    return result, launches
+
+
+def facade_gemma3_run(torch, np, dev):
+    """Phase 10: gemma3-27b through the facade at full width, bfloat16,
+    ``FACADE_GEMMA3``: a 1,100-token prompt (the 1,024-slot local ring
+    wraps) and 32 greedy decode steps, compared with ``forward``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma3-27b").replace(
+        num_layers=FACADE_GEMMA3["layers"])
+    return facade_run(torch, np, dev, "facade_gemma3", cfg, FACADE_GEMMA3)
+
+
+def parity_run_gqa(torch, np, dev):
+    """Phase 11: the slice's paths on reduced configs in float32 (TF32
+    off), card against CPU from weights drawn on the card: each of
+    ``GQA_ARCHS`` through ``prefill`` (with patches for a vision config)
+    and ``PARITY_GQA_STEPS`` greedy ``decode_step``s; ``collect_trace`` of
+    the reduced Llama-4-Scout; and Scout cut to global layers through the
+    paged ``BatchedOffloadEngine`` with chunked prefill, the prefix index
+    off and on. Identical streams, routed ids and ``EngineStats``; logits
+    within ``PARITY_GQA_TOL``; on the card ``paged_flash_decode`` launched
+    in the chunks and ``flash_decode`` in the facade."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.policies import NextLayerAllPolicy
+    from repro_torch.core.tracing import collect_trace
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.scheduler import BatchedOffloadEngine
+
+    cpu = torch.device("cpu")
+    out = {"facade": {}, "engine": {}}
+    card_launches = {}
+    errs = []
+    for i, arch in enumerate(GQA_ARCHS):
+        cfg = get_reduced(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(dev).manual_seed(SEED + 50 + i),
+                            device="cpu")             # drawn on the card
+        gen = torch.Generator().manual_seed(SEED + 50 + i)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                         (2, PARITY_GQA_TEXT), generator=gen)}
+        n_prefix = cfg.frontend_len if cfg.frontend == "vision" else 0
+        if n_prefix:
+            batch["patches"] = torch.randn(2, n_prefix, cfg.frontend_dim,
+                                           generator=gen)
+        runs = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            reset_launch_counts()
+            toks, outs, state, _, _ = greedy(
+                torch, model, to_device(params, d),
+                {k: v.to(d) for k, v in batch.items()}, PARITY_GQA_STEPS,
+                n_prefix + PARITY_GQA_TEXT + PARITY_GQA_STEPS + 1)
+            runs[where] = (toks.tolist(), outs.cpu(), state["pos"])
+            if where == "card":
+                for k, v in launch_counts().items():
+                    card_launches[k] = card_launches.get(k, 0) + v
+        if runs["card"][0] != runs["cpu"][0] or runs["card"][2] != \
+                runs["cpu"][2]:
+            fail(f"parity_gqa {arch}: GPU/CPU streams differ: "
+                 f"{runs['card'][0]} vs {runs['cpu'][0]}")
+        err = (runs["card"][1] - runs["cpu"][1]).abs().max().item()
+        if not err <= PARITY_GQA_TOL:
+            fail(f"parity_gqa {arch}: logits differ by {err} > "
+                 f"{PARITY_GQA_TOL}")
+        errs.append(err)
+        out["facade"][arch] = {"max_abs_logit_err": err,
+                               "pos": runs["card"][2],
+                               "stream_head": runs["card"][0][0][:4]}
+
+    cfg = get_reduced(LLAMA4)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(SEED + 56),
+                        device="cpu")
+    prompt = np.random.default_rng(SEED + 56).integers(
+        0, cfg.vocab_size, 60).tolist()
+    traces = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        tr = collect_trace(model, to_device(params, d), prompt, 8, 72, 0.0)
+        traces[where] = (tr.tokens.tolist(), tr.experts.tolist())
+    if traces["card"] != traces["cpu"]:
+        fail("parity_gqa: Scout's GPU/CPU traces differ")
+    out["trace"] = {"tokens": len(traces["card"][0]), "identical": True}
+
+    cfg = get_reduced(LLAMA4).replace(block_pattern=("global",),
+                                      frontend=None)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(SEED + 57),
+                        device="cpu")
+    rng = np.random.default_rng(SEED + 57)
+    system = rng.integers(0, cfg.vocab_size, 9).tolist()
+    prompts = [system + rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (4, 1, 6)] + [rng.integers(0, cfg.vocab_size,
+                                                   5).tolist()]
+    for prefix in (False, True):
+        runs = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            reset_launch_counts()
+            eng = BatchedOffloadEngine(
+                model, params, NextLayerAllPolicy(cfg.moe.num_experts),
+                2 * cfg.moe.num_experts, host_bw=PARITY_HOST_BW,
+                serve=ServeConfig(max_batch=3, block_size=4,
+                                  prefix_cache=prefix), device=d)
+            routes = record_routes(eng.core, check_finite=True)
+            outs = eng.generate(prompts, 6, 32)
+            st = eng.stats.as_dict()
+            st.pop("latency")
+            runs[where] = (outs, routes, st)
+            if where == "card":
+                lc = launch_counts()
+                if lc["paged_flash_decode"] == 0 or lc["flash_decode"]:
+                    fail(f"parity_gqa engine: card launches {lc}")
+                for k, v in lc.items():
+                    card_launches[k] = card_launches.get(k, 0) + v
+            if prefix and not (eng.prefix.stats.hits
+                               + eng.prefix.stats.extensions):
+                fail("parity_gqa engine: the prefix index matched nothing")
+            if prefix:
+                st["prefix"] = eng.prefix.stats.as_dict()
+            del eng
+        check_same(f"parity_gqa engine (prefix {prefix}): ", runs["card"],
+                   runs["cpu"])
+        if not runs["card"][2]["prefill_chunks"]:
+            fail("parity_gqa engine: no prefill chunk")
+        out["engine"][f"prefix_{'on' if prefix else 'off'}"] = {
+            "streams": runs["card"][0], "stats": runs["card"][2]}
+    for name in ("flash_decode", "paged_flash_decode", "expert_ffn",
+                 "topk_gating"):
+        if not card_launches.get(name):
+            fail(f"parity_gqa never launched the {name} kernel")
+    out.update(identical=True, max_abs_logit_err=max(errs),
+               tolerance=PARITY_GQA_TOL, card_launches=card_launches)
+    return out
 
 
 # (name, source, the TPU kernel it replaces, the main run whose launches
@@ -3173,6 +3520,11 @@ def main() -> None:
          lambda: main_run(torch, np, dev, LLAMA4, host_bw), LLAMA4),
         ("parity_run_2", LLAMA4, lambda: parity_run_llama4(torch, np, dev),
          None),
+        ("facade_scout", LLAMA4, lambda: facade_scout_run(torch, np, dev),
+         "facade_scout"),
+        ("facade_gemma3", "gemma3-27b",
+         lambda: facade_gemma3_run(torch, np, dev), "facade_gemma3"),
+        ("parity_gqa", LLAMA4, lambda: parity_run_gqa(torch, np, dev), None),
         ("main_run_3", MAMBA2, lambda: mamba_run(torch, np, dev), MAMBA2),
         ("parity_run_3", MAMBA2, lambda: parity_run_mamba(torch, np, dev),
          None))
@@ -3247,6 +3599,12 @@ def main() -> None:
                 for shape, case in c.items() if shape.startswith("v236_")}
         if v236:                # main_run_236b's decode and prefill chunk
             entry["deepseek_v2_236b_shapes"] = v236
+        for shape in ("gemma3_ring", "phi3_hd96", "gqa_prefill"):
+            if shape in c:      # facade_gemma3's ring, phi3's hd, Scout's chunk
+                entry[f"{shape}_shape"] = {
+                    "max_abs_err": c[shape]["bfloat16"],
+                    "max_abs_err_f32": c[shape]["float32"],
+                    **timing_fields(c[shape])}
         for shape in ("long", "reduced"):   # ssd_chunk's other shapes
             if shape in c:
                 entry[f"{shape}_shape_max_abs_err"] = c[shape]
@@ -3373,6 +3731,20 @@ def main() -> None:
                 ("streams_equal_c",) if label == "d" else ()))}
             for label, r in stt["runs"].items()}},
         "seconds": phase_s["serve_tiers"]}), flush=True)
+    for phase in ("facade_scout", "facade_gemma3"):
+        fr = runs[phase]
+        print(json.dumps({phase: {k: fr[k] for k in (
+            "layers", "full_depth", "batch", "n_prefix", "prompt",
+            "cache_len", "steps", "param_bytes_on_device", "init_s",
+            "prefill_s", "decode_ms_per_step", "decode_tokens_per_s",
+            "launches", "vs_forward", "max_memory_allocated_bytes",
+            *(k for k in ("trace_steps", "trace_s", "trace_steps_per_s",
+                          "trace_launches") if k in fr))},
+            "seconds": phase_s[phase]}), flush=True)
+    pg = runs["parity_gqa"]
+    print(json.dumps({"parity_gqa": {k: pg[k] for k in (
+        "identical", "max_abs_logit_err", "tolerance", "trace",
+        "card_launches")}, "seconds": phase_s["parity_gqa"]}), flush=True)
     print(json.dumps({"launch_floor_ms": floor_ms}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ident, flush=True)

@@ -6,10 +6,12 @@ Backbone: ``params["stack"]`` ``{head, scan, tail}`` (the scan groups
 stacked along a leading axis) is unstacked into one dict per layer, in
 layer order, exactly as the reference's ``unstack_layers`` does, whatever
 the pattern's length (``("mla",)`` of DeepSeek-V2-Lite, the 3:1
-chunked:global pattern of Llama-4-Scout, ``("ssd",)`` of mamba2-130m).
+chunked:global pattern of Llama-4-Scout, gemma3's 5:1 local:global,
+``("ssd",)`` of mamba2-130m), MoE layers and dense ones (``ffn``) alike.
 Top-level leaves other than the stack (``tok_emb``, ``final_ln``,
-``head`` unless the embeddings are tied, ``frontend_proj``) are carried
-as they are, each in its own dtype (an SSD layer's ``A_log``,
+``head`` unless the embeddings are tied, as gemma3's are,
+``frontend_proj`` of a vision config) are carried as they are, each in
+its own dtype (an SSD layer's ``A_log``,
 ``dt_bias`` and ``D`` stay float32 in a bfloat16 model). Layouts are
 kept: MLA's ``w_q`` ``(D,H,qk)``, or its compressed q projection
 ``w_dq`` ``(D,r)``, ``q_ln`` ``(r,)`` and ``w_uq`` ``(r,H,qk)``

@@ -47,8 +47,8 @@ def _attn_layer_params(cfg, kind: str) -> int:
         return d * (2 * di + 2 * s.d_state + di // s.headdim) + di * d
     if kind == "rglru":
         raise NotImplementedError(
-            "the rglru layer kind: ROADMAP Queue 1 item 8 (the other "
-            "architectures)")
+            "the rglru layer kind: ROADMAP Queue 1 item 8 (rglru, "
+            "cross-attention and encoder-decoder models)")
     return (d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
             + cfg.num_heads * hd * d)
 

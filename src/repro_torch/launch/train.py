@@ -4,7 +4,8 @@
 ``train`` draws the weights from a seeded generator, then runs AdamW
 (clip 1.0, a cosine schedule with 20 warm-up steps) on ``lm_batches`` of
 the 8-topic corpus, one :func:`train_step` a batch; gradients come from
-autograd. It runs on the card unless ``device="cpu"`` is passed. The
+autograd; a vision config gets a zero ``patches`` batch, as in the
+reference. It runs on the card unless ``device="cpu"`` is passed. The
 production mesh and checkpointing (``save=``) are ROADMAP Queue 1 item 9.
 ``examples/pipeline_torch.py`` and ``chip_smoke.py`` call it.
 """
@@ -29,11 +30,16 @@ def trainable(params):
     return params, [t for _, t in named_leaves(params)]
 
 
-def train_step(model, params, leaves, opt_update, opt_state, tokens):
-    """One AdamW step on a (B, T) batch: ``model.loss_fn``, its gradients
-    by autograd, then the update in place. Returns (opt_state, loss,
-    metrics, grad_norm), the last three detached tensors."""
-    loss, mets = model.loss_fn(params, {"tokens": tokens})
+def train_step(model, params, leaves, opt_update, opt_state, tokens,
+               patches=None):
+    """One AdamW step on a (B, T) batch (with ``patches``, a vision
+    config's prefix): ``model.loss_fn``, its gradients by autograd, then
+    the update in place. Returns (opt_state, loss, metrics, grad_norm),
+    the last three detached tensors."""
+    batch = {"tokens": tokens}
+    if patches is not None:
+        batch["patches"] = patches
+    loss, mets = model.loss_fn(params, batch)
     grads = torch.autograd.grad(loss, leaves)
     _, opt_state, stats = opt_update(list(grads), opt_state, params)
     return (opt_state, loss.detach(),
@@ -66,8 +72,12 @@ def train(cfg, steps: int = 100, batch_size: int = 8, seq_len: int = 128,
     for i, tokens in enumerate(lm_batches(corpus, batch_size, seq_len,
                                           steps, seed=seed + 1)):
         batch = torch.as_tensor(tokens[:, :seq_len], device=dev)
+        patches = None
+        if cfg.frontend == "vision":   # a zero image, as the reference's
+            patches = torch.zeros((batch_size, cfg.frontend_len,
+                                   cfg.frontend_dim), device=dev)
         opt_state, loss, mets, gnorm = train_step(
-            model, params, leaves, opt_update, opt_state, batch)
+            model, params, leaves, opt_update, opt_state, batch, patches)
         losses.append(loss.item())
         if i % max(1, steps // 10) == 0:
             log(f"step {i:5d} loss={losses[-1]:.4f} "

@@ -1,7 +1,11 @@
-"""GQA attention with global / sliding-window (local) / chunked masking:
-the decode paths of the reference's ``models/attention.py``.
+"""GQA attention with global / sliding-window (local) / chunked masking,
+as the reference's ``models/attention.py``.
 
-Decode caches (one row per request, ``(R, S, KVH, hd)``):
+``attn_apply`` runs three modes: ``"full"`` (training, no cache),
+``"prefill"`` (the same, and the decode cache built from the sequence's
+K/V by :func:`_fill_cache`) and ``"decode"`` (one token a lane against its
+cache row). Whole-sequence attention is :func:`sdpa_any` (q-chunked when
+long). Decode caches (one row per request, ``(R, S, KVH, hd)``):
   global  -> full-length row, write at ``pos``
   local   -> ring of ``window`` slots, write at ``pos % window``
   chunked -> ring of ``chunk`` slots; only slots of the current attention
@@ -11,14 +15,12 @@ Each kind's valid slots are a prefix ``[0, valid_len)`` of its row
 (:func:`_valid_len`), which is what the ``flash_decode`` kernel reads in
 place. The paged pool of a global layer (block tables, block 0 the scratch
 block of ``serving/kvpool.py``) reads through ``paged_flash_decode``'s GQA
-layout.
+layout. :func:`paged_attn_prefill` writes one prompt chunk into that
+pool and attends each chunk token as one lane of the same kernel, so a
+chunked prefill matches decoding the chunk token by token.
 
 The reference returns new cache arrays from every write; here caches are
 updated in place (``index_put_``/``copy_``) and the same dict returned.
-:func:`sdpa_any` is the reference's whole-sequence attention (q-chunked
-when long), which MLA's full mode runs in training. The full and prefill
-modes of ``attn_apply`` and ``paged_attn_prefill`` are ROADMAP work
-(Queue 1 item 8): no stack the engines serve needs them.
 """
 from __future__ import annotations
 
@@ -101,6 +103,26 @@ def init_cache(cfg, kind, batch, cache_len, dtype, device):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _fill_cache(cfg, kind, k, v, t: int, cache_len: int):
+    """The decode cache of a prefilled sequence: k/v (B, T, KVH, hd),
+    already RoPE'd. A global row is zero-padded to ``cache_len``
+    positions. Slot ``s`` of a ring holds the latest position ``p <= t-1``
+    with ``p % ring == s``; slots no position reaches yet (``t < ring``)
+    copy position 0 and stay masked at decode (:func:`_decode_valid`), so
+    each ring's valid slots stay the prefix ``flash_decode`` reads."""
+    ring = _ring_len(kind, cfg)
+    if not ring:
+        pad = cache_len - t
+        if pad > 0:
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        return {"k": k.contiguous(), "v": v.contiguous()}
+    s = torch.arange(ring, device=k.device)
+    src = (t - 1) - ((t - 1 - s) % ring)           # < 0 when t < ring
+    src = torch.clamp(src, 0, t - 1)
+    return {"k": k[:, src], "v": v[:, src]}
+
+
 def _gqa_attend(q, ck, cv, valid, out_dtype):
     """Grouped-query decode attention, the plain route shared by the row
     and paged paths. q (B,T,H,hd); ck/cv (B,S,KVH,hd); valid broadcastable
@@ -142,8 +164,8 @@ def _valid_len(kind: str, cfg, pos):
 
 
 def _paged_qkv(p, cfg, x, positions):
-    """q (B,T,H,hd), k/v (B,T,KVH,hd), RoPE'd at ``positions`` (B,T); the
-    projection both the row and the paged paths share."""
+    """q (B,T,H,hd), k/v (B,T,KVH,hd), RoPE'd at ``positions`` (B,T) or
+    (T,); the projection every mode and the paged paths share."""
     b, t, d = x.shape
     q = (x @ p["wq"].reshape(d, -1)).reshape(b, t, *p["wq"].shape[1:])
     k = (x @ p["wk"].reshape(d, -1)).reshape(b, t, *p["wk"].shape[1:])
@@ -159,19 +181,31 @@ def _project_out(p, out):
 
 
 def attn_apply(p, cfg, kind, x, positions, mode, cache=None, pos=None,
-               rows=None, kernel: bool = True):
-    """Decode one token per batch entry against its cache row.
+               rows=None, kernel: bool = True, cache_len: int = 0):
+    """One attention sub-block. Returns (y (B, T, D), cache).
 
-    x (B,1,D); positions (B,1); pos an int or (B,) positions; cache
-    ``{"k","v"}`` (R,S,KVH,hd), entry ``i`` using row ``rows[i]`` (default
-    ``i``). The new K/V is written in place at ``pos % ring`` (or ``pos``)
-    before the attend, as in the reference. ``kernel`` attends through
-    ``flash_decode``; False keeps the gather + ``_gqa_attend`` route.
-    Returns (y (B,1,D), cache)."""
+    ``"full"`` and ``"prefill"``: x (B, T, D) at ``positions`` (B, T) or
+    (T,), attended whole through :func:`sdpa_any`; prefill also returns
+    the decode cache (:func:`_fill_cache`, a global row ``cache_len``
+    long), full mode None.
+
+    ``"decode"``: one token per batch entry against its cache row. x
+    (B, 1, D); positions (B, 1); pos an int or (B,) positions; cache
+    ``{"k","v"}`` (R, S, KVH, hd), entry ``i`` using row ``rows[i]``
+    (default ``i``). The new K/V is written in place at ``pos % ring`` (or
+    ``pos``) before the attend, as in the reference. ``kernel`` attends
+    through ``flash_decode``; False keeps the gather + ``_gqa_attend``
+    route."""
+    if mode in ("full", "prefill"):
+        q, k, v = _paged_qkv(p, cfg, x, positions)
+        qpos = positions[0] if positions.dim() == 2 else positions
+        out = sdpa_any(q, k, v, qpos, qpos, kind, cfg)
+        new_cache = None
+        if mode == "prefill":
+            new_cache = _fill_cache(cfg, kind, k, v, x.shape[1], cache_len)
+        return _project_out(p, out), new_cache
     if mode != "decode":
-        raise NotImplementedError(
-            f"attn_apply mode={mode!r}: ROADMAP Queue 1 item 8 (the full "
-            "and prefill modes of GQA attention)")
+        raise ValueError(f"unknown mode {mode!r}")
     dev = x.device
     pos, rows = decode_lanes(pos, rows, x.shape[0], dev)
     q, k, v = _paged_qkv(p, cfg, x, positions)
@@ -251,5 +285,52 @@ def paged_attn_decode(p, cfg, x, cache, tables, pos, kernel: bool = True):
         ck, cv = _paged_gather(cache, tables)
         kpos = torch.arange(ck.shape[1], device=x.device)
         valid = kpos[None, None, :] <= pos[:, None, None]     # (N,1,S)
+        out = _gqa_attend(q, ck, cv, valid, x.dtype)
+    return _project_out(p, out), cache
+
+
+def chunk_slots(table, t0: int, c_len: int, n_valid: int, bs: int):
+    """Where a padded prompt chunk writes: (positions (1, C) int32 at
+    t0.., pool block ids (C,), slots (C,)); the pad tokens past
+    ``n_valid`` write to scratch block 0, slot 0."""
+    idx = torch.arange(c_len, device=table.device, dtype=torch.int32)
+    p_abs = t0 + idx
+    real = idx < n_valid
+    lb = torch.clamp(p_abs // bs, 0, table.shape[0] - 1)
+    zero = torch.zeros((), dtype=torch.int32, device=table.device)
+    bids = torch.where(real, table[lb.long()].to(torch.int32), zero)
+    slots = torch.where(real, p_abs % bs, zero)
+    return p_abs[None, :], bids, slots
+
+
+def paged_attn_prefill(p, cfg, x, cache, table, t0: int, n_valid: int,
+                       kernel: bool = True):
+    """One prompt chunk of a single request through the paged pool: x
+    (1, C, D), C the padded chunk bucket whose first ``n_valid`` tokens are
+    real, at positions t0..t0+n_valid-1; table (W,) int32. The chunk's K/V
+    is written first (pad tokens to scratch block 0), then each token
+    attends up to its own position. On the kernel route each chunk token
+    is one lane of ``paged_flash_decode``'s GQA layout, every lane on the
+    request's table, so the chunk matches decoding it token by token;
+    False keeps the gather + ``_gqa_attend`` route. Returns (y (1, C, D),
+    cache)."""
+    c_len = x.shape[1]
+    positions, bids, slots = chunk_slots(table, t0, c_len, n_valid,
+                                         cache["k"].shape[1])
+    q, k, v = _paged_qkv(p, cfg, x, positions)
+    cache = _paged_scatter(cache, k[0], v[0], bids, slots)
+    if kernel:
+        _, _, h, hd = q.shape
+        kvh = cache["k"].shape[2]
+        qg = q[0].reshape(c_len, kvh, h // kvh, hd).contiguous()
+        lane_tables = table[None, :].expand(c_len, table.shape[0])
+        out = paged_flash_decode(qg, cache["k"], cache["v"],
+                                 lane_tables.contiguous(),
+                                 positions[0].contiguous())
+        out = out.reshape(1, c_len, h, hd)
+    else:
+        ck, cv = _paged_gather(cache, table[None, :])         # (1,S,KVH,hd)
+        kpos = torch.arange(ck.shape[1], device=x.device)
+        valid = kpos[None, None, :] <= positions[:, :, None]  # (1,C,S)
         out = _gqa_attend(q, ck, cv, valid, x.dtype)
     return _project_out(p, out), cache

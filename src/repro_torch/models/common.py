@@ -67,7 +67,7 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# Dense gated FFN (SwiGLU)
+# Dense gated FFN (SwiGLU / GeGLU)
 
 def ffn_init(gen, d_model: int, d_ff: int, dtype, device):
     return {
@@ -78,10 +78,16 @@ def ffn_init(gen, d_model: int, d_ff: int, dtype, device):
 
 
 def ffn_apply(p, x, kind: str = "swiglu"):
-    if kind != "swiglu":
-        raise NotImplementedError(
-            f"ffn_kind {kind!r}: ROADMAP Queue 1 item 8 (the other "
-            "architectures)")
+    """``(act(x W_gate) * x W_up) W_down``: SiLU for ``"swiglu"``, GELU for
+    ``"geglu"`` (gemma3). The GELU is the tanh form: the reference calls
+    ``jax.nn.gelu``, whose default is ``approximate=True``, while
+    ``F.gelu``'s default is the exact erf form (apart by up to ~5e-4)."""
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
-    return (F.silu(g) * u) @ p["w_down"]
+    if kind == "swiglu":
+        act = F.silu(g)
+    elif kind == "geglu":
+        act = F.gelu(g, approximate="tanh")
+    else:
+        raise ValueError(f"unknown ffn_kind {kind!r}")
+    return (act * u) @ p["w_down"]

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.paged_attention import paged_flash_decode
-from repro_torch.models.attention import sdpa_any
+from repro_torch.models.attention import chunk_slots, sdpa_any
 from repro_torch.models.common import (apply_rope, decode_lanes,
                                        dense_init, rms_norm, rms_norm_init)
 
@@ -252,17 +252,10 @@ def mla_paged_prefill(p, cfg, x, cache, table, t0: int, n_valid: int,
     ``n_valid`` tokens are real at positions t0..t0+n_valid-1, pads write
     to the scratch block. On the kernel route each chunk token is a lane."""
     c_len = x.shape[1]
-    bs = cache["lat"].shape[1]
-    idx = torch.arange(c_len, device=x.device, dtype=torch.int32)
-    positions = (t0 + idx)[None, :]                           # (1,C)
+    positions, bids, slots = chunk_slots(table, t0, c_len, n_valid,
+                                         cache["lat"].shape[1])
     q_nope, q_rope = _project_q(p, cfg, x, positions)
     ckv_new, krope_new = _project_ckv(p, cfg, x, positions)
-    real = idx < n_valid
-    p_abs = t0 + idx
-    lb = torch.clamp(p_abs // bs, 0, table.shape[0] - 1)
-    zero = torch.zeros((), dtype=torch.int32, device=x.device)
-    bids = torch.where(real, table[lb.long()], zero)
-    slots = torch.where(real, p_abs % bs, zero)
     cache = _mla_paged_scatter(cache, ckv_new[0], krope_new[0], bids, slots)
     if not kernel:
         c, r = _mla_paged_gather(cache, table[None, :], cfg.mla.kv_lora_rank)

@@ -1,18 +1,23 @@
 """Public model facade: ``build_model(cfg)`` -> a decoder whose ``init``
 draws every weight from an explicit ``torch.Generator`` onto a device, and
-whose ``forward``/``prefill``/``decode_step``/``init_decode_state`` take
-the reference facade's arguments and keep its decode state
-``{"pos", "caches"}`` (``caches`` one entry per layer here).
+whose ``forward``/``loss_fn``/``prefill``/``decode_step``/
+``init_decode_state`` take the reference facade's arguments and keep its
+decode state ``{"pos", "caches"}`` (``caches`` one entry per layer here).
 
-The facade's whole-sequence paths run the layer kinds that
-``transformer.block_apply`` ports in them: ``forward``, ``loss_fn`` and
-``prefill`` run ``ssd`` and MLA stacks (DeepSeek-V2-Lite and -236B, with
-the capacity-dispatch MoE of training; MLA's prefill hands
-``decode_step`` latent rows padded to ``cache_len``).
-``init_decode_state`` and ``decode_step`` also run MLA stacks on
-contiguous latent rows with every expert on the device, as trace
-collection does; the offloaded engines serve the MoE attention decoders
-through their per-layer row and paged halves.
+It builds Mamba-2 SSD stacks (mamba2) and attention decoders, MoE or
+dense, whose layers are MLA (DeepSeek-V2-Lite and -236B) or GQA with
+global, local or chunked masking (Llama-4-Scout, yi, internlm2, phi3,
+gemma3, pixtral). The whole-sequence paths run the capacity-dispatch MoE
+of training; ``prefill`` hands ``decode_step`` each layer's decode cache
+(MLA latent rows and global K/V rows padded to ``cache_len``, local and
+chunked rings, SSD states), and ``decode_step`` runs contiguous rows with
+every expert on the device, as trace collection does. A vision config
+(``frontend="vision"``) takes ``batch["patches"]`` (B, S_m,
+``frontend_dim``) in ``forward``, ``loss_fn`` and ``prefill``: the
+projected patches are prepended to the tokens (early fusion), the loss
+scores the text alone, and decoding goes on from position S_m + T, text
+only. The offloaded engines serve the MoE attention decoders through
+their per-layer row and paged halves.
 """
 from __future__ import annotations
 
@@ -61,11 +66,13 @@ def _xent_chunked(x, labels, unembed_fn):
     return -tot / (b * t)
 
 
-def _tokens(params, batch) -> torch.Tensor:
-    if batch.get("patches") is not None:
-        raise NotImplementedError(
-            "the vision early-fusion prefix: ROADMAP Queue 1 item 8")
-    return torch.as_tensor(batch["tokens"], device=params["tok_emb"].device)
+def _inputs(params, batch):
+    """(tokens, patches or None) of a batch, on the parameters' device."""
+    dev = params["tok_emb"].device
+    patches = batch.get("patches")
+    return (torch.as_tensor(batch["tokens"], device=dev),
+            None if patches is None else torch.as_tensor(patches,
+                                                         device=dev))
 
 
 @dataclass
@@ -86,23 +93,26 @@ class Model:
                                        expert_device)
 
     def forward(self, params, batch) -> torch.Tensor:
-        """batch {"tokens": (B, T)} -> float32 logits (B, T, V)."""
-        logits, _, _ = transformer.lm_apply(params, self.cfg,
-                                            _tokens(params, batch), "full")
+        """batch {"tokens": (B, T)[, "patches": (B, S_m, F)]} -> float32
+        logits (B, S_m + T, V) over the fused sequence."""
+        tokens, patches = _inputs(params, batch)
+        logits, _, _ = transformer.lm_apply(params, self.cfg, tokens, "full",
+                                            modality=patches)
         return logits
 
     def loss_fn(self, params, batch):
-        """batch {"tokens": (B, T)} -> (loss, {"xent", "moe_aux"}): the
-        mean next-token cross-entropy (sequence-chunked when the
-        (B, T-1, V) logits would pass ``_XENT_CHUNK_BUDGET`` entries)
-        plus ``router_aux_coef`` times the load-balance loss of
-        ``transformer.collect_moe_aux``. Differentiable with autograd."""
+        """batch {"tokens": (B, T)[, "patches"]} -> (loss, {"xent",
+        "moe_aux"}): the mean next-token cross-entropy over the text
+        region (sequence-chunked when the (B, T-1, V) logits would pass
+        ``_XENT_CHUNK_BUDGET`` entries) plus ``router_aux_coef`` times the
+        load-balance loss of ``transformer.collect_moe_aux``.
+        Differentiable with autograd."""
         cfg = self.cfg
-        tokens = _tokens(params, batch)
-        x = transformer.embed(params, cfg, tokens)
+        tokens, patches = _inputs(params, batch)
+        x, n_prefix = transformer.embed(params, cfg, tokens, patches)
         x, _, extras = transformer.stack_apply(params["layers"], cfg, x,
                                                "full")
-        xt, labels = x[:, :-1], tokens[:, 1:]
+        xt, labels = x[:, n_prefix:][:, :-1], tokens[:, 1:]
         if xt.shape[0] * xt.shape[1] * cfg.vocab_size > _XENT_CHUNK_BUDGET:
             loss = _xent_chunked(
                 xt, labels, lambda h: transformer.unembed(params, cfg, h))
@@ -113,21 +123,27 @@ class Model:
         return loss + coef * aux, {"xent": loss, "moe_aux": aux}
 
     def prefill(self, params, batch, cache_len: int):
-        """-> (last-position logits (B, V), decode state). Only the last
-        position is unembedded: the full-vocabulary logits of a long
-        prompt are never built. ``cache_len`` sizes an MLA layer's latent
-        rows (the prompt's, zero past it); an SSD layer's state has no
-        length."""
-        tokens = _tokens(params, batch)
+        """-> (last-position logits (B, V), decode state at position
+        S_m + T). Only the last position is unembedded: the
+        full-vocabulary logits of a long prompt are never built.
+        ``cache_len`` sizes MLA latent rows and global K/V rows (the
+        prompt's, zero past it); rings and SSD states have their own
+        sizes."""
+        tokens, patches = _inputs(params, batch)
         logits, caches, _ = transformer.lm_apply(
             params, self.cfg, tokens, "prefill", last_only=True,
-            cache_len=cache_len)
-        return logits[:, -1], {"pos": tokens.shape[1], "caches": caches}
+            cache_len=cache_len, modality=patches)
+        n_prefix = 0 if patches is None or self.cfg.frontend != "vision" \
+            else patches.shape[1]
+        return logits[:, -1], {"pos": n_prefix + tokens.shape[1],
+                               "caches": caches}
 
     def decode_step(self, params, state, batch):
-        """batch {"tokens": (B, 1)} -> (logits (B, V), next state)."""
+        """batch {"tokens": (B, 1)} -> (logits (B, V), next state); text
+        only, as in the reference."""
+        tokens, _ = _inputs(params, batch)
         logits, caches, _ = transformer.lm_apply(
-            params, self.cfg, _tokens(params, batch), "decode",
+            params, self.cfg, tokens, "decode",
             caches=state["caches"], pos=state["pos"])
         return logits[:, -1], {"pos": state["pos"] + 1, "caches": caches}
 
@@ -140,17 +156,18 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """Stacks whose every layer is ``ssd`` (mamba2), and MoE decoders whose
-    layers are attention kinds (MLA with a direct or a compressed q
-    projection, or GQA with global/local/chunked masking). Dense attention
-    decoders, ``rglru`` and encoder-decoder models raise
-    ``NotImplementedError`` naming their ROADMAP item (Queue 1 item 8)."""
+    """Stacks whose every layer is ``ssd`` (mamba2), and decoders, MoE or
+    dense, whose layers are attention kinds (MLA with a direct or a
+    compressed q projection, or GQA with global/local/chunked masking),
+    with a text or vision frontend. ``rglru`` layers and audio
+    (encoder-decoder) models raise ``NotImplementedError`` naming their
+    ROADMAP item (Queue 1 item 8)."""
     kinds = set(cfg.layer_kinds())
     ssm_stack = kinds == {"ssd"} and cfg.ssm is not None
-    moe_attn = cfg.moe is not None and kinds <= {"mla", *transformer.GQA_KINDS}
-    if not (ssm_stack or moe_attn):
+    attn_stack = kinds <= {"mla", *transformer.GQA_KINDS}
+    if not (ssm_stack or attn_stack) or cfg.frontend == "audio":
         raise NotImplementedError(
-            f"{cfg.name}: only Mamba-2 SSD stacks and MoE decoders with "
+            f"{cfg.name}: only Mamba-2 SSD stacks and decoders with "
             "MLA/global/local/chunked attention are ported (ROADMAP Queue 1 "
-            "item 8: the other architectures)")
+            "item 8: rglru, cross-attention and encoder-decoder models)")
     return Model(cfg)

@@ -1,17 +1,17 @@
 """Decoder assembly: per-layer params (a plain list, not the reference's
 scan-stacked pytree — ``convert.py`` unstacks it), the attention halves of
-a serving decode step (contiguous rows and block-paged pools), the
-whole-block ``block_apply``/``stack_apply`` of the model facade, embed and
+a serving decode step (contiguous rows and block-paged pools) and of a
+paged prefill chunk, the whole-block ``block_apply``/``stack_apply`` of
+the model facade, embed (with the vision early-fusion prefix) and
 unembed.
 
-Layer kinds ported: ``mla``, ``global``, ``local``, ``chunked`` (the
-engines' decode halves), ``mla`` whole blocks in full mode (training,
-capacity-dispatch MoE, the load-balance loss and routed ids in
-``extras``), prefill mode (the same, returning the contiguous latent
-cache) and decode mode (the batch-1 decode of trace collection, routed
-ids in ``extras``) and ``ssd`` (the facade's full, prefill and decode
-modes); ``rglru`` raises ``NotImplementedError`` naming its ROADMAP
-item.
+Layer kinds ported: ``mla`` and the GQA kinds ``global``, ``local`` and
+``chunked`` (the engines' halves; whole blocks in full mode — training,
+the capacity-dispatch MoE, its load-balance loss and routed ids in
+``extras`` — in prefill mode, the same returning the decode cache, and in
+decode mode, the batch-1 decode of trace collection) and ``ssd`` (the
+facade's full, prefill and decode modes). ``rglru`` raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from repro_torch.models.common import (dense_init, dtype_of, ffn_apply,
 Params = Dict[str, Any]
 
 _TODO_KINDS = ("layer kind {!r} is not ported yet (ROADMAP Queue 1 item 8: "
-               "the other attention modes and architectures)")
+               "rglru, cross-attention and encoder-decoder models)")
 GQA_KINDS = ("global", "local", "chunked")
 
 # Attention kinds whose decode KV grows with the sequence: these page
@@ -147,18 +147,20 @@ def block_paged_decode(p, cfg, kind: str, x, cache, tables, pos,
 
 def block_paged_prefill(p, cfg, kind: str, x, cache, table, t0: int,
                         n_valid: int, kernel: bool = True):
-    """Attention half of one paged prefill chunk of a single request.
-    x (1,C,D); table (W,). Returns (x, cache). Only MLA stacks prefill in
-    chunks here: a global layer's ``paged_attn_prefill`` is ROADMAP work,
-    and a stack with ring layers streams its prompts token by token."""
-    if kind != "mla":
-        raise NotImplementedError(
-            f"chunked prefill of layer kind {kind!r}: ROADMAP Queue 1 item 8 "
-            "(paged_attn_prefill, the other attention modes and "
-            "architectures)")
+    """Attention half of one paged prefill chunk of a single request
+    (ln1 + attend + residual): x (1,C,D); table (W,). Chunk tokens are
+    kernel lanes on the request's table, so the stream matches decode.
+    Only the paged kinds prefill in chunks: a stack with ring layers
+    streams its prompts token by token. Returns (x, cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    o, cache = mla.mla_paged_prefill(p["attn"], cfg, h, cache, table, t0,
-                                     n_valid, kernel=kernel)
+    if kind == "mla":
+        o, cache = mla.mla_paged_prefill(p["attn"], cfg, h, cache, table,
+                                         t0, n_valid, kernel=kernel)
+    elif kind == "global":
+        o, cache = attn.paged_attn_prefill(p["attn"], cfg, h, cache, table,
+                                           t0, n_valid, kernel=kernel)
+    else:
+        raise ValueError(f"layer kind {kind!r} does not page")
     return x + o, cache
 
 
@@ -171,56 +173,69 @@ def block_paged_copy(cfg, kind: str, cache, src: int, dst: int):
     raise ValueError(f"layer kind {kind!r} does not page")
 
 
+def _ffn_half(p, cfg, x, mode: str):
+    """ln2, then the dense FFN or the MoE, and the residual: the capacity
+    dispatch of :func:`moe.moe_apply` in full and prefill mode (the
+    reference's ``moe_apply(decode=False)``), :func:`moe.moe_decode` with
+    every expert on the device in decode mode. Returns (x, extras)."""
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" not in p:
+        return x + ffn_apply(p["ffn"], h, cfg.ffn_kind), {}
+    if mode == "decode":
+        y, idx = moe.moe_decode(p["moe"], cfg, h)
+        return x + y, {"experts": idx}
+    y, aux, idx = moe.moe_apply(p["moe"], cfg, h)
+    return x + y, {"moe_aux": aux, "experts": idx}
+
+
 def block_apply(p, cfg, kind: str, x, mode: str, cache=None, pos=None,
                 cache_len: int = 0):
     """One whole block in ``mode`` "full", "prefill" or "decode", as the
     reference's ``block_apply``. Returns (x, new_cache, extras), where an
-    MoE layer's ``extras["experts"]`` holds its routed ids (B, T, k).
+    MoE layer's ``extras["experts"]`` holds its routed ids (B, T, k) and,
+    in full and prefill mode, ``extras["moe_aux"]`` its load-balance loss.
 
     ``ssd`` runs in every mode (it reads neither positions nor ``pos``).
-    ``mla`` runs in full mode (x (B, T, D) at positions 0..T-1, then its
-    dense FFN or the capacity dispatch of :func:`moe.moe_apply`, whose
-    load-balance loss goes to ``extras["moe_aux"]``), in prefill mode (the
-    same, and its latent cache padded to ``cache_len`` positions) and in
-    decode mode: x (B, 1, D) against contiguous latent rows, entry ``i``
-    on row ``i`` at position ``pos[i]`` (``pos`` a (B,) int32 tensor),
-    then its dense FFN or :func:`moe.moe_decode` with every expert on the
-    device. The other kinds serve through the engines' halves above."""
-    if kind == "mla" and mode in ("full", "prefill"):
+    The attention kinds (``mla``, ``global``, ``local``, ``chunked``) run
+    in full mode (x (B, T, D) at positions 0..T-1, then the FFN half of
+    :func:`_ffn_half`), in prefill mode (the same, and the layer's decode
+    cache: MLA's latent rows and a global row padded to ``cache_len``
+    positions, a ring of its window or chunk) and in decode mode: x
+    (B, 1, D) against contiguous rows, entry ``i`` on row ``i`` at
+    position ``pos[i]`` (``pos`` a (B,) int32 tensor), through
+    :func:`block_row_decode`."""
+    if kind == "ssd":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if mode == "decode":
+            out, new_cache = ssd.ssd_step(p["ssd"], cfg, h, cache)
+        elif mode == "prefill":
+            out, new_cache = ssd.ssd_apply_full(p["ssd"], cfg, h,
+                                                return_state=True)
+        elif mode == "full":
+            out, new_cache = ssd.ssd_apply_full(p["ssd"], cfg, h), None
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
+        return x + out, new_cache, {}                # no FFN sub-block
+    if kind != "mla" and kind not in GQA_KINDS:
+        raise NotImplementedError(_TODO_KINDS.format(kind))
+    if mode == "decode":
+        x, new_cache = block_row_decode(p, cfg, kind, x, cache, None, pos)
+    elif mode in ("full", "prefill"):
         b, t, _ = x.shape
         positions = torch.arange(t, device=x.device).expand(b, t)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        o, new_cache = mla.mla_apply(p["attn"], cfg, h, positions, mode,
-                                     cache_len=cache_len)
+        if kind == "mla":
+            o, new_cache = mla.mla_apply(p["attn"], cfg, h, positions, mode,
+                                         cache_len=cache_len)
+        else:
+            o, new_cache = attn.attn_apply(p["attn"], cfg, kind, h,
+                                           positions, mode,
+                                           cache_len=cache_len)
         x = x + o
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        if "moe" in p:
-            y, aux, idx = moe.moe_apply(p["moe"], cfg, h)
-            return x + y, new_cache, {"moe_aux": aux, "experts": idx}
-        return x + ffn_apply(p["ffn"], h, cfg.ffn_kind), new_cache, {}
-    if kind == "mla" and mode == "decode":
-        x, cache = block_row_decode(p, cfg, kind, x, cache, None, pos)
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        if "moe" in p:
-            y, idx = moe.moe_decode(p["moe"], cfg, h)
-            return x + y, cache, {"experts": idx}
-        return x + ffn_apply(p["ffn"], h, cfg.ffn_kind), cache, {}
-    if kind != "ssd":
-        raise NotImplementedError(
-            f"block_apply of layer kind {kind!r} in mode {mode!r}: ROADMAP "
-            "Queue 1 item 8 (full and prefill attention, the other "
-            "architectures)")
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if mode == "decode":
-        out, new_cache = ssd.ssd_step(p["ssd"], cfg, h, cache)
-    elif mode == "prefill":
-        out, new_cache = ssd.ssd_apply_full(p["ssd"], cfg, h,
-                                            return_state=True)
-    elif mode == "full":
-        out, new_cache = ssd.ssd_apply_full(p["ssd"], cfg, h), None
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    return x + out, new_cache, {}                    # no FFN sub-block
+    x, extras = _ffn_half(p, cfg, x, mode)
+    return x, new_cache, extras
 
 
 def stack_cache_init(cfg, batch: int, cache_len: int, dtype, device) -> list:
@@ -269,8 +284,9 @@ def collect_moe_aux(cfg, extras) -> torch.Tensor:
 def lm_init(gen: torch.Generator, cfg, device, expert_device=None) -> Params:
     """{"tok_emb", "final_ln", "layers": [per-layer params]}, plus
     ``head`` unless ``cfg.tie_embeddings`` and ``frontend_proj`` when
-    ``cfg.frontend`` is set (the tree keys match the reference's; serving
-    is text-only, so nothing reads ``frontend_proj`` yet)."""
+    ``cfg.frontend`` is set (the tree keys match the reference's). The
+    facade's vision prefix reads ``frontend_proj`` (:func:`embed`); the
+    engines serve text only."""
     dtype = dtype_of(cfg)
     kinds = cfg.layer_kinds()
     p: Params = {
@@ -292,9 +308,17 @@ def lm_init(gen: torch.Generator, cfg, device, expert_device=None) -> Params:
     return p
 
 
-def embed(params, cfg, tokens):
-    """tokens (B, S) int -> (B, S, D)."""
-    return params["tok_emb"][tokens.long()]
+def embed(params, cfg, tokens, modality=None):
+    """tokens (B, S) int -> (x (B, n_prefix + S, D), n_prefix). With
+    ``modality`` (B, S_m, frontend_dim) and ``cfg.frontend == "vision"``,
+    the patches go through ``frontend_proj`` and are prepended to the
+    token embeddings (early fusion; the vision tower itself is a stub, as
+    in the reference), and ``n_prefix`` is S_m; otherwise 0."""
+    x = params["tok_emb"][tokens.long()]
+    if modality is None or cfg.frontend != "vision":
+        return x, 0
+    m = modality.to(x.dtype) @ params["frontend_proj"]
+    return torch.cat([m, x], dim=1), modality.shape[1]
 
 
 def unembed(params, cfg, x):
@@ -304,14 +328,17 @@ def unembed(params, cfg, x):
 
 
 def lm_apply(params, cfg, tokens, mode: str = "full", caches=None,
-             last_only: bool = False, pos=None, cache_len: int = 0):
-    """Embed, every layer, unembed. Returns (logits, new_caches, extras),
-    ``extras`` one dict per layer (an MoE layer's routed ids under
-    ``"experts"``). In decode mode ``pos`` is the position of the tokens,
-    an int or a (B,) tensor; prefill sizes attention caches to
-    ``cache_len``. ``last_only`` unembeds the last position alone
-    (logits (B, 1, V)), which is all prefill returns."""
-    x = embed(params, cfg, tokens)
+             last_only: bool = False, pos=None, cache_len: int = 0,
+             modality=None):
+    """Embed (the vision prefix of ``modality`` first, when given), every
+    layer, unembed. Returns (logits, new_caches, extras), ``extras`` one
+    dict per layer (an MoE layer's routed ids under ``"experts"``); the
+    positions run 0..n_prefix+T-1 across the fused sequence. In decode
+    mode ``pos`` is the position of the tokens, an int or a (B,) tensor;
+    prefill sizes global attention caches to ``cache_len``. ``last_only``
+    unembeds the last position alone (logits (B, 1, V)), which is all
+    prefill returns."""
+    x, _ = embed(params, cfg, tokens, modality)
     if mode == "decode" and pos is not None and not torch.is_tensor(pos):
         pos = torch.full((x.shape[0],), pos, dtype=torch.int32,
                          device=x.device)

@@ -376,8 +376,10 @@ class DecodeCore:
 
     @property
     def chunk_prefill_ok(self) -> bool:
-        """Chunked prefill needs every layer's state reachable through
-        block tables: ring kinds fall back to token-by-token prompts."""
+        """Every layer pages (``mla`` or ``global``), so each prompt chunk
+        goes through ``block_paged_prefill`` (``mla_paged_prefill``,
+        ``paged_attn_prefill``); a stack with ring layers (local,
+        chunked) streams its prompts token by token."""
         return all(k in T.PAGED_KINDS for k in self.kinds)
 
     def paged_block_bytes(self, caches) -> int:
@@ -682,7 +684,7 @@ class DecodeCore:
 
         t_wall = time.perf_counter()
         self._step_advanced = 0.0
-        x = T.embed(self.params, cfg, toks_p)[:, None, :]     # (nb,1,D)
+        x = T.embed(self.params, cfg, toks_p)[0][:, None, :]  # (nb,1,D)
         experts_out = [[] for _ in range(n)]
         self._submit_prefetch(policy, rids, ts, 0)
         for li in range(cfg.num_layers):
@@ -755,7 +757,7 @@ class DecodeCore:
 
         t_wall = time.perf_counter()
         self._step_advanced = 0.0
-        x = T.embed(self.params, cfg, toks_p)[None]            # (1,cb,D)
+        x = T.embed(self.params, cfg, toks_p)[0][None]         # (1,cb,D)
         experts_out: List[List[np.ndarray]] = []
         self._submit_prefetch(policy, [rid], [t0], 0)
         for li in range(cfg.num_layers):

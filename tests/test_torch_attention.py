@@ -26,6 +26,7 @@ from repro.models import mla as jmla
 from repro.models import transformer as jT
 from repro.serving.engine import unstack_layers
 from repro_torch import convert
+from repro_torch.configs import get_config as torch_get_config
 from repro_torch.configs import get_reduced as torch_get_reduced
 from repro_torch.kernels.flash_attention import flash_decode_plain
 from repro_torch.models import attention as tattn
@@ -326,13 +327,18 @@ def test_bridge_carries_llama4_tree():
             jax.tree.map(lambda t: tuple(t.shape), tl)
 
 
-def test_build_model_takes_attention_moe_decoders_only():
+def test_build_model_refuses_recurrent_and_audio_models():
+    """Attention decoders build, MoE or dense; ``rglru`` layers, an audio
+    frontend and the two configs that need them raise, naming item 8."""
     tcfg = torch_get_reduced(LLAMA4)
     assert torch_build_model(tcfg).cfg is tcfg
+    dense = tcfg.replace(moe=None)
+    assert torch_build_model(dense).cfg is dense
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
         torch_build_model(tcfg.replace(block_pattern=("rglru",)))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        torch_build_model(tcfg.replace(moe=None))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        tattn.attn_apply(None, tcfg, "global", torch.zeros(1, 2, 8), None,
-                         "prefill")
+        torch_build_model(dense.replace(frontend="audio"))
+    for arch in ("recurrentgemma-9b", "seamless-m4t-large-v2"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 8"):
+            torch_get_config(arch)

@@ -167,6 +167,8 @@ PAGED_CASES = {
     "gqa-shared-table": ("gqa", 8, 5, 16, list(range(56, 64)), 8, 128, 128,
                          True),
     "gqa-g1": ("gqa", 4, 1, 16, [95, 90, 84, 71], 8, 128, 128, False),
+    # a reduced global layer's prefill chunk: KVH 2, G 2, hd 64
+    "gqa-reduced-chunk": ("gqa", 4, 2, 8, [5, 6, 7, 8], 2, 64, 64, True),
     # 16 lanes over 64-entry tables: a split's pages exceed the kernel's
     # shared-memory stage, so each CTA stages them in turns
     "mla-long-table-stages": ("mla", 16, 16, 64,
@@ -262,6 +264,113 @@ def test_flash_decode_splits_match_plain_on_card(cuda, s_len, dtype, tol):
     assert o.shape == (n, h, hd) and o.dtype == dtype
     assert torch.equal(o, again)
     assert (o.float() - op.float()).abs().max().item() <= tol
+
+
+# the dense decoders' decode shapes at full width: (lanes, heads, kv
+# heads, hd, S, valid_len per lane)
+GQA_FLASH_CASES = {
+    "gemma3-local-ring-full": (1, 32, 16, 128, 1024, [1024]),
+    "gemma3-global-row": (2, 32, 16, 128, 1200, [1133, 1101]),
+    "phi3-hd96": (4, 32, 32, 96, 128, [96, 90, 84, 71]),
+    "yi-g8": (4, 32, 4, 128, 128, [96, 90, 8, 1]),
+    "reduced-g2": (2, 4, 2, 64, 72, [72, 9]),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", sorted(GQA_FLASH_CASES))
+def test_flash_decode_dense_decoder_shapes_on_card(cuda, case, dtype, tol):
+    """``flash_decode`` at the dense GQA decoders' shapes against its
+    plain version: gemma3's full 1,024-slot local ring (KVH 16, G 2) and
+    its global row, phi3's hd 96 (G 1), yi's G 8 (one full head group)
+    and the reduced configs' G 2, hd 64. Two calls bit-identical."""
+    n, h, kvh, hd, s_len, vls = GQA_FLASH_CASES[case]
+    gen = torch.Generator(cuda).manual_seed(6)
+    q = torch.randn(n, h, hd, generator=gen, device=cuda).to(dtype)
+    kc = torch.randn(n + 1, s_len, kvh, hd, generator=gen,
+                     device=cuda).to(dtype)
+    vc = torch.randn(n + 1, s_len, kvh, hd, generator=gen,
+                     device=cuda).to(dtype)
+    rows = torch.arange(n, 0, -1, dtype=torch.int32, device=cuda)
+    vl = torch.tensor(vls, dtype=torch.int32, device=cuda)
+    o = flash_attention.flash_decode(q, kc, vc, rows, vl)
+    op = flash_attention.flash_decode_plain(q, kc, vc, rows, vl)
+    assert torch.equal(o, flash_attention.flash_decode(q, kc, vc, rows, vl))
+    assert (o.float() - op.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "internlm2-1.8b", "phi3-mini-3.8b",
+                                  "gemma3-27b", "pixtral-12b",
+                                  "llama4-scout-17b-a16e"])
+def test_gqa_facade_on_card_matches_cpu(cuda, arch):
+    """The reduced config (f32, TF32 off) through the facade on the card
+    and on the CPU from identical weights: ``prefill`` of 2 prompts of 52
+    tokens (after 16 patches for a vision config: Scout's 64-slot chunk
+    and gemma3's 32-slot window wrap), then 6 greedy ``decode_step``s;
+    identical streams, logits within 1e-4, ``flash_decode`` launched once
+    per layer and step."""
+    cfg = get_reduced(arch)
+    model = build_model(cfg)
+    params = model.init(device="cpu")
+    g = torch.Generator().manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 52),
+                                     generator=g)}
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.randn(2, cfg.frontend_len, cfg.frontend_dim,
+                                       generator=g)
+    runs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            p = _tree_to(params, dev)
+            reset_launch_counts()
+            logits, state = model.prefill(
+                p, {k: v.to(dev) for k, v in batch.items()}, 80)
+            steps, stream = [logits.cpu()], []
+            for _ in range(6):
+                tok = logits.argmax(-1)
+                stream.append(tok.tolist())
+                logits, state = model.decode_step(p, state,
+                                                  {"tokens": tok[:, None]})
+                steps.append(logits.cpu())
+            runs[dev] = (stream, torch.stack(steps), launch_counts())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert (runs["cuda"][1] - runs["cpu"][1]).abs().max().item() <= 1e-4
+    assert runs["cuda"][2]["flash_decode"] == 6 * cfg.num_layers
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+def test_global_stack_chunked_prefill_on_card_matches_cpu(cuda, prefix):
+    """Reduced Llama-4-Scout cut to global layers through the paged engine
+    with chunked prefill (``paged_attn_prefill``: each chunk token a lane
+    of ``paged_flash_decode``), the prefix index off and on, on the card
+    and on the CPU from identical weights: identical streams and
+    counters."""
+    cfg = get_reduced("llama4-scout-17b-a16e").replace(
+        block_pattern=("global",), frontend=None)
+    model = build_model(cfg)
+    params = model.init(device="cpu")
+    prompts = [[3, 17, 5, 9, 11, 2, 8, 40, 41, 7], [3, 17, 5, 9, 11, 2, 8,
+                                                    40, 30], [99, 255, 7]]
+    outs, stats = [], []
+    for dev in ("cpu", "cuda"):
+        reset_launch_counts()
+        serve = ServeConfig(max_batch=2, block_size=4, prefix_cache=prefix)
+        eng = BatchedOffloadEngine(model, params,
+                                   NextLayerAllPolicy(cfg.moe.num_experts),
+                                   4, serve=serve, host_bw=25e9, device=dev)
+        outs.append(eng.generate(prompts, 4, 24))
+        st = eng.stats.as_dict()
+        st.pop("latency")
+        stats.append(st)
+    assert outs[0] == outs[1]
+    assert stats[0] == stats[1] and stats[1]["prefill_chunks"] > 0
+    counts = launch_counts()
+    assert counts["paged_flash_decode"] > 0 and counts["flash_decode"] == 0
 
 
 # (lanes, k, D, F, slots, slot_idx): slots shared across rows, a slot

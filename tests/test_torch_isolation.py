@@ -96,11 +96,17 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                     "repro_torch.serving.scheduler",
                                     "repro_torch.serving.expertstore",
                                     "repro_torch.launch.roofline",
-                                    "repro_torch.configs.deepseek_v2_236b"])
+                                    "repro_torch.configs.deepseek_v2_236b",
+                                    "repro_torch.configs.yi_6b",
+                                    "repro_torch.configs.internlm2_1_8b",
+                                    "repro_torch.configs.phi3_mini_3_8b",
+                                    "repro_torch.configs.gemma3_27b",
+                                    "repro_torch.configs.pixtral_12b"])
 def test_serving_modules_import_with_jax_and_reference_blocked(module):
     """The prefix index, the workload generator, the tiered expert store,
-    the roofline terms and the scheduler that drives them import in a
-    process where ``jax`` and ``repro`` cannot be imported at all."""
+    the roofline terms, the scheduler that drives them and the configs
+    copied from the reference import in a process where ``jax`` and
+    ``repro`` cannot be imported at all."""
     import subprocess
     import sys
     path = os.path.join(PORT, *module.split(".")[1:]) + ".py"

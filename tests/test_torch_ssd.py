@@ -404,11 +404,17 @@ def test_bridge_and_own_init_keep_the_tree(dtype):
             np.asarray(j["ssd"]["w_in"], np.float32))
 
 
-def test_block_apply_runs_ssd_only():
+def test_block_apply_refuses_rglru_only():
+    """``block_apply`` runs the attention kinds and ``ssd`` in every mode;
+    an ``rglru`` layer raises in each, as do its init and a stack of it,
+    naming item 8."""
     tcfg = torch_get_reduced("llama4-scout-17b-a16e")
     for mode in ("full", "prefill", "decode"):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 item 8"):
-            tT.block_apply({}, tcfg, "global", torch.zeros(1, 2, 8), mode)
+            tT.block_apply({}, tcfg, "rglru", torch.zeros(1, 2, 8), mode)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        torch_build_model(tcfg.replace(moe=None))
+        tT.block_init(None, tcfg, "rglru", False, torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        torch_build_model(tcfg.replace(moe=None,
+                                       block_pattern=("rglru", "global")))

@@ -220,7 +220,7 @@ def test_xent_chunked_matches_xent_and_reference(monkeypatch):
     ref = float(jax.jit(lambda p, tk: model.loss_fn(p, {"tokens": tk})[1][
         "xent"])(params, jnp.asarray(tok)))
     tparams, leaves = _tparams()
-    x = T_T.embed(tparams, tcfg, torch.from_numpy(tok))
+    x, _ = T_T.embed(tparams, tcfg, torch.from_numpy(tok))
     x, _, _ = T_T.stack_apply(tparams["layers"], tcfg, x, "full")
     labels = torch.from_numpy(tok)[:, 1:]
     xt = x[:, :-1]

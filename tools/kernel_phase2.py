@@ -4,7 +4,8 @@
 It builds the kernels and runs each named kernel's check from
 ``chip_smoke.py``: ``paged`` (``check_paged``: ``paged_flash_decode`` at
 every shape of ``chip_smoke.PAGED_SHAPES``), ``flash`` (``check_flash``:
-``flash_decode`` at ``chip_smoke.FLASH_SHAPES``), ``expert``
+``flash_decode`` at ``chip_smoke.FLASH_SHAPES`` and
+``FLASH_DENSE_SHAPES``), ``expert``
 (``check_expert``: ``expert_ffn`` at ``chip_smoke.EXPERT_SHAPES``), ``ssd``
 (``check_ssd``: ``ssd_chunk`` at ``chip_smoke.ssd_shapes()``, main run 3's
 G 128 and G 256 and the reduced shape) or ``topk`` (``check_topk``:
@@ -62,6 +63,11 @@ def launch_times(torch, fn):
             if e.device_type != DeviceType.CPU and e.count}
 
 
+def flash_shapes(cs) -> dict:
+    """``flash_decode``'s shapes: main run 2's, then the dense decoders'."""
+    return {**cs.FLASH_SHAPES, **cs.FLASH_DENSE_SHAPES}
+
+
 def profiled_call(torch, cs, dev, kernel, name):
     """A zero-argument call of the kernel at shape ``name``, in the type
     the main run calls it with."""
@@ -75,7 +81,8 @@ def profiled_call(torch, cs, dev, kernel, name):
         return lambda: pa.paged_flash_decode(*args, **kw)
     if kernel == "flash":
         from repro_torch.kernels import flash_attention as fa
-        args = cs.flash_inputs(torch, dev, gen, bf16, **cs.FLASH_SHAPES[name])
+        gen, shape = cs.seeded(torch, dev, gen, flash_shapes(cs)[name])
+        args = cs.flash_inputs(torch, dev, gen, bf16, **shape)
         return lambda: fa.flash_decode(*args)
     if kernel == "ssd":
         from repro_torch.kernels import ssd_chunk as sc
@@ -122,7 +129,7 @@ def main() -> None:
             shapes = cs.PAGED_SHAPES
         elif kernel == "flash":
             checks = cs.check_flash(torch, F, dev, gen)
-            shapes = cs.FLASH_SHAPES
+            shapes = flash_shapes(cs)
         elif kernel == "expert":
             checks = cs.check_expert(torch, dev, gen)
             shapes = cs.EXPERT_SHAPES

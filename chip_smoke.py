@@ -29,7 +29,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1,024-slot local ring (32 heads over 16 kv heads) and at phi3-mini's
    head width 96, ``paged_flash_decode``'s GQA layout on an 8-token
    prefill chunk of Llama-4-Scout's global layer, its lanes sharing one
-   table),
+   table; and ``flash_decode`` at recurrentgemma-9b's full 2,048-slot
+   local ring, 16 heads over one kv head at hd 256, and at seamless's
+   decode cross-attention over 512 frames),
    on rows with a tie across the
    k-th place, all values
    equal, and probabilities underflowed to 0; for all five, two calls on
@@ -194,14 +196,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    trace, and Scout cut to global layers through the paged engine's
    chunked prefill (``paged_attn_prefill``) with the prefix index off and
    on: card against CPU, identical streams, routed ids and
-   ``EngineStats``, logits within 1e-4.
+   ``EngineStats``, logits within 1e-4;
+12. facade recurrentgemma: recurrentgemma-9b at full width in bfloat16,
+   6 of 38 layers (two rglru, rglru, local groups; 2.36 B parameters):
+   2 prompts of 2,100 tokens (the RG-LRU's log-depth scan; the
+   2,048-slot local ring wraps) and 32 greedy steps, ``flash_decode``
+   exactly once a local layer and step, against ``forward``;
+13. facade seamless: seamless-m4t-large-v2 at full width and depth (24
+   encoder and 24 decoder layers, 2.04 B parameters) in bfloat16: 512
+   seeded audio frames and a 16-token prompt at B 2, 32 greedy steps,
+   ``flash_decode`` exactly twice a decoder layer and step (self- and
+   cross-attention), against ``forward``; the encoder timed alone;
+14. parity recurrent: the reduced recurrentgemma-9b and
+   seamless-m4t-large-v2 in float32 through ``prefill`` and 8 greedy
+   steps, card (``flash_decode``) against CPU (its plain version):
+   identical streams, logits within 1e-4.
 
 Phases 3' and 3a-3f are named ``serve_telemetry``, ``parity_workload``,
 ``serve_workload``, ``parity_tiers``, ``serve_tiers``, ``main_run_236b``
 and ``parity_236b`` in the output;
 phases 4a-4f ``pipeline``, ``main_run_trained``, ``parity_pipeline``,
 ``train``, ``parity_train``, ``pipeline_trained`` and ``serve_trained``;
-phases 9-11 ``facade_scout``, ``facade_gemma3`` and ``parity_gqa``.
+phases 9-14 ``facade_scout``, ``facade_gemma3``, ``parity_gqa``,
+``facade_recurrentgemma``, ``facade_seamless`` and ``parity_recurrent``.
 Host memory:
 about 26 GB for main run 2's pinned experts, ~38.7 GB for main run 236B's
 (each main run's pinned blocks
@@ -215,8 +232,8 @@ four attention and MoE kernels, mamba2's for ``ssd_chunk``;
 ``launches_by_run`` has every main run's, main_run_236b's and the
 serve_telemetry,
 serve_workload, serve_tiers, pipeline, main_run_trained, train,
-pipeline_trained, serve_trained, facade_scout and facade_gemma3
-phases'), and
+pipeline_trained, serve_trained, facade_scout, facade_gemma3,
+facade_recurrentgemma and facade_seamless phases'), and
 before that ``{"launch_floor_ms": ...}`` and the phases' summaries. Details go to
 ``chiprun_out/chip_smoke.json``.
 This script imports nothing of JAX or of the reference package.
@@ -493,12 +510,20 @@ def paged_case(torch, F, dev, gen, pa, kvh, g, dk, dv, gqa, qk,
 # each timed in bfloat16, its inputs from a generator of its own):
 # facade_gemma3's decode on the full 1,024-slot local ring (1 lane, 32
 # heads over 16 kv heads) and phi3-mini's head width 96 (32 heads, 32 kv
-# heads, 4 lanes on rows of cache_len 128)
+# heads, 4 lanes on rows of cache_len 128); then facade_recurrentgemma's
+# decode on the full 2,048-slot local ring (2 lanes, 16 heads over one kv
+# head at hd 256, the kernel's widest: two head groups) and
+# facade_seamless's decode cross-attention over 512 frames (2 lanes, 16
+# heads over 16 kv heads, hd 64; every key live)
 FLASH_SHAPES = {"ring": dict(s_len=8192), "global": dict(s_len=128)}
 FLASH_DENSE_SHAPES = {
     "gemma3_ring": dict(s_len=1024, vl_list=(1024,), n=1, h=32, kvh=16,
                         hd=128, rows=(1,), seed=SEED + 40),
     "phi3_hd96": dict(s_len=128, n=4, h=32, kvh=32, hd=96, seed=SEED + 41),
+    "recurrentgemma_ring": dict(s_len=2048, vl_list=(2048, 2048), n=2, h=16,
+                                kvh=1, hd=256, rows=(1, 0), seed=SEED + 60),
+    "seamless_cross": dict(s_len=512, vl_list=(512, 512), n=2, h=16, kvh=16,
+                           hd=64, rows=(0, 1), seed=SEED + 61),
 }
 
 
@@ -3126,6 +3151,22 @@ FACADE_SCOUT = dict(layers=4, batch=2, patches=256, prompt=64, cache_len=512,
 FACADE_GEMMA3 = dict(layers=6, batch=1, prompt=1100, cache_len=1200,
                      steps=32, compared=8)
 
+# phases 12-14: the RG-LRU block and the encoder-decoder with
+# cross-attention. facade_recurrentgemma: recurrentgemma-9b at full width,
+# 6 of 38 layers (two rglru, rglru, local groups); the 2,100-token prompt
+# wraps the 2,048-slot local ring
+FACADE_RECURRENTGEMMA = dict(layers=6, batch=2, prompt=2100, cache_len=2132,
+                             steps=32, compared=8)
+# facade_seamless: seamless-m4t-large-v2 at full width and depth (24
+# encoder and 24 decoder layers), 512 audio frames of width 1,024 a prompt
+FACADE_SEAMLESS = dict(layers=24, batch=2, frames=512, prompt=16,
+                       cache_len=48, steps=32, compared=8)
+# parity_recurrent: both reduced configs, prompts of PARITY_RECURRENT_TEXT
+# tokens (past recurrentgemma's 32-slot window), greedy steps
+RECURRENT_ARCHS = ("recurrentgemma-9b", "seamless-m4t-large-v2")
+PARITY_RECURRENT_TEXT, PARITY_RECURRENT_STEPS, PARITY_RECURRENT_TOL = \
+    52, 8, 1e-4
+
 
 def facade_against_forward(torch, model, params, batch, toks, outs,
                            compared, label):
@@ -3147,18 +3188,23 @@ def facade_against_forward(torch, model, params, batch, toks, outs,
             .mean().item()}
 
 
-def facade_run(torch, np, dev, label, cfg, c, patches_dim=None,
-               trace=None):
+def facade_run(torch, np, dev, label, cfg, c, modality=None, trace=None):
     """Seeded weights on the card at ``cfg``'s full width, then
-    ``c["batch"]`` prompts (after ``c["patches"]`` random patches when
-    ``patches_dim``) through ``greedy``, compared with ``forward``;
-    launches counted over prefill and decode (``want``, per kernel), then
-    over ``trace`` = (prompt length, new tokens) through ``collect_trace``
-    at batch 1. Fails on non-finite logits, a decode position off the
-    fused length or a launch count off its expected value."""
+    ``c["batch"]`` prompts through ``greedy``, compared with ``forward``;
+    ``modality`` maps a batch key (``"patches"``: a vision prefix before
+    the prompt; ``"frames"``: an encoder-decoder's audio frames) to its
+    width, ``c[key]`` random rows of it a prompt. Launches are counted
+    over prefill and decode (``want``, per kernel: ``flash_decode`` once
+    an attention layer and step, twice a decoder layer of an
+    encoder-decoder, for its self- and cross-attention), then over
+    ``trace`` = (prompt length, new tokens) through ``collect_trace`` at
+    batch 1. An encoder-decoder's encoder is also timed alone
+    (``encoder_s``). Fails on non-finite logits, a decode position off
+    the fused length or a launch count off its expected value."""
     from repro_torch.configs import get_config
     from repro_torch.core.tracing import collect_trace, moe_layer_ids
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import encdec
     from repro_torch.models.model import build_model
 
     model = build_model(cfg)
@@ -3172,11 +3218,10 @@ def facade_run(torch, np, dev, label, cfg, c, patches_dim=None,
     batch = {"tokens": torch.randint(0, cfg.vocab_size,
                                      (c["batch"], c["prompt"]),
                                      generator=gen, device=dev)}
-    n_prefix = 0
-    if patches_dim is not None:
-        n_prefix = c["patches"]
-        batch["patches"] = torch.randn(c["batch"], n_prefix, patches_dim,
-                                       generator=gen, device=dev)
+    for key, width in (modality or {}).items():
+        batch[key] = torch.randn(c["batch"], c[key], width, generator=gen,
+                                 device=dev)
+    n_prefix = c["patches"] if "patches" in batch else 0
     greedy(torch, model, params, batch, 2, c["cache_len"])   # warm-up
     reset_launch_counts()
     toks, outs, state, prefill_s, decode_s = greedy(
@@ -3188,7 +3233,9 @@ def facade_run(torch, np, dev, label, cfg, c, patches_dim=None,
         fail(f"{label}: decode state at {state['pos']}")
     n_moe = len(moe_layer_ids(cfg)) if cfg.moe else 0
     want = {k: 0 for k in launches}
-    want["flash_decode"] = cfg.num_layers * c["steps"]
+    want["flash_decode"] = c["steps"] * (
+        2 * cfg.num_layers if cfg.encdec is not None
+        else sum(k not in ("rglru", "ssd") for k in cfg.layer_kinds()))
     if n_moe:   # the prefill's router once a MoE layer, decode's each step
         want["expert_ffn"] = n_moe * c["steps"]
         want["topk_gating"] = n_moe * (c["steps"] + 1)
@@ -3199,6 +3246,7 @@ def facade_run(torch, np, dev, label, cfg, c, patches_dim=None,
     result = {"config": cfg.name, "dtype": cfg.dtype,
               "layers": cfg.num_layers,
               "full_depth": get_config(cfg.name).num_layers,
+              "params": sum(t.numel() for t in tensors(params)),
               "param_bytes_on_device": param_bytes, "init_s": init_s,
               **c, "n_prefix": n_prefix, "prefill_s": prefill_s,
               "prefill_tokens_per_s": c["batch"] * (n_prefix + c["prompt"])
@@ -3207,6 +3255,10 @@ def facade_run(torch, np, dev, label, cfg, c, patches_dim=None,
               "decode_tokens_per_s": c["batch"] * c["steps"] / decode_s,
               "launches": launches, "vs_forward": vs_forward,
               "stream_head": toks[:, :8].tolist()}
+    if cfg.encdec is not None:
+        t0 = time.perf_counter()
+        encdec.encoder_apply(params["encoder"], cfg, batch["frames"])
+        result["encoder_s"] = since(torch, t0)
     if trace is not None:
         plen, new = trace
         prompt = torch.randint(0, cfg.vocab_size, (plen,), generator=gen,
@@ -3253,7 +3305,8 @@ def facade_scout_run(torch, np, dev):
                               capacity_factor=float(cfg.moe.num_experts))
     cfg = cfg.replace(num_layers=c["layers"], moe=moe)
     result, launches = facade_run(
-        torch, np, dev, "facade_scout", cfg, c, patches_dim=cfg.frontend_dim,
+        torch, np, dev, "facade_scout", cfg, c,
+        modality={"patches": cfg.frontend_dim},
         trace=(c["trace_prompt"], c["trace_new"]))
     result["capacity_factor"] = moe.capacity_factor
     return result, launches
@@ -3268,6 +3321,32 @@ def facade_gemma3_run(torch, np, dev):
     cfg = get_config("gemma3-27b").replace(
         num_layers=FACADE_GEMMA3["layers"])
     return facade_run(torch, np, dev, "facade_gemma3", cfg, FACADE_GEMMA3)
+
+
+def facade_card_vs_cpu(torch, dev, label, model, params, batch, steps,
+                       cache_len, tol):
+    """``greedy`` of ``batch`` (CPU tensors) with ``params`` (drawn for
+    the CPU) on the card, then on the CPU; fails unless the streams and
+    final positions are identical and the logits agree within ``tol``.
+    Returns (the stream, the max abs logit difference, the final
+    position, the card run's launches)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    runs = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        reset_launch_counts()
+        toks, outs, state, _, _ = greedy(
+            torch, model, to_device(params, d),
+            {k: v.to(d) for k, v in batch.items()}, steps, cache_len)
+        runs[where] = (toks.tolist(), outs.cpu(), state["pos"],
+                       launch_counts())
+    if runs["card"][0] != runs["cpu"][0] or runs["card"][2] != runs["cpu"][2]:
+        fail(f"{label}: GPU/CPU streams differ: {runs['card'][0]} vs "
+             f"{runs['cpu'][0]}")
+    err = (runs["card"][1] - runs["cpu"][1]).abs().max().item()
+    if not err <= tol:
+        fail(f"{label}: logits differ by {err} > {tol}")
+    return runs["card"][0], err, runs["card"][2], runs["card"][3]
 
 
 def parity_run_gqa(torch, np, dev):
@@ -3304,29 +3383,15 @@ def parity_run_gqa(torch, np, dev):
         if n_prefix:
             batch["patches"] = torch.randn(2, n_prefix, cfg.frontend_dim,
                                            generator=gen)
-        runs = {}
-        for where, d in (("card", dev), ("cpu", cpu)):
-            reset_launch_counts()
-            toks, outs, state, _, _ = greedy(
-                torch, model, to_device(params, d),
-                {k: v.to(d) for k, v in batch.items()}, PARITY_GQA_STEPS,
-                n_prefix + PARITY_GQA_TEXT + PARITY_GQA_STEPS + 1)
-            runs[where] = (toks.tolist(), outs.cpu(), state["pos"])
-            if where == "card":
-                for k, v in launch_counts().items():
-                    card_launches[k] = card_launches.get(k, 0) + v
-        if runs["card"][0] != runs["cpu"][0] or runs["card"][2] != \
-                runs["cpu"][2]:
-            fail(f"parity_gqa {arch}: GPU/CPU streams differ: "
-                 f"{runs['card'][0]} vs {runs['cpu'][0]}")
-        err = (runs["card"][1] - runs["cpu"][1]).abs().max().item()
-        if not err <= PARITY_GQA_TOL:
-            fail(f"parity_gqa {arch}: logits differ by {err} > "
-                 f"{PARITY_GQA_TOL}")
+        stream, err, pos, lc = facade_card_vs_cpu(
+            torch, dev, f"parity_gqa {arch}", model, params, batch,
+            PARITY_GQA_STEPS,
+            n_prefix + PARITY_GQA_TEXT + PARITY_GQA_STEPS + 1, PARITY_GQA_TOL)
+        for k, v in lc.items():
+            card_launches[k] = card_launches.get(k, 0) + v
         errs.append(err)
-        out["facade"][arch] = {"max_abs_logit_err": err,
-                               "pos": runs["card"][2],
-                               "stream_head": runs["card"][0][0][:4]}
+        out["facade"][arch] = {"max_abs_logit_err": err, "pos": pos,
+                               "stream_head": stream[0][:4]}
 
     cfg = get_reduced(LLAMA4)
     model = build_model(cfg)
@@ -3390,6 +3455,78 @@ def parity_run_gqa(torch, np, dev):
             fail(f"parity_gqa never launched the {name} kernel")
     out.update(identical=True, max_abs_logit_err=max(errs),
                tolerance=PARITY_GQA_TOL, card_launches=card_launches)
+    return out
+
+
+def facade_recurrentgemma_run(torch, np, dev):
+    """Phase 12: recurrentgemma-9b through the facade at full width,
+    bfloat16, ``FACADE_RECURRENTGEMMA``: 2 prompts of 2,100 tokens (the
+    RG-LRU blocks' log-depth scan, the 2,048-slot local ring wraps) and
+    32 greedy decode steps (``flash_decode`` on the two local layers,
+    hd 256 over one kv head; the RG-LRU's O(1) step), compared with
+    ``forward``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("recurrentgemma-9b").replace(
+        num_layers=FACADE_RECURRENTGEMMA["layers"])
+    return facade_run(torch, np, dev, "facade_recurrentgemma", cfg,
+                      FACADE_RECURRENTGEMMA)
+
+
+def facade_seamless_run(torch, np, dev):
+    """Phase 13: seamless-m4t-large-v2 through the facade at full width
+    and depth, bfloat16, ``FACADE_SEAMLESS``: 512 seeded audio frames and
+    a 16-token prompt at B 2 (the bidirectional encoder, the cross
+    memory, the decoder's prefill), then 32 greedy decode steps, each
+    decoder layer's self-attention and cross-attention through
+    ``flash_decode``; compared with ``forward``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("seamless-m4t-large-v2")
+    return facade_run(torch, np, dev, "facade_seamless", cfg,
+                      FACADE_SEAMLESS, modality={"frames": cfg.frontend_dim})
+
+
+def parity_run_recurrent(torch, np, dev):
+    """Phase 14: the reduced recurrentgemma-9b and seamless-m4t-large-v2
+    in float32 (TF32 off), card against CPU from weights drawn on the
+    card: ``prefill`` of 2 prompts of ``PARITY_RECURRENT_TEXT`` tokens
+    (with the config's frames for seamless) and
+    ``PARITY_RECURRENT_STEPS`` greedy ``decode_step``s. Identical
+    streams, logits within ``PARITY_RECURRENT_TOL``; the card's decode
+    through ``flash_decode`` (once a local layer and step; twice a
+    seamless decoder layer and step), the CPU's through its plain
+    version."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.model import build_model
+
+    out, errs = {}, []
+    steps, text = PARITY_RECURRENT_STEPS, PARITY_RECURRENT_TEXT
+    for i, arch in enumerate(RECURRENT_ARCHS):
+        cfg = get_reduced(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(dev).manual_seed(SEED + 62 + i),
+                            device="cpu")             # drawn on the card
+        gen = torch.Generator().manual_seed(SEED + 62 + i)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, text),
+                                         generator=gen)}
+        if cfg.encdec is not None:
+            batch["frames"] = torch.randn(2, cfg.frontend_len,
+                                          cfg.frontend_dim, generator=gen)
+        stream, err, pos, lc = facade_card_vs_cpu(
+            torch, dev, f"parity_recurrent {arch}", model, params, batch,
+            steps, text + steps + 1, PARITY_RECURRENT_TOL)
+        want = steps * (2 * cfg.num_layers if cfg.encdec is not None else
+                        sum(k == "local" for k in cfg.layer_kinds()))
+        if lc["flash_decode"] != want or any(
+                v for k, v in lc.items() if k != "flash_decode"):
+            fail(f"parity_recurrent {arch}: card launches {lc}, want "
+                 f"{want} flash_decode")
+        errs.append(err)
+        out[arch] = {"max_abs_logit_err": err, "pos": pos,
+                     "card_launches": lc, "stream_head": stream[0][:4]}
+    out.update(identical=True, max_abs_logit_err=max(errs),
+               tolerance=PARITY_RECURRENT_TOL)
     return out
 
 
@@ -3525,6 +3662,13 @@ def main() -> None:
         ("facade_gemma3", "gemma3-27b",
          lambda: facade_gemma3_run(torch, np, dev), "facade_gemma3"),
         ("parity_gqa", LLAMA4, lambda: parity_run_gqa(torch, np, dev), None),
+        ("facade_recurrentgemma", "recurrentgemma-9b",
+         lambda: facade_recurrentgemma_run(torch, np, dev),
+         "facade_recurrentgemma"),
+        ("facade_seamless", "seamless-m4t-large-v2",
+         lambda: facade_seamless_run(torch, np, dev), "facade_seamless"),
+        ("parity_recurrent", "recurrentgemma-9b",
+         lambda: parity_run_recurrent(torch, np, dev), None),
         ("main_run_3", MAMBA2, lambda: mamba_run(torch, np, dev), MAMBA2),
         ("parity_run_3", MAMBA2, lambda: parity_run_mamba(torch, np, dev),
          None))
@@ -3599,8 +3743,9 @@ def main() -> None:
                 for shape, case in c.items() if shape.startswith("v236_")}
         if v236:                # main_run_236b's decode and prefill chunk
             entry["deepseek_v2_236b_shapes"] = v236
-        for shape in ("gemma3_ring", "phi3_hd96", "gqa_prefill"):
-            if shape in c:      # facade_gemma3's ring, phi3's hd, Scout's chunk
+        for shape in ("gemma3_ring", "phi3_hd96", "gqa_prefill",
+                      "recurrentgemma_ring", "seamless_cross"):
+            if shape in c:      # the dense facades' decode shapes
                 entry[f"{shape}_shape"] = {
                     "max_abs_err": c[shape]["bfloat16"],
                     "max_abs_err_f32": c[shape]["float32"],
@@ -3731,20 +3876,24 @@ def main() -> None:
                 ("streams_equal_c",) if label == "d" else ()))}
             for label, r in stt["runs"].items()}},
         "seconds": phase_s["serve_tiers"]}), flush=True)
-    for phase in ("facade_scout", "facade_gemma3"):
+    for phase in ("facade_scout", "facade_gemma3", "facade_recurrentgemma",
+                  "facade_seamless"):
         fr = runs[phase]
         print(json.dumps({phase: {k: fr[k] for k in (
             "layers", "full_depth", "batch", "n_prefix", "prompt",
-            "cache_len", "steps", "param_bytes_on_device", "init_s",
-            "prefill_s", "decode_ms_per_step", "decode_tokens_per_s",
-            "launches", "vs_forward", "max_memory_allocated_bytes",
+            "cache_len", "steps", "params", "param_bytes_on_device",
+            "init_s", "prefill_s", "decode_ms_per_step",
+            "decode_tokens_per_s", "launches", "vs_forward",
+            "max_memory_allocated_bytes",
             *(k for k in ("trace_steps", "trace_s", "trace_steps_per_s",
-                          "trace_launches") if k in fr))},
+                          "trace_launches", "encoder_s") if k in fr))},
             "seconds": phase_s[phase]}), flush=True)
     pg = runs["parity_gqa"]
     print(json.dumps({"parity_gqa": {k: pg[k] for k in (
         "identical", "max_abs_logit_err", "tolerance", "trace",
         "card_launches")}, "seconds": phase_s["parity_gqa"]}), flush=True)
+    print(json.dumps({"parity_recurrent": runs["parity_recurrent"],
+                      "seconds": phase_s["parity_recurrent"]}), flush=True)
     print(json.dumps({"launch_floor_ms": floor_ms}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ident, flush=True)

@@ -47,6 +47,21 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class RGLRUConfig:
+    lru_width: int = 0               # 0 -> d_model
+    d_conv: int = 4
+    block_width: int = 0             # unused placeholder, as in the reference
+
+
+@dataclass(frozen=True)
+class EncDecConfig:
+    enc_layers: int = 24
+    enc_heads: int = 16
+    enc_d_ff: int = 8192
+    # the encoder reads frontend embeddings (audio frames), bidirectionally
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     arch_type: str                   # dense | moe | ssm | hybrid | vlm | audio
@@ -64,6 +79,8 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    encdec: Optional[EncDecConfig] = None
     frontend: Optional[str] = None   # None | "vision" | "audio" (stubbed)
     frontend_dim: int = 1024         # dim of precomputed patch/frame embeddings
     frontend_len: int = 256          # patches/frames per example

@@ -7,7 +7,14 @@ stacked along a leading axis) is unstacked into one dict per layer, in
 layer order, exactly as the reference's ``unstack_layers`` does, whatever
 the pattern's length (``("mla",)`` of DeepSeek-V2-Lite, the 3:1
 chunked:global pattern of Llama-4-Scout, gemma3's 5:1 local:global,
-``("ssd",)`` of mamba2-130m), MoE layers and dense ones (``ffn``) alike.
+``("ssd",)`` of mamba2-130m, recurrentgemma's ``("rglru", "rglru",
+"local")``, whose 38 layers are 12 scanned groups and a 2-layer tail),
+MoE layers and dense ones (``ffn``) alike, an ``rglru`` layer's ``rec``
+tree (its ``lam`` float32) like any other. An encoder-decoder tree
+(seamless-m4t) has no ``stack``: its ``encoder.layers`` and ``decoder``,
+stacked along a leading layer axis, become per-layer lists, and
+``tok_emb``, ``final_ln``, ``head``, ``encoder.in_proj`` and
+``encoder.final_ln`` are carried as they are.
 Top-level leaves other than the stack (``tok_emb``, ``final_ln``,
 ``head`` unless the embeddings are tied, as gemma3's are,
 ``frontend_proj`` of a vision config) are carried as they are, each in
@@ -56,10 +63,30 @@ def unstack_layers(cfg, stack) -> list:
     return layers
 
 
+def _split_layers(stacked, n: int, dev) -> list:
+    """A tree stacked along a leading axis of ``n`` layers -> ``n``
+    per-layer trees."""
+    return [_tree(stacked, lambda a, i=i: _tensor(np.asarray(a)[i], dev))
+            for i in range(n)]
+
+
 def backbone_from_jax(cfg, params, device="cuda"):
     """The reference's ``model.init`` tree (numpy leaves) -> the port's
-    ``{"tok_emb", "final_ln", ["head"], "layers": [...]}`` on ``device``."""
+    ``{"tok_emb", "final_ln", ["head"], "layers": [...]}`` on ``device``
+    (an encoder-decoder's ``{"tok_emb", "encoder", "decoder",
+    "final_ln", "head"}``)."""
     dev = resolve_device(device)
+    if cfg.encdec is not None:
+        enc = params["encoder"]
+        out = {k: _tensor(params[k], dev)
+               for k in ("tok_emb", "final_ln", "head")}
+        out["encoder"] = {
+            "in_proj": _tensor(enc["in_proj"], dev),
+            "layers": _split_layers(enc["layers"], cfg.encdec.enc_layers,
+                                    dev),
+            "final_ln": _tensor(enc["final_ln"], dev)}
+        out["decoder"] = _split_layers(params["decoder"], cfg.num_layers, dev)
+        return out
     out = {k: _tensor(v, dev) for k, v in params.items() if k != "stack"}
     out["layers"] = [_tree(lp, lambda a: _tensor(a, dev))
                      for lp in unstack_layers(cfg, params["stack"])]

@@ -27,11 +27,13 @@ def expert_ffn_roofline(cfg, *, peak_flops: float, hbm_bw: float):
 
 
 def _attn_layer_params(cfg, kind: str) -> int:
-    """Weights of one layer's attention (or recurrent) half. For ``mla``
-    this is the reference's count as it stands: with ``q_lora_rank`` 0
-    (DeepSeek-V2-Lite) the ``q_lora_rank`` terms are 0 and the direct
-    ``w_q`` (D x H x qk) is counted nowhere. The port keeps the omission
-    so that its per-layer terms equal the reference's exactly."""
+    """Weights of one layer's attention (or recurrent) half, the
+    reference's counts as they stand, omissions kept so that the port's
+    per-layer terms equal the reference's exactly: for ``mla`` with
+    ``q_lora_rank`` 0 (DeepSeek-V2-Lite) the ``q_lora_rank`` terms are 0
+    and the direct ``w_q`` (D x H x qk) is counted nowhere; for ``rglru``,
+    ``2*d*w + 3*w + w*d`` leaves out the gates ``w_i``/``w_r`` (2 w^2) and
+    ``conv_w``."""
     d, hd = cfg.d_model, cfg.hd
     if kind == "mla":
         m = cfg.mla
@@ -46,9 +48,8 @@ def _attn_layer_params(cfg, kind: str) -> int:
         di = s.expand * d
         return d * (2 * di + 2 * s.d_state + di // s.headdim) + di * d
     if kind == "rglru":
-        raise NotImplementedError(
-            "the rglru layer kind: ROADMAP Queue 1 item 8 (rglru, "
-            "cross-attention and encoder-decoder models)")
+        w = cfg.rglru.lru_width or d
+        return 2 * d * w + 3 * w + w * d
     return (d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
             + cfg.num_heads * hd * d)
 

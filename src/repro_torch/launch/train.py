@@ -4,8 +4,8 @@
 ``train`` draws the weights from a seeded generator, then runs AdamW
 (clip 1.0, a cosine schedule with 20 warm-up steps) on ``lm_batches`` of
 the 8-topic corpus, one :func:`train_step` a batch; gradients come from
-autograd; a vision config gets a zero ``patches`` batch, as in the
-reference. It runs on the card unless ``device="cpu"`` is passed. The
+autograd; a vision config gets a zero ``patches`` batch and an audio
+(encoder-decoder) config a zero ``frames`` batch, as in the reference. It runs on the card unless ``device="cpu"`` is passed. The
 production mesh and checkpointing (``save=``) are ROADMAP Queue 1 item 9.
 ``examples/pipeline_torch.py`` and ``chip_smoke.py`` call it.
 """
@@ -30,15 +30,18 @@ def trainable(params):
     return params, [t for _, t in named_leaves(params)]
 
 
+# the batch key of each frontend's stubbed embeddings
+_FRONTEND_KEY = {"vision": "patches", "audio": "frames"}
+
+
 def train_step(model, params, leaves, opt_update, opt_state, tokens,
-               patches=None):
-    """One AdamW step on a (B, T) batch (with ``patches``, a vision
-    config's prefix): ``model.loss_fn``, its gradients by autograd, then
-    the update in place. Returns (opt_state, loss, metrics, grad_norm),
-    the last three detached tensors."""
-    batch = {"tokens": tokens}
-    if patches is not None:
-        batch["patches"] = patches
+               modality=None):
+    """One AdamW step on a (B, T) batch (with ``modality``, the batch's
+    other entries: a vision config's ``patches``, an audio config's
+    ``frames``): ``model.loss_fn``, its gradients by autograd, then the
+    update in place. Returns (opt_state, loss, metrics, grad_norm), the
+    last three detached tensors."""
+    batch = {"tokens": tokens, **(modality or {})}
     loss, mets = model.loss_fn(params, batch)
     grads = torch.autograd.grad(loss, leaves)
     _, opt_state, stats = opt_update(list(grads), opt_state, params)
@@ -72,12 +75,13 @@ def train(cfg, steps: int = 100, batch_size: int = 8, seq_len: int = 128,
     for i, tokens in enumerate(lm_batches(corpus, batch_size, seq_len,
                                           steps, seed=seed + 1)):
         batch = torch.as_tensor(tokens[:, :seq_len], device=dev)
-        patches = None
-        if cfg.frontend == "vision":   # a zero image, as the reference's
-            patches = torch.zeros((batch_size, cfg.frontend_len,
-                                   cfg.frontend_dim), device=dev)
+        modality = None
+        if cfg.frontend in _FRONTEND_KEY:   # zeros, as the reference's
+            modality = {_FRONTEND_KEY[cfg.frontend]: torch.zeros(
+                (batch_size, cfg.frontend_len, cfg.frontend_dim),
+                device=dev)}
         opt_state, loss, mets, gnorm = train_step(
-            model, params, leaves, opt_update, opt_state, batch, patches)
+            model, params, leaves, opt_update, opt_state, batch, modality)
         losses.append(loss.item())
         if i % max(1, steps // 10) == 0:
             log(f"step {i:5d} loss={losses[-1]:.4f} "

@@ -19,6 +19,9 @@ layout. :func:`paged_attn_prefill` writes one prompt chunk into that
 pool and attends each chunk token as one lane of the same kernel, so a
 chunked prefill matches decoding the chunk token by token.
 
+Cross-attention (:func:`cross_attn_apply`) reads the encoder-decoder's
+static memory, at decode through the same ``flash_decode`` kernel.
+
 The reference returns new cache arrays from every write; here caches are
 updated in place (``index_put_``/``copy_``) and the same dict returned.
 """
@@ -181,13 +184,15 @@ def _project_out(p, out):
 
 
 def attn_apply(p, cfg, kind, x, positions, mode, cache=None, pos=None,
-               rows=None, kernel: bool = True, cache_len: int = 0):
+               rows=None, kernel: bool = True, cache_len: int = 0,
+               causal: bool = True):
     """One attention sub-block. Returns (y (B, T, D), cache).
 
     ``"full"`` and ``"prefill"``: x (B, T, D) at ``positions`` (B, T) or
-    (T,), attended whole through :func:`sdpa_any`; prefill also returns
-    the decode cache (:func:`_fill_cache`, a global row ``cache_len``
-    long), full mode None.
+    (T,), attended whole through :func:`sdpa_any` (bidirectionally when
+    ``causal`` is False, as the encoder-decoder's encoder does); prefill
+    also returns the decode cache (:func:`_fill_cache`, a global row
+    ``cache_len`` long), full mode None.
 
     ``"decode"``: one token per batch entry against its cache row. x
     (B, 1, D); positions (B, 1); pos an int or (B,) positions; cache
@@ -199,7 +204,7 @@ def attn_apply(p, cfg, kind, x, positions, mode, cache=None, pos=None,
     if mode in ("full", "prefill"):
         q, k, v = _paged_qkv(p, cfg, x, positions)
         qpos = positions[0] if positions.dim() == 2 else positions
-        out = sdpa_any(q, k, v, qpos, qpos, kind, cfg)
+        out = sdpa_any(q, k, v, qpos, qpos, kind, cfg, causal)
         new_cache = None
         if mode == "prefill":
             new_cache = _fill_cache(cfg, kind, k, v, x.shape[1], cache_len)
@@ -334,3 +339,44 @@ def paged_attn_prefill(p, cfg, x, cache, table, t0: int, n_valid: int,
         valid = kpos[None, None, :] <= positions[:, :, None]  # (1,C,S)
         out = _gqa_attend(q, ck, cv, valid, x.dtype)
     return _project_out(p, out), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the encoder-decoder's decoder): a static K/V memory
+# computed once from the encoder's output, never written.
+
+def cross_attn_init(gen, cfg, dtype, device):
+    return attn_init(gen, cfg, dtype, device)
+
+
+def cross_attn_memory(p, x_enc):
+    """The memory's k/v (B, S, KVH, hd) from the encoder's output x_enc
+    (B, S, D); no RoPE."""
+    b, s, d = x_enc.shape
+    k = (x_enc @ p["wk"].reshape(d, -1)).reshape(b, s, *p["wk"].shape[1:])
+    v = (x_enc @ p["wv"].reshape(d, -1)).reshape(b, s, *p["wv"].shape[1:])
+    return {"k": k, "v": v}
+
+
+def cross_attn_apply(p, cfg, x, memory_kv, kernel: bool = True):
+    """x (B, T, D) against the memory {"k","v"} (B, S, KVH, hd), every key
+    valid, no RoPE -> (B, T, D). At T = 1 with ``kernel`` the attend goes
+    through ``flash_decode``, which computes the same function there (a
+    lane per batch entry on its own memory row, all S keys live, scores
+    scaled by hd^-0.5 in float32); T > 1, or ``kernel`` False, keeps the
+    reference's ``_sdpa``."""
+    b, t, d = x.shape
+    q = (x @ p["wq"].reshape(d, -1)).reshape(b, t, *p["wq"].shape[1:])
+    k, v = memory_kv["k"], memory_kv["v"]
+    if kernel and t == 1:
+        dev = x.device
+        out = flash_decode(
+            q[:, 0].contiguous(), k.contiguous(), v.contiguous(),
+            torch.arange(b, dtype=torch.int32, device=dev),
+            torch.full((b,), k.shape[1], dtype=torch.int32, device=dev))
+        return _project_out(p, out[:, None])
+    kvh, hd = k.shape[2], k.shape[3]
+    qg = q.reshape(b, t, kvh, cfg.num_heads // kvh, hd)
+    mask = torch.ones((t, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = _sdpa(qg, k, v, mask).reshape(b, t, cfg.num_heads, hd)
+    return _project_out(p, out)

@@ -1,4 +1,5 @@
-"""Shared building blocks: init helpers, RMSNorm, RoPE, the gated FFN.
+"""Shared building blocks: init helpers, RMSNorm, the causal conv, RoPE,
+the gated FFN.
 
 Plain functions over dicts of tensors, with the reference's layouts
 (weights ``(d_in, d_out)``). Inits draw from an explicit
@@ -43,6 +44,19 @@ def decode_lanes(pos, rows, b: int, device):
     rows = (torch.arange(b, device=device, dtype=torch.int32) if rows is None
             else torch.as_tensor(rows, device=device).to(torch.int32))
     return pos, rows
+
+
+def causal_conv_full(x, w, b):
+    """Depthwise causal conv along time, the reference's shift-and-add
+    over the K taps (no ``F.conv1d``: cuDNN runs a float32 convolution in
+    TF32 on the card). x (B,T,C); w (K,C); b (C,). Mamba-2's SSD block and
+    the RG-LRU block share it."""
+    k, t = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i: i + t] * w[i]
+    return out + b
 
 
 # ---------------------------------------------------------------------------

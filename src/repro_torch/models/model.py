@@ -1,23 +1,30 @@
-"""Public model facade: ``build_model(cfg)`` -> a decoder whose ``init``
+"""Public model facade: ``build_model(cfg)`` -> a model whose ``init``
 draws every weight from an explicit ``torch.Generator`` onto a device, and
 whose ``forward``/``loss_fn``/``prefill``/``decode_step``/
 ``init_decode_state`` take the reference facade's arguments and keep its
 decode state ``{"pos", "caches"}`` (``caches`` one entry per layer here).
 
-It builds Mamba-2 SSD stacks (mamba2) and attention decoders, MoE or
-dense, whose layers are MLA (DeepSeek-V2-Lite and -236B) or GQA with
-global, local or chunked masking (Llama-4-Scout, yi, internlm2, phi3,
-gemma3, pixtral). The whole-sequence paths run the capacity-dispatch MoE
-of training; ``prefill`` hands ``decode_step`` each layer's decode cache
-(MLA latent rows and global K/V rows padded to ``cache_len``, local and
-chunked rings, SSD states), and ``decode_step`` runs contiguous rows with
-every expert on the device, as trace collection does. A vision config
-(``frontend="vision"``) takes ``batch["patches"]`` (B, S_m,
-``frontend_dim``) in ``forward``, ``loss_fn`` and ``prefill``: the
-projected patches are prepended to the tokens (early fusion), the loss
-scores the text alone, and decoding goes on from position S_m + T, text
-only. The offloaded engines serve the MoE attention decoders through
-their per-layer row and paged halves.
+It builds every architecture of the reference. Decoders: Mamba-2 SSD
+stacks (mamba2), RG-LRU stacks with local attention (recurrentgemma), and
+attention decoders, MoE or dense, whose layers are MLA (DeepSeek-V2-Lite
+and -236B) or GQA with global, local or chunked masking (Llama-4-Scout,
+yi, internlm2, phi3, gemma3, pixtral). The whole-sequence paths run the
+capacity-dispatch MoE of training; ``prefill`` hands ``decode_step`` each
+layer's decode cache (MLA latent rows and global K/V rows padded to
+``cache_len``, local and chunked rings, SSD and RG-LRU states), and
+``decode_step`` runs contiguous rows with every expert on the device, as
+trace collection does. A vision config (``frontend="vision"``) takes
+``batch["patches"]`` (B, S_m, ``frontend_dim``) in ``forward``,
+``loss_fn`` and ``prefill``: the projected patches are prepended to the
+tokens (early fusion), the loss scores the text alone, and decoding goes
+on from position S_m + T, text only. The offloaded engines serve the MoE
+attention decoders through their per-layer row and paged halves.
+
+An encoder-decoder config (``cfg.encdec``, seamless-m4t) builds
+:class:`EncDecModel`: ``batch["frames"]`` (B, ``frontend_len``,
+``frontend_dim``) goes through the bidirectional encoder, and the decoder
+attends to it through cross-attention; its decode state also carries the
+cross-attention ``memory``.
 """
 from __future__ import annotations
 
@@ -29,8 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models import transformer
-from repro_torch.models.common import dtype_of
+from repro_torch.models import encdec, transformer
+from repro_torch.models.common import dense_init, dtype_of, rms_norm
 
 
 def _xent(logits, labels):
@@ -66,13 +73,14 @@ def _xent_chunked(x, labels, unembed_fn):
     return -tot / (b * t)
 
 
-def _inputs(params, batch):
-    """(tokens, patches or None) of a batch, on the parameters' device."""
+def _inputs(params, batch, modality: str = "patches"):
+    """(tokens, ``batch[modality]`` or None) of a batch, on the
+    parameters' device: a vision config's ``patches``, an audio config's
+    ``frames``."""
     dev = params["tok_emb"].device
-    patches = batch.get("patches")
+    m = batch.get(modality)
     return (torch.as_tensor(batch["tokens"], device=dev),
-            None if patches is None else torch.as_tensor(patches,
-                                                         device=dev))
+            None if m is None else torch.as_tensor(m, device=dev))
 
 
 @dataclass
@@ -155,19 +163,135 @@ class Model:
         return {"pos": pos, "caches": caches}
 
 
+class EncDecModel(Model):
+    """The encoder-decoder facade (reference ``_build_encdec``): the
+    tree ``{"tok_emb", "encoder", "decoder", "final_ln", "head"}``, the
+    encoder's and decoder's layers per-layer lists. Every method takes
+    ``batch["frames"]`` where the decoder facade takes ``patches``;
+    ``decode_step`` reads only ``tokens`` and the state's ``memory``."""
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device="cuda"):
+        """Random weights: ``tok_emb`` ``randn * 0.02``, ``final_ln``
+        ones, ``head`` ``randn * d^-0.5``."""
+        cfg, dev = self.cfg, resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        dtype = dtype_of(cfg)
+        with torch.no_grad():
+            return {
+                "tok_emb": (torch.randn((cfg.vocab_size, cfg.d_model),
+                                        generator=generator,
+                                        dtype=torch.float32,
+                                        device=generator.device) * 0.02).to(
+                    device=dev, dtype=dtype),
+                "encoder": encdec.encoder_init(generator, cfg, dtype, dev),
+                "decoder": encdec.decoder_init(generator, cfg, dtype, dev),
+                "final_ln": torch.ones((cfg.d_model,), dtype=dtype,
+                                       device=dev),
+                "head": dense_init(generator, cfg.d_model, cfg.vocab_size,
+                                   dtype, dev),
+            }
+
+    def _head(self, params, h):
+        return (h @ params["head"]).float()
+
+    def _memory(self, params, frames):
+        enc = encdec.encoder_apply(params["encoder"], self.cfg, frames)
+        return encdec.cross_memory(params["decoder"], self.cfg, enc)
+
+    def _decode_stack(self, params, tokens, memory, mode, caches=None,
+                      pos=0, cache_len: int = 0):
+        """Embed ``tokens`` at positions ``pos``.., the decoder in
+        ``mode``, the final norm. Returns (hidden, new caches)."""
+        x = params["tok_emb"][tokens.long()]
+        b, t, _ = x.shape
+        positions = (torch.arange(t, device=x.device) + pos).expand(b, t)
+        x, new_caches = encdec.decoder_apply(
+            params["decoder"], self.cfg, x, positions, memory, mode, caches,
+            pos, cache_len)
+        return rms_norm(x, params["final_ln"], self.cfg.norm_eps), new_caches
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """batch {"tokens": (B, T), "frames": (B, S, F)} -> float32 logits
+        (B, T, V)."""
+        tokens, frames = _inputs(params, batch, "frames")
+        h, _ = self._decode_stack(params, tokens,
+                                  self._memory(params, frames), "full")
+        return self._head(params, h)
+
+    def loss_fn(self, params, batch):
+        """(mean next-token cross-entropy, {"xent", "moe_aux": 0}), the
+        loss sequence-chunked past ``_XENT_CHUNK_BUDGET``."""
+        cfg = self.cfg
+        tokens, frames = _inputs(params, batch, "frames")
+        h, _ = self._decode_stack(params, tokens,
+                                  self._memory(params, frames), "full")
+        h, labels = h[:, :-1], tokens[:, 1:]
+        if h.shape[0] * h.shape[1] * cfg.vocab_size > _XENT_CHUNK_BUDGET:
+            loss = _xent_chunked(h, labels,
+                                 lambda hh: self._head(params, hh))
+        else:
+            loss = _xent(self._head(params, h), labels)
+        return loss, {"xent": loss,
+                      "moe_aux": torch.zeros((), dtype=torch.float32,
+                                             device=loss.device)}
+
+    def prefill(self, params, batch, cache_len: int):
+        """Encode the frames, then the prompt through the decoder ->
+        (last-position logits (B, V), decode state at position T with the
+        cross-attention ``memory``)."""
+        tokens, frames = _inputs(params, batch, "frames")
+        memory = self._memory(params, frames)
+        h, caches = self._decode_stack(params, tokens, memory, "prefill",
+                                       cache_len=cache_len)
+        return self._head(params, h[:, -1]), {
+            "pos": tokens.shape[1], "caches": caches, "memory": memory}
+
+    def decode_step(self, params, state, batch):
+        tokens, _ = _inputs(params, batch, "frames")
+        h, caches = self._decode_stack(params, tokens, state["memory"],
+                                       "decode", state["caches"],
+                                       state["pos"])
+        return self._head(params, h[:, -1]), dict(
+            state, pos=state["pos"] + 1, caches=caches)
+
+    def init_decode_state(self, batch_size: int, cache_len: int,
+                          pos: int = 0, device="cuda"):
+        """Zero self-attention rows of ``cache_len`` positions and a zero
+        memory of ``frontend_len`` frames a layer."""
+        cfg, dev = self.cfg, resolve_device(device)
+        dtype = dtype_of(cfg)
+        shape = (batch_size, cfg.frontend_len, cfg.num_kv_heads, cfg.hd)
+        memory = [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+                   "v": torch.zeros(shape, dtype=dtype, device=dev)}
+                  for _ in range(cfg.num_layers)]
+        return {"pos": pos,
+                "caches": encdec.decoder_cache_init(cfg, batch_size,
+                                                    cache_len, dtype, dev),
+                "memory": memory}
+
+
 def build_model(cfg: ModelConfig) -> Model:
-    """Stacks whose every layer is ``ssd`` (mamba2), and decoders, MoE or
-    dense, whose layers are attention kinds (MLA with a direct or a
-    compressed q projection, or GQA with global/local/chunked masking),
-    with a text or vision frontend. ``rglru`` layers and audio
-    (encoder-decoder) models raise ``NotImplementedError`` naming their
-    ROADMAP item (Queue 1 item 8)."""
+    """:class:`EncDecModel` when ``cfg.encdec`` is set; otherwise a
+    decoder: a stack whose every layer is ``ssd`` (mamba2), an RG-LRU
+    stack (``rglru`` layers beside GQA ones, recurrentgemma), or an
+    attention decoder, MoE or dense (MLA with a direct or a compressed q
+    projection, or GQA with global/local/chunked masking), with a text or
+    vision frontend. Any other stack raises ``ValueError``."""
+    if cfg.encdec is not None:
+        return EncDecModel(cfg)
     kinds = set(cfg.layer_kinds())
+    gqa = set(transformer.GQA_KINDS)
     ssm_stack = kinds == {"ssd"} and cfg.ssm is not None
-    attn_stack = kinds <= {"mla", *transformer.GQA_KINDS}
-    if not (ssm_stack or attn_stack) or cfg.frontend == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: only Mamba-2 SSD stacks and decoders with "
-            "MLA/global/local/chunked attention are ported (ROADMAP Queue 1 "
-            "item 8: rglru, cross-attention and encoder-decoder models)")
+    rglru_stack = "rglru" in kinds and cfg.rglru is not None \
+        and kinds <= {"rglru"} | gqa
+    attn_stack = kinds <= {"mla"} | gqa
+    if not (ssm_stack or rglru_stack or attn_stack) \
+            or cfg.frontend == "audio":
+        raise ValueError(
+            f"{cfg.name}: cannot build layer kinds {sorted(kinds)} with "
+            f"frontend {cfg.frontend!r}: a decoder is an ssd stack (with "
+            "cfg.ssm), an rglru stack with GQA layers (with cfg.rglru) or "
+            "an MLA/GQA stack; an audio frontend needs cfg.encdec")
     return Model(cfg)

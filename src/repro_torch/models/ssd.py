@@ -8,9 +8,10 @@ model writes an einsum. The chunk end states, the chunk-to-chunk
 recurrence, ``y_off``, the D skip, the gate, the norm and the projections
 are plain torch. Decode is a single O(1) state update.
 
-The causal convolution is the reference's shift-and-add over ``d_conv``
-taps, not ``F.conv1d``: cuDNN would run a float32 convolution in TF32 on
-the card, which the card-vs-CPU parity check cannot afford.
+The causal convolution is ``common.causal_conv_full``, the reference's
+shift-and-add over ``d_conv`` taps, not ``F.conv1d``: cuDNN would run a
+float32 convolution in TF32 on the card, which the card-vs-CPU parity
+check cannot afford.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ssd_chunk
-from repro_torch.models.common import dense_init, rms_norm, rms_norm_init
+from repro_torch.models.common import (causal_conv_full, dense_init, rms_norm,
+                                       rms_norm_init)
 
 
 def ssd_dims(cfg):
@@ -54,16 +56,6 @@ def ssd_init(gen: torch.Generator, cfg, dtype, device):
     }
 
 
-def _causal_conv_full(x, w, b):
-    """Depthwise causal conv along time. x (B,T,C); w (K,C)."""
-    k, t = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
-    out = torch.zeros_like(x)
-    for i in range(k):
-        out = out + xp[:, i: i + t] * w[i]
-    return out + b
-
-
 def _split_in(cfg, zxbcdt):
     s = cfg.ssm
     d_inner, nheads, _ = ssd_dims(cfg)
@@ -82,7 +74,7 @@ def ssd_apply_full(p, cfg, x, return_state: bool = False):
 
     z, xc, B, C, dt = _split_in(cfg, x @ p["w_in"])
     conv_in = torch.cat([xc, B, C], -1)
-    xbc = F.silu(_causal_conv_full(conv_in, p["conv_w"], p["conv_b"]))
+    xbc = F.silu(causal_conv_full(conv_in, p["conv_w"], p["conv_b"]))
     xc, B, C = torch.split(xbc, [d_inner, n, n], dim=-1)
 
     dt = F.softplus(dt.float() + p["dt_bias"])                  # (B,T,H)

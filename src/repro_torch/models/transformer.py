@@ -5,13 +5,15 @@ paged prefill chunk, the whole-block ``block_apply``/``stack_apply`` of
 the model facade, embed (with the vision early-fusion prefix) and
 unembed.
 
-Layer kinds ported: ``mla`` and the GQA kinds ``global``, ``local`` and
-``chunked`` (the engines' halves; whole blocks in full mode — training,
-the capacity-dispatch MoE, its load-balance loss and routed ids in
-``extras`` — in prefill mode, the same returning the decode cache, and in
-decode mode, the batch-1 decode of trace collection) and ``ssd`` (the
-facade's full, prefill and decode modes). ``rglru`` raises
-``NotImplementedError`` naming its ROADMAP item.
+Every layer kind of the reference runs in ``block_apply``'s full, prefill
+and decode modes: ``mla`` and the GQA kinds ``global``, ``local`` and
+``chunked`` (whole blocks in full mode — training, the capacity-dispatch
+MoE, its load-balance loss and routed ids in ``extras`` — in prefill
+mode, the same returning the decode cache, and in decode mode, the
+batch-1 decode of trace collection), ``rglru`` (the RG-LRU block, then
+the FFN half) and ``ssd`` (no FFN half). The serving engines' row and
+paged halves take the attention kinds only, as the reference's
+``DecodeCore`` does; an unknown kind raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -20,20 +22,24 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import mla, moe, ssd
+from repro_torch.models import mla, moe, rglru, ssd
 from repro_torch.models.common import (dense_init, dtype_of, ffn_apply,
                                        ffn_init, rms_norm, rms_norm_init)
 
 Params = Dict[str, Any]
 
-_TODO_KINDS = ("layer kind {!r} is not ported yet (ROADMAP Queue 1 item 8: "
-               "rglru, cross-attention and encoder-decoder models)")
 GQA_KINDS = ("global", "local", "chunked")
 
 # Attention kinds whose decode KV grows with the sequence: these page
 # through block tables in the paged engine. Ring-buffer kinds (local,
 # chunked) keep bounded per-request rows.
 PAGED_KINDS = ("global", "mla")
+
+
+def _engine_scope(kind: str) -> str:
+    return (f"layer kind {kind!r} has no serving-engine half: the engines "
+            "serve MoE backbones of MLA and GQA attention layers, as the "
+            "reference's DecodeCore does")
 
 
 def _layer_split(cfg):
@@ -60,15 +66,16 @@ def block_init(gen, cfg, kind: str, is_moe: bool, dtype, device,
     if kind == "ssd":                                # mamba block: no FFN
         return {"ln1": rms_norm_init(cfg.d_model, dtype, device),
                 "ssd": ssd.ssd_init(gen, cfg, dtype, device)}
+    p: Params = {"ln1": rms_norm_init(cfg.d_model, dtype, device)}
     if kind == "mla":
-        a = mla.mla_init(gen, cfg, dtype, device)
+        p["attn"] = mla.mla_init(gen, cfg, dtype, device)
     elif kind in GQA_KINDS:
-        a = attn.attn_init(gen, cfg, dtype, device)
+        p["attn"] = attn.attn_init(gen, cfg, dtype, device)
+    elif kind == "rglru":
+        p["rec"] = rglru.rglru_init(gen, cfg, dtype, device)
     else:
-        raise NotImplementedError(_TODO_KINDS.format(kind))
-    p: Params = {"ln1": rms_norm_init(cfg.d_model, dtype, device),
-                 "attn": a,
-                 "ln2": rms_norm_init(cfg.d_model, dtype, device)}
+        raise ValueError(f"unknown layer kind {kind!r}")
+    p["ln2"] = rms_norm_init(cfg.d_model, dtype, device)
     if is_moe:
         p["moe"] = moe.moe_init(gen, cfg, dtype, device, expert_device)
     else:
@@ -82,14 +89,17 @@ def block_init(gen, cfg, kind: str, is_moe: bool, dtype, device,
 def block_cache_init(cfg, kind: str, batch: int, cache_len: int, dtype,
                      device):
     """Contiguous decode rows: ``batch`` rows of ``cache_len`` positions
-    (ring-sized for local/chunked); an ``ssd`` layer's O(1) state."""
+    (ring-sized for local/chunked); an ``ssd`` or ``rglru`` layer's O(1)
+    state."""
     if kind == "ssd":
         return ssd.ssd_init_state(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return rglru.rglru_init_state(cfg, batch, dtype, device)
     if kind == "mla":
         return mla.mla_init_cache(cfg, batch, cache_len, dtype, device)
     if kind in GQA_KINDS:
         return attn.init_cache(cfg, kind, batch, cache_len, dtype, device)
-    raise NotImplementedError(_TODO_KINDS.format(kind))
+    raise ValueError(f"unknown layer kind {kind!r}")
 
 
 def block_paged_cache_init(cfg, kind: str, num_blocks: int, block_size: int,
@@ -106,7 +116,7 @@ def block_paged_cache_init(cfg, kind: str, num_blocks: int, block_size: int,
                                      device)
     if kind in ("local", "chunked"):
         return attn.init_cache(cfg, kind, row_batch, 0, dtype, device)
-    raise NotImplementedError(_TODO_KINDS.format(kind))
+    raise ValueError(_engine_scope(kind))
 
 
 def block_row_decode(p, cfg, kind: str, x, cache, rows, pos,
@@ -125,7 +135,7 @@ def block_row_decode(p, cfg, kind: str, x, cache, rows, pos,
                                    "decode", cache, pos, rows=rows,
                                    kernel=kernel)
     else:
-        raise NotImplementedError(_TODO_KINDS.format(kind))
+        raise ValueError(_engine_scope(kind))
     return x + o, cache
 
 
@@ -195,32 +205,39 @@ def block_apply(p, cfg, kind: str, x, mode: str, cache=None, pos=None,
     MoE layer's ``extras["experts"]`` holds its routed ids (B, T, k) and,
     in full and prefill mode, ``extras["moe_aux"]`` its load-balance loss.
 
-    ``ssd`` runs in every mode (it reads neither positions nor ``pos``).
-    The attention kinds (``mla``, ``global``, ``local``, ``chunked``) run
-    in full mode (x (B, T, D) at positions 0..T-1, then the FFN half of
-    :func:`_ffn_half`), in prefill mode (the same, and the layer's decode
-    cache: MLA's latent rows and a global row padded to ``cache_len``
-    positions, a ring of its window or chunk) and in decode mode: x
-    (B, 1, D) against contiguous rows, entry ``i`` on row ``i`` at
-    position ``pos[i]`` (``pos`` a (B,) int32 tensor), through
-    :func:`block_row_decode`."""
-    if kind == "ssd":
+    ``ssd`` and ``rglru`` run in every mode (they read neither positions
+    nor ``pos``; prefill returns their O(1) state, decode updates it);
+    ``ssd`` has no FFN half. The attention kinds (``mla``, ``global``,
+    ``local``, ``chunked``) run in full mode (x (B, T, D) at positions
+    0..T-1), in prefill mode (the same, and the layer's decode cache:
+    MLA's latent rows and a global row padded to ``cache_len`` positions,
+    a ring of its window or chunk) and in decode mode: x (B, 1, D)
+    against contiguous rows, entry ``i`` on row ``i`` at position
+    ``pos[i]`` (``pos`` a (B,) int32 tensor), through
+    :func:`block_row_decode`. Every kind but ``ssd`` then runs the FFN
+    half of :func:`_ffn_half`."""
+    if mode not in ("full", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if kind in ("ssd", "rglru"):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        blk, step, full = ((p["ssd"], ssd.ssd_step, ssd.ssd_apply_full)
+                           if kind == "ssd" else
+                           (p["rec"], rglru.rglru_step,
+                            rglru.rglru_apply_full))
         if mode == "decode":
-            out, new_cache = ssd.ssd_step(p["ssd"], cfg, h, cache)
+            out, new_cache = step(blk, cfg, h, cache)
         elif mode == "prefill":
-            out, new_cache = ssd.ssd_apply_full(p["ssd"], cfg, h,
-                                                return_state=True)
-        elif mode == "full":
-            out, new_cache = ssd.ssd_apply_full(p["ssd"], cfg, h), None
+            out, new_cache = full(blk, cfg, h, return_state=True)
         else:
-            raise ValueError(f"unknown mode {mode!r}")
-        return x + out, new_cache, {}                # no FFN sub-block
-    if kind != "mla" and kind not in GQA_KINDS:
-        raise NotImplementedError(_TODO_KINDS.format(kind))
-    if mode == "decode":
+            out, new_cache = full(blk, cfg, h), None
+        x = x + out
+        if kind == "ssd":
+            return x, new_cache, {}                  # no FFN sub-block
+    elif kind != "mla" and kind not in GQA_KINDS:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    elif mode == "decode":
         x, new_cache = block_row_decode(p, cfg, kind, x, cache, None, pos)
-    elif mode in ("full", "prefill"):
+    else:
         b, t, _ = x.shape
         positions = torch.arange(t, device=x.device).expand(b, t)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -232,8 +249,6 @@ def block_apply(p, cfg, kind: str, x, mode: str, cache=None, pos=None,
                                            positions, mode,
                                            cache_len=cache_len)
         x = x + o
-    else:
-        raise ValueError(f"unknown mode {mode!r}")
     x, extras = _ffn_half(p, cfg, x, mode)
     return x, new_cache, extras
 

@@ -1,7 +1,9 @@
 """The model facade per architecture against the JAX reference on the CPU:
 the five dense GQA decoders (yi-6b, internlm2-1.8b, phi3-mini-3.8b,
 gemma3-27b with its local ring and GeGLU, pixtral-12b with patches) and
-Llama-4-Scout (MoE, chunked and global layers, patches).
+Llama-4-Scout (MoE, chunked and global layers, patches). recurrentgemma-9b
+and seamless-m4t-large-v2 have files of their own
+(``tests/test_torch_rglru.py``, ``tests/test_torch_encdec.py``).
 
 For each reduced config (float32) drawn by the reference's
 ``model.init`` and carried across by ``convert.backbone_from_jax``:

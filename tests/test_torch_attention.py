@@ -328,17 +328,31 @@ def test_bridge_carries_llama4_tree():
 
 
 def test_build_model_refuses_recurrent_and_audio_models():
-    """Attention decoders build, MoE or dense; ``rglru`` layers, an audio
-    frontend and the two configs that need them raise, naming item 8."""
+    """Attention decoders build, MoE or dense, and so do the configs
+    recurrentgemma-9b (an RG-LRU stack) and seamless-m4t-large-v2 (an
+    encoder-decoder) and an ``rglru`` stack beside GQA layers. Refused,
+    with ``ValueError``: ``rglru`` layers without ``cfg.rglru``, ``rglru``
+    beside MLA, an audio frontend without ``cfg.encdec`` and an unknown
+    layer kind; an unknown arch raises ``KeyError``, as the reference's
+    registry does."""
     tcfg = torch_get_reduced(LLAMA4)
     assert torch_build_model(tcfg).cfg is tcfg
     dense = tcfg.replace(moe=None)
     assert torch_build_model(dense).cfg is dense
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+    rg = torch_get_reduced("recurrentgemma-9b")
+    stack = dense.replace(rglru=rg.rglru, block_pattern=("rglru", "global"))
+    assert type(torch_build_model(stack)).__name__ == "Model"
+    for arch, kind in (("recurrentgemma-9b", "Model"),
+                       ("seamless-m4t-large-v2", "EncDecModel")):
+        assert type(torch_build_model(torch_get_config(arch))).__name__ \
+            == kind
+    with pytest.raises(ValueError, match="cfg.rglru"):
         torch_build_model(tcfg.replace(block_pattern=("rglru",)))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+    with pytest.raises(ValueError, match="cfg.rglru"):
+        torch_build_model(stack.replace(block_pattern=("rglru", "mla")))
+    with pytest.raises(ValueError, match="cfg.encdec"):
         torch_build_model(dense.replace(frontend="audio"))
-    for arch in ("recurrentgemma-9b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 8"):
-            torch_get_config(arch)
+    with pytest.raises(ValueError, match="cannot build"):
+        torch_build_model(dense.replace(block_pattern=("global", "conv")))
+    with pytest.raises(KeyError, match="unknown arch"):
+        torch_get_config("no-such-arch")

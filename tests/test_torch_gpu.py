@@ -274,6 +274,9 @@ GQA_FLASH_CASES = {
     "phi3-hd96": (4, 32, 32, 96, 128, [96, 90, 84, 71]),
     "yi-g8": (4, 32, 4, 128, 128, [96, 90, 8, 1]),
     "reduced-g2": (2, 4, 2, 64, 72, [72, 9]),
+    "recurrentgemma-ring-hd256": (2, 16, 1, 256, 2048, [2048, 2048]),
+    "recurrentgemma-ring-partial": (2, 16, 1, 256, 2048, [1500, 7]),
+    "seamless-cross-512": (2, 16, 16, 64, 512, [512, 512]),
 }
 
 
@@ -283,8 +286,11 @@ GQA_FLASH_CASES = {
 def test_flash_decode_dense_decoder_shapes_on_card(cuda, case, dtype, tol):
     """``flash_decode`` at the dense GQA decoders' shapes against its
     plain version: gemma3's full 1,024-slot local ring (KVH 16, G 2) and
-    its global row, phi3's hd 96 (G 1), yi's G 8 (one full head group)
-    and the reduced configs' G 2, hd 64. Two calls bit-identical."""
+    its global row, phi3's hd 96 (G 1), yi's G 8 (one full head group),
+    the reduced configs' G 2, hd 64, recurrentgemma's 2,048-slot ring at
+    hd 256 over one kv head (G 16: two head groups), full and partly
+    filled, and seamless's cross-attention over 512 frames. Two calls
+    bit-identical."""
     n, h, kvh, hd, s_len, vls = GQA_FLASH_CASES[case]
     gen = torch.Generator(cuda).manual_seed(6)
     q = torch.randn(n, h, hd, generator=gen, device=cuda).to(dtype)
@@ -302,23 +308,27 @@ def test_flash_decode_dense_decoder_shapes_on_card(cuda, case, dtype, tol):
 
 @pytest.mark.parametrize("arch", ["yi-6b", "internlm2-1.8b", "phi3-mini-3.8b",
                                   "gemma3-27b", "pixtral-12b",
-                                  "llama4-scout-17b-a16e"])
+                                  "llama4-scout-17b-a16e", "recurrentgemma-9b",
+                                  "seamless-m4t-large-v2"])
 def test_gqa_facade_on_card_matches_cpu(cuda, arch):
     """The reduced config (f32, TF32 off) through the facade on the card
     and on the CPU from identical weights: ``prefill`` of 2 prompts of 52
-    tokens (after 16 patches for a vision config: Scout's 64-slot chunk
-    and gemma3's 32-slot window wrap), then 6 greedy ``decode_step``s;
-    identical streams, logits within 1e-4, ``flash_decode`` launched once
-    per layer and step."""
+    tokens (after 16 patches for a vision config, beside seamless's
+    frames: Scout's 64-slot chunk and the 32-slot windows of gemma3 and
+    recurrentgemma wrap), then 6 greedy ``decode_step``s; identical
+    streams, logits within 1e-4, ``flash_decode`` launched once per
+    attention layer and step (twice a seamless decoder layer: self- and
+    cross-attention; never in recurrentgemma's RG-LRU layers)."""
     cfg = get_reduced(arch)
     model = build_model(cfg)
     params = model.init(device="cpu")
     g = torch.Generator().manual_seed(7)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 52),
                                      generator=g)}
-    if cfg.frontend == "vision":
-        batch["patches"] = torch.randn(2, cfg.frontend_len, cfg.frontend_dim,
-                                       generator=g)
+    key = {"vision": "patches", "audio": "frames"}.get(cfg.frontend)
+    if key is not None:
+        batch[key] = torch.randn(2, cfg.frontend_len, cfg.frontend_dim,
+                                 generator=g)
     runs = {}
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -340,7 +350,9 @@ def test_gqa_facade_on_card_matches_cpu(cuda, arch):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert runs["cuda"][0] == runs["cpu"][0]
     assert (runs["cuda"][1] - runs["cpu"][1]).abs().max().item() <= 1e-4
-    assert runs["cuda"][2]["flash_decode"] == 6 * cfg.num_layers
+    per_step = (2 * cfg.num_layers if cfg.encdec is not None
+                else sum(k != "rglru" for k in cfg.layer_kinds()))
+    assert runs["cuda"][2]["flash_decode"] == 6 * per_step
 
 
 @pytest.mark.parametrize("prefix", [False, True])
@@ -371,6 +383,30 @@ def test_global_stack_chunked_prefill_on_card_matches_cpu(cuda, prefix):
     assert stats[0] == stats[1] and stats[1]["prefill_chunks"] > 0
     counts = launch_counts()
     assert counts["paged_flash_decode"] > 0 and counts["flash_decode"] == 0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_cross_attention_kernel_route_on_card(cuda, dtype, tol):
+    """``cross_attn_apply`` at T = 1 on the card (``flash_decode`` over the
+    memory, rows 0..B-1, every frame live) against its ``kernel=False``
+    route (``_sdpa``) on the card and against the CPU, at the reduced
+    seamless width over 32 frames; one launch a call."""
+    from repro_torch.models import attention as attn
+    cfg = get_reduced("seamless-m4t-large-v2")
+    g = torch.Generator().manual_seed(8)
+    p = attn.cross_attn_init(g, cfg, dtype, "cpu")
+    enc = torch.randn(2, cfg.frontend_len, cfg.d_model, generator=g).to(dtype)
+    x = torch.randn(2, 1, cfg.d_model, generator=g).to(dtype)
+    cpu = attn.cross_attn_apply(p, cfg, x, attn.cross_attn_memory(p, enc))
+    pc = _tree_to(p, cuda)
+    mem = attn.cross_attn_memory(pc, enc.to(cuda))
+    reset_launch_counts()
+    out = attn.cross_attn_apply(pc, cfg, x.to(cuda), mem)
+    assert launch_counts()["flash_decode"] == 1
+    plain = attn.cross_attn_apply(pc, cfg, x.to(cuda), mem, kernel=False)
+    assert (out.float() - plain.float()).abs().max().item() <= tol
+    assert (out.float().cpu() - cpu.float()).abs().max().item() <= tol
 
 
 # (lanes, k, D, F, slots, slot_idx): slots shared across rows, a slot

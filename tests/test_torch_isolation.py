@@ -15,13 +15,14 @@ from repro_torch.core.predictor_train import train_predictor
 from repro_torch.configs import get_reduced
 from repro_torch.configs.base import PredictorConfig
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models.model import Model, build_model
+from repro_torch.models.model import EncDecModel, Model, build_model
 from repro_torch.serving.engine import DecodeCore, OffloadEngine
 from repro_torch.serving.scheduler import BatchedOffloadEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
-ENTRY_POINTS = [Model.init, Model.init_decode_state,
+ENTRY_POINTS = [Model.init, Model.init_decode_state, EncDecModel.init,
+                EncDecModel.init_decode_state,
                 BatchedOffloadEngine.__init__,
                 OffloadEngine.__init__, DecodeCore.__init__, predictor_init,
                 train_predictor, convert.backbone_from_jax,
@@ -77,6 +78,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     mamba = build_model(get_reduced("mamba2-130m"))
     with pytest.raises(RuntimeError, match="CUDA"):
         mamba.init()
+    seamless = build_model(get_reduced("seamless-m4t-large-v2"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        seamless.init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        seamless.init_decode_state(1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         mamba.init_decode_state(1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -101,7 +107,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                     "repro_torch.configs.internlm2_1_8b",
                                     "repro_torch.configs.phi3_mini_3_8b",
                                     "repro_torch.configs.gemma3_27b",
-                                    "repro_torch.configs.pixtral_12b"])
+                                    "repro_torch.configs.pixtral_12b",
+                                    "repro_torch.configs.recurrentgemma_9b",
+                                    "repro_torch.configs."
+                                    "seamless_m4t_large_v2",
+                                    "repro_torch.models.rglru",
+                                    "repro_torch.models.encdec"])
 def test_serving_modules_import_with_jax_and_reference_blocked(module):
     """The prefix index, the workload generator, the tiered expert store,
     the roofline terms, the scheduler that drives them and the configs

@@ -405,16 +405,29 @@ def test_bridge_and_own_init_keep_the_tree(dtype):
 
 
 def test_block_apply_refuses_rglru_only():
-    """``block_apply`` runs the attention kinds and ``ssd`` in every mode;
-    an ``rglru`` layer raises in each, as do its init and a stack of it,
-    naming item 8."""
-    tcfg = torch_get_reduced("llama4-scout-17b-a16e")
+    """``block_apply`` runs ``rglru`` as it runs ``ssd``, in every mode
+    (prefill's state then one decode step equal the full mode's last
+    position); what refuses ``rglru`` is only the serving engines' row
+    half, and an unknown layer kind raises ``ValueError`` in
+    ``block_apply`` and ``block_init``."""
+    cfg = torch_get_reduced("recurrentgemma-9b")
+    layer = tT.block_init(torch.Generator().manual_seed(0), cfg, "rglru",
+                          False, torch.float32, "cpu")
+    assert set(layer) == {"ln1", "rec", "ln2", "ffn"}
+    x = torch.randn(2, 6, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    full, none, _ = tT.block_apply(layer, cfg, "rglru", x, "full")
+    _, state, _ = tT.block_apply(layer, cfg, "rglru", x[:, :5], "prefill")
+    step, _, _ = tT.block_apply(layer, cfg, "rglru", x[:, 5:], "decode",
+                                state)
+    assert none is None and set(state) == {"h", "conv"}
+    torch.testing.assert_close(step[:, 0], full[:, 5], rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="serving-engine"):
+        tT.block_row_decode(layer, cfg, "rglru", x[:, :1], state,
+                            torch.zeros(2, dtype=torch.int32),
+                            torch.zeros(2, dtype=torch.int32))
     for mode in ("full", "prefill", "decode"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 8"):
-            tT.block_apply({}, tcfg, "rglru", torch.zeros(1, 2, 8), mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        tT.block_init(None, tcfg, "rglru", False, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        torch_build_model(tcfg.replace(moe=None,
-                                       block_pattern=("rglru", "global")))
+        with pytest.raises(ValueError, match="unknown layer kind"):
+            tT.block_apply(layer, cfg, "conv", x, mode)
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        tT.block_init(None, cfg, "conv", False, torch.float32, "cpu")

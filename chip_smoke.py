@@ -31,7 +31,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prefill chunk of Llama-4-Scout's global layer, its lanes sharing one
    table; and ``flash_decode`` at recurrentgemma-9b's full 2,048-slot
    local ring, 16 heads over one kv head at hd 256, and at seamless's
-   decode cross-attention over 512 frames),
+   decode cross-attention over 512 frames; and ``expert_ffn`` at the
+   dispatch phase's per-shard call, 48 tokens at k 1 on 16 experts),
    on rows with a tie across the
    k-th place, all values
    equal, and probabilities underflowed to 0; for all five, two calls on
@@ -115,14 +116,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    must give identical streams, routed expert ids and counters;
 4a. pipeline: the paper's pipeline on main run 1's backbone (full width
    and depth, bfloat16, the same seed), every routed expert on the device
-   (~31 GB): 24 batch-1 traces of 64 prompt tokens from the topic corpus
-   and 16 sampled ones (1,920 decode steps through the facade's decode
+   (~31 GB): 20 batch-1 traces of 64 prompt tokens from the topic corpus
+   and 16 sampled ones (1,600 decode steps through the facade's decode
    mode, ``topk_gating`` and ``expert_ffn`` on every MoE layer), the
-   paper's full-size predictor trained on 16 of them with
+   paper's full-size predictor trained on 12 of them with
    ``train_predictor``'s defaults, and the other 8 replayed through the
    cache simulator at a 10% cache with all seven policies, each with its
    per-trace standard error; fails unless both kernels launched exactly
-   once per MoE layer and step (26 x 1,920), every loss is finite, the
+   once per MoE layer and step (26 x 1,600), every loss is finite, the
    trained predictor's validation loss is below the untrained one's and
    the oracle hits every access; it hands the trained predictor on;
 4a'. main run trained: main run 1 again with that trained predictor in
@@ -141,6 +142,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    CPU, each step from the same weights and moments: routed ids
    identical, loss, gradients and step losses within tolerance, a step
    routed apart only at a near-tie;
+4d'. checkpoint: ``launch.train.train(save=)`` on DeepSeek-V2-Lite at
+   full width in bfloat16, depth cut to 2 layers (1 dense, 1 MoE; 1.085 B
+   parameters, a 4.34 GB float32 npz in a temporary directory whose free
+   space is checked first), 2 AdamW steps at B 4 x S 1024, then
+   ``checkpoint.load`` into a fresh ``model.init`` on the card; fails
+   unless every leaf is restored bit for bit (value, dtype, shape,
+   device), ``loss_fn`` on a held-out batch gives identical loss and
+   metrics on both trees, and ``topk_gating`` launched exactly once per
+   MoE layer and forward; reports the file's bytes, save and load times
+   and rates and the peak resident set sampled during the phase;
+4d''. dispatch: ``launch.sharding.expert_dispatch_ffn`` on 4 spawned
+   ranks sharing the card (``gloo`` over ``file://`` rendezvous), each
+   holding 16 of DeepSeek-V2-Lite's 64 experts at full width (D 2048,
+   F 1408), at C 12 (48 received pairs, one ``expert_ffn`` call) and
+   C 24 (two), ragged live counts with ``-1`` padding, in float32 and
+   bfloat16 against ``expert_ffn_plain`` of every sent token on its
+   global expert; fails if a rank raises, dies or outlasts its timeout,
+   unless the errors are within phase 2's tolerance, padding is exact
+   zeros and the launches are exact;
 4e. pipeline trained: the ~100M config of ``examples/train_backbone.py``
    trained 200 steps at B 8 x S 256, then 4a's steps 2-4 on it at 10% and
    20% caches, beside 4a's random-backbone table;
@@ -216,7 +236,8 @@ Phases 3' and 3a-3f are named ``serve_telemetry``, ``parity_workload``,
 ``serve_workload``, ``parity_tiers``, ``serve_tiers``, ``main_run_236b``
 and ``parity_236b`` in the output;
 phases 4a-4f ``pipeline``, ``main_run_trained``, ``parity_pipeline``,
-``train``, ``parity_train``, ``pipeline_trained`` and ``serve_trained``;
+``train``, ``parity_train``, ``checkpoint``, ``dispatch``,
+``pipeline_trained`` and ``serve_trained``;
 phases 9-14 ``facade_scout``, ``facade_gemma3``, ``parity_gqa``,
 ``facade_recurrentgemma``, ``facade_seamless`` and ``parity_recurrent``.
 Host memory:
@@ -224,14 +245,16 @@ about 26 GB for main run 2's pinned experts, ~38.7 GB for main run 236B's
 (each main run's pinned blocks
 are released before the next phase), 16 GB of float32 experts for parity
 run 2, and in serve_tiers' run (d) up to ~10.8 GB of int8 peer copies
-beside main run 1's pinned experts. The last stdout line is ``{"ok": true,
+beside main run 1's pinned experts; the checkpoint phase's float32 copy
+of its tree and the file's read buffer (~11 GB resident at its peak on
+an H100 host). The last stdout line is ``{"ok": true,
 "device": {...}}``; the line before it is the card's name and power limit;
 before that the ``{"kernels": [...]}`` line, whose ``launches`` are the
 counts of the main run that drives each kernel (Llama-4-Scout's for the
 four attention and MoE kernels, mamba2's for ``ssd_chunk``;
 ``launches_by_run`` has every main run's, main_run_236b's and the
-serve_telemetry,
-serve_workload, serve_tiers, pipeline, main_run_trained, train,
+serve_telemetry, serve_workload, serve_tiers, pipeline, main_run_trained,
+train, checkpoint, dispatch (its ranks' ``expert_ffn`` calls),
 pipeline_trained, serve_trained, facade_scout, facade_gemma3,
 facade_recurrentgemma and facade_seamless phases'), and
 before that ``{"launch_floor_ms": ...}`` and the phases' summaries. Details go to
@@ -653,6 +676,10 @@ EXPERT_SHAPES = {
     "v236_prefill": dict(n=8, k=6, d=5120, f=1536, slots=48,
                          distinct=PREFILL_DISTINCT_SLOTS_236B,
                          seed=SEED + 36),
+    # the dispatch phase's per-shard call: 4 ranks x C 12 received tokens,
+    # k 1, on the shard's 16 experts (each named 3 times)
+    "dispatch": dict(n=48, k=1, d=2048, f=1408, slots=16, distinct=16,
+                     seed=SEED + 40),
 }
 
 
@@ -2056,9 +2083,10 @@ def serve_tiers_run(torch, np, dev, host_bw, handed, main1):
 # the pipeline phase: prompts from the topic corpus, decode steps per
 # trace, predictor training split, and the simulator's cache (the paper's
 # 10%) and warm-up prefix
-# 24 traces, 16 of them training the predictor and 8 held out (32 and 24
-# until the GQA phases of phases 9-11 needed the time)
-PIPELINE = dict(prompts=24, prompt_len=64, max_new=16, train=16,
+# 20 traces, 12 of them training the predictor and 8 held out (32 and 24
+# until the GQA phases of phases 9-11 needed the time, 24 and 16 until
+# the checkpoint and dispatch phases did)
+PIPELINE = dict(prompts=20, prompt_len=64, max_new=16, train=12,
                 temperature=0.8, capacity_fraction=0.1, warm_tokens=8)
 
 
@@ -2564,6 +2592,358 @@ def parity_run_train(torch, np, dev):
                            "near_tie": NEAR_TIE}}
 
 
+# the checkpoint phase: full-width DeepSeek-V2-Lite cut to 1 dense and 1
+# MoE layer (1.085 B parameters; its file, float32 as the reference's, is
+# 4.34 GB), trained 2 steps by ``launch.train.train(save=)`` and reloaded
+CHECKPOINT = dict(layers=2, batch=4, seq=1024, steps=2, lr=1e-3)
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+class RssPeak:
+    """The process's resident set sampled every ``every`` s on a thread
+    while the ``with`` block runs: the peak of one phase (the kernel's
+    high-water mark is the whole process's)."""
+
+    def __init__(self, every: float = 0.01):
+        import threading
+        self.every, self.peak = every, rss_bytes()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(self.every):
+            self.peak = max(self.peak, rss_bytes())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_bytes())
+
+
+def checkpoint_run(torch, np, dev):
+    """``launch.train.train(save=)`` on full-width DeepSeek-V2-Lite (2
+    layers, bfloat16, 2 AdamW steps at B 4 x S 1024) into a temporary
+    directory, then ``checkpoint.load`` into a fresh ``model.init`` on the
+    card. Fails if the directory's disk is short of the file, unless every
+    leaf equals the trained one bit for bit in value, dtype, shape and
+    device, unless ``loss_fn`` on a held-out batch gives identical loss
+    and metrics for both trees, and unless ``topk_gating`` launched
+    exactly once per MoE layer and forward (2 steps, 2 held-out
+    forwards), no other kernel."""
+    import resource
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches, make_topic_corpus
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import moe_layer_ids
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import named_leaves
+
+    c = CHECKPOINT
+    cfg = get_config("deepseek-v2-lite").replace(num_layers=c["layers"])
+    n_moe = len(moe_layer_ids(cfg))
+    model = build_model(cfg)
+    shapes = model.init(torch.Generator(dev).manual_seed(SEED),
+                        device="meta")
+    n_params = sum(t.numel() for _, t in named_leaves(shapes))
+    need = 4 * n_params + (64 << 20)    # float32 arrays, headers, slack
+    rss_before = rss_bytes()
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            fail(f"checkpoint: {free} bytes free under {tmp}, the file "
+                 f"needs {need}")
+        path = os.path.join(tmp, "ckpt.npz")
+        stamps = []
+
+        def note(line):
+            stamps.append((time.perf_counter(), line))
+            log(f"checkpoint: {line}")
+
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            params, losses = train(cfg, steps=c["steps"],
+                                   batch_size=c["batch"], seq_len=c["seq"],
+                                   lr=c["lr"], seed=SEED, device=dev,
+                                   log=note, save=path)
+            train_s = time.perf_counter() - t0
+            train_launches = launch_counts()
+            if stamps[-1][1] != f"saved params to {path}":
+                fail(f"checkpoint: train logged {stamps[-1][1]!r} last")
+            # from the last step's line (its loss read back) to the save's
+            save_s = stamps[-1][0] - stamps[-2][0]
+            file_bytes = os.path.getsize(path)
+            fresh = model.init(torch.Generator(dev).manual_seed(SEED + 1),
+                               device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loaded = checkpoint.load(path, fresh)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            del fresh
+    trained, back = named_leaves(params), named_leaves(loaded)
+    if [k for k, _ in trained] != [k for k, _ in back]:
+        fail("checkpoint: the loaded tree's keys differ from the trained")
+    differ = [k for (k, a), (_, b) in zip(trained, back)
+              if a.dtype != b.dtype or a.shape != b.shape
+              or a.device != b.device or b.requires_grad
+              or not torch.equal(a, b)]
+    if differ:
+        fail(f"checkpoint: leaves not restored bit for bit: {differ}")
+    if not file_bytes >= 4 * n_params:
+        fail(f"checkpoint: {file_bytes} bytes for {n_params} float32 values")
+    corpus = make_topic_corpus(cfg.vocab_size, n_topics=8, seed=SEED)
+    held = torch.as_tensor(next(iter(lm_batches(
+        corpus, c["batch"], c["seq"], 1, seed=SEED + 2)))[:, :c["seq"]],
+        device=dev)
+    reset_launch_counts()
+    with torch.no_grad():
+        la, ma = model.loss_fn(params, {"tokens": held})
+        lb, mb = model.loss_fn(loaded, {"tokens": held})
+    torch.cuda.synchronize()
+    forward_launches = launch_counts()
+    if not (torch.equal(la, lb)
+            and all(torch.equal(ma[k], mb[k]) for k in ma)):
+        fail(f"checkpoint: held-out loss {la.item()} / {ma} on the trained "
+             f"tree, {lb.item()} / {mb} on the loaded one")
+    for label, got, steps in (("train", train_launches, c["steps"]),
+                              ("held-out forwards", forward_launches, 2)):
+        want = {k: 0 for k in got}
+        want["topk_gating"] = n_moe * steps
+        if got != want:
+            fail(f"checkpoint: {label} launched {got}, want {want}")
+    if not np.isfinite(losses).all():
+        fail(f"checkpoint: non-finite losses {losses}")
+    launches = {k: train_launches[k] + forward_launches[k]
+                for k in train_launches}
+    result = {
+        "config": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+        "moe_layers": n_moe, "params": n_params, "leaves": len(trained),
+        "float32_leaves": [k for k, t in trained if t.dtype == torch.float32],
+        **c, "losses": losses, "held_out_loss": la.item(),
+        "held_out_metrics": {k: v.item() for k, v in ma.items()},
+        "file_bytes": file_bytes, "disk_free_bytes": free,
+        "train_s_with_save": train_s, "save_s": save_s, "load_s": load_s,
+        "save_bytes_per_s": file_bytes / save_s,
+        "load_bytes_per_s": file_bytes / load_s,
+        "rss_before_bytes": rss_before, "peak_rss_bytes": rss.peak,
+        "process_max_rss_bytes":
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "train_launches": train_launches,
+        "forward_launches": forward_launches, "bit_identical": True}
+    del params, loaded, trained, back, la, lb, ma, mb
+    return result, launches
+
+
+# the dispatch phase: 4 ranks on the one card, each holding 16 of
+# DeepSeek-V2-Lite's 64 experts at full width, at two capacities: 4 x 12
+# received pairs (one expert_ffn call) and 4 x 24 (two)
+DISPATCH = dict(ranks=4, experts=64, d=2048, f=1408, capacities=(12, 24),
+                timeout_s=120.0)
+
+
+def dispatch_rank(rank: int, world: int, rendezvous: str, out_dir: str,
+                  c: dict, device: str) -> None:
+    """One rank of the dispatch phase, in a process of its own: a ``gloo``
+    group of ``world`` ranks over ``file://`` rendezvous (NCCL refuses two
+    ranks on one card), the global experts drawn on the card from one
+    seed on every rank, this rank's 16 of them copied out, then at each
+    capacity ragged send buffers (``-1`` padding, as the reference test
+    draws them) through ``expert_dispatch_ffn`` in float32 and bfloat16,
+    each against ``expert_ffn_plain`` of every sent token on its global
+    expert in float32. ``c`` is ``DISPATCH``; ``device`` is ``"cuda"``
+    (``"cpu"`` rehearses the phase on the plain path). Writes its report
+    to ``out_dir``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import build, launch_counts, reset_launch_counts
+    from repro_torch.kernels import expert_ffn as ef
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_expert_group
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=world)
+    try:
+        group = make_expert_group(world)
+        if on_card:
+            build.library()         # the parent's, from the build cache
+        e, d, f = c["experts"], c["d"], c["f"]
+        e_local = e // world
+        gen = torch.Generator(dev).manual_seed(SEED + 50)
+        glob = [(torch.randn(e, *shape, generator=gen, device=dev)
+                 * 0.02).to(torch.bfloat16)
+                for shape in ((d, f), (d, f), (f, d))]
+        mine = [w[rank * e_local:(rank + 1) * e_local].contiguous()
+                for w in glob]
+        sync()
+        ready_s = time.perf_counter() - t_start
+        runs = []
+        for cap in c["capacities"]:
+            rng = np.random.default_rng(SEED + cap)   # equal on every rank
+            eid = np.full((world, world, cap), -1, np.int32)
+            for s in range(world):
+                for dest in range(world):
+                    live = int(rng.integers(0, cap + 1))
+                    eid[s, dest, :live] = rng.integers(
+                        dest * e_local, (dest + 1) * e_local, live)
+            es = torch.from_numpy(eid[rank]).to(dev)
+            received = int((eid[:, rank] >= 0).sum())
+            xgen = torch.Generator(dev).manual_seed(SEED + 100 * cap + rank)
+            x = torch.randn(world, cap, d, device=dev, generator=xgen)
+            pad = (es < 0)[..., None].expand(world, cap, d)
+            for dt in (torch.float32, torch.bfloat16):
+                xs = x.to(dt)
+                ws = [w.to(dt) for w in mine]
+                ref = ef.expert_ffn_plain(
+                    xs.float().reshape(-1, d),
+                    torch.ones(world * cap, 1, device=dev),
+                    es.clamp_min(0).reshape(-1, 1), *glob)
+                ref = torch.where(pad, 0.0, ref.reshape(world, cap, d))
+                first = sharding.expert_dispatch_ffn(group, *ws, xs, es)
+                sync()
+                dist.barrier(group=group)
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                out = sharding.expert_dispatch_ffn(group, *ws, xs, es)
+                sync()
+                call_s = time.perf_counter() - t0
+                launches = launch_counts()
+                err = (out.float() - ref).abs().max().item()
+                scale = max(1.0, ref.abs().max().item())
+                tol = (1e-4 if dt == torch.float32 else 2e-2) * scale
+                runs.append({
+                    "capacity": cap, "dtype": str(dt).split(".")[-1],
+                    "pairs": world * cap, "received_live": received,
+                    "sent_live": int((eid[rank] >= 0).sum()),
+                    "launches": launches,
+                    "want_expert_ffn": -(-world * cap // ef.MAX_PAIRS),
+                    "max_abs_err": err, "tolerance": tol,
+                    "padding_zero": bool((out[pad] == 0).all()),
+                    "dtype_kept": out.dtype == dt,
+                    "shape_kept": tuple(out.shape) == tuple(xs.shape),
+                    "repeatable": torch.equal(out, first), "call_s": call_s})
+                del ws, ref, first, out
+        report = {"rank": rank, "shard_experts": list(
+            range(rank * e_local, (rank + 1) * e_local)),
+            "shard_bytes": sum(t.numel() * t.element_size() for t in mine),
+            "ready_s": ready_s, "runs": runs,
+            "wall_s": time.perf_counter() - t_start,
+            "max_memory_allocated_bytes":
+                torch.cuda.max_memory_allocated() if on_card else None}
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def dispatch_run(torch, np, dev):
+    """``expert_dispatch_ffn`` on ``DISPATCH["ranks"]`` spawned ranks
+    sharing the card (``dispatch_rank``). Fails if a rank raises, dies or
+    outlasts ``timeout_s`` (every rank is stopped then), unless each run
+    of each rank is within ``check_expert``'s tolerance of the plain
+    version, keeps its dtype and shape, repeats bit for bit, has exact
+    zeros at its padding and launched ``expert_ffn`` exactly
+    ceil(S C / MAX_PAIRS) times and no other kernel."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    # phase 1 built the kernel library: the ranks load it from the cache
+    c = DISPATCH
+    world = c["ranks"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            dispatch_rank, args=(world, os.path.join(tmp, "rendezvous"), tmp,
+                                 c, dev.type),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + c["timeout_s"]
+        try:
+            while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    fail(f"dispatch: the ranks did not finish within "
+                         f"{c['timeout_s']} s")
+        except ProcessException as exc:
+            fail(f"dispatch: rank {exc.error_index} failed: {exc}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join(10)
+        spawn_to_done_s = time.perf_counter() - t0
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(world)]
+    total = 0
+    for rep in ranks:
+        for run in rep["runs"]:
+            want = {k: 0 for k in run["launches"]}
+            want["expert_ffn"] = run["want_expert_ffn"]
+            label = (f"dispatch: rank {rep['rank']} C {run['capacity']} "
+                     f"{run['dtype']}")
+            if run["launches"] != want:
+                fail(f"{label}: launches {run['launches']}, want {want}")
+            if not run["max_abs_err"] <= run["tolerance"]:
+                fail(f"{label}: max abs err {run['max_abs_err']} > "
+                     f"{run['tolerance']}")
+            for key in ("padding_zero", "dtype_kept", "shape_kept",
+                        "repeatable"):
+                if not run[key]:
+                    fail(f"{label}: {key} is false")
+            total += run["launches"]["expert_ffn"]
+    launches = {k: 0 for k in ranks[0]["runs"][0]["launches"]}
+    launches["expert_ffn"] = total
+    result = {"ranks": world, "backend": "gloo", **{
+        k: c[k] for k in ("experts", "d", "f", "capacities", "timeout_s")},
+        "spawn_to_done_s": spawn_to_done_s,
+        "rank_wall_s": [r["wall_s"] for r in ranks],
+        "rank_ready_s": [r["ready_s"] for r in ranks],
+        "call_s": {f"C{run['capacity']}_{run['dtype']}":
+                   [r["runs"][i]["call_s"] for r in ranks]
+                   for i, run in enumerate(ranks[0]["runs"])},
+        "max_abs_err": {f"C{run['capacity']}_{run['dtype']}":
+                        max(r["runs"][i]["max_abs_err"] for r in ranks)
+                        for i, run in enumerate(ranks[0]["runs"])},
+        "received_live": {f"C{run['capacity']}":
+                          [r["runs"][i]["received_live"] for r in ranks]
+                          for i, run in enumerate(ranks[0]["runs"])
+                          if run["dtype"] == "float32"},
+        "shard_bytes": ranks[0]["shard_bytes"],
+        "max_memory_allocated_bytes": [r["max_memory_allocated_bytes"]
+                                       for r in ranks],
+        "launches_per_rank": [sum(run["launches"]["expert_ffn"]
+                                  for run in r["runs"]) for r in ranks]}
+    return result, launches
+
+
 # the trained backbone of the pipeline: the ~100M config trained with the
 # reference launcher's recipe, as examples/train_backbone.py runs it
 BACKBONE = dict(steps=200, batch=8, seq=256, lr=3e-3)
@@ -2912,7 +3292,7 @@ def parity_run_pipeline(torch, np, dev):
 def parity_run_llama4(torch, np, dev):
     """Llama-4-Scout at full width in float32, cut to the reference's own
     reduced pattern (one chunked and one global layer) with a 16-slot
-    chunk, so the chunked ring wraps twice in a 38-position request and
+    chunk, so the chunked ring wraps twice in a 34-position request and
     both attention kernels run. Three engines on identical weights — paged
     ``BatchedOffloadEngine``, ``paged=False`` engine, batch-1
     ``OffloadEngine`` — must each give identical streams, routed ids and
@@ -2936,7 +3316,9 @@ def parity_run_llama4(torch, np, dev):
     pp_gpu, pp_cpu = predictor_pair(torch, dev, pc, SEED + 6)
     rng = np.random.default_rng(SEED + 7)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (30, 9)]
-    max_new, cache_len, capacity, layer_s = 8, 48, 4, 2e-4
+    # 4 new tokens (8 until the checkpoint and dispatch phases needed the
+    # time): the 30-token prompt's ring still wraps at 16 and 32
+    max_new, cache_len, capacity, layer_s = 4, 48, 4, 2e-4
     runs = {}
     for where, pp in (("card", pp_gpu), ("cpu", pp_cpu)):
         device = dev if where == "card" else "cpu"
@@ -3645,6 +4027,9 @@ def main() -> None:
          None),
         ("train", ds, lambda: train_run(torch, np, dev), "train"),
         ("parity_train", ds, lambda: parity_run_train(torch, np, dev), None),
+        ("checkpoint", ds, lambda: checkpoint_run(torch, np, dev),
+         "checkpoint"),
+        ("dispatch", ds, lambda: dispatch_run(torch, np, dev), "dispatch"),
         ("pipeline_trained", ds,
          lambda: pipeline_trained_run(torch, np, dev,
                                       runs["pipeline"]["policies"], keep),
@@ -3722,6 +4107,11 @@ def main() -> None:
             entry["ship_shape"] = {
                 "max_abs_err": sh["bfloat16"],
                 "max_abs_err_f32": sh["float32"], **timing_fields(sh)}
+        if "dispatch" in c:     # the dispatch phase's per-shard call
+            dp = c["dispatch"]
+            entry["dispatch_shape"] = {
+                "max_abs_err": dp["bfloat16"],
+                "max_abs_err_f32": dp["float32"], **timing_fields(dp)}
         if "train" in c:        # the training forward's router
             entry["training_shapes"] = {
                 shape: {"max_abs_err": c[shape]["float32"],
@@ -3803,6 +4193,18 @@ def main() -> None:
         "s_per_step": [st["s"] for st in tr["steps_detail"]],
         "seconds": phase_s["train"]}), flush=True)
     print(json.dumps({"parity_train": runs["parity_train"]}), flush=True)
+    ck = runs["checkpoint"]
+    print(json.dumps({"checkpoint": {k: ck[k] for k in (
+        "layers", "params", "leaves", "file_bytes", "save_s", "load_s",
+        "save_bytes_per_s", "load_bytes_per_s", "train_s_with_save",
+        "peak_rss_bytes", "rss_before_bytes", "bit_identical",
+        "held_out_loss", "train_launches", "forward_launches")},
+        "phase_s": phase_s["checkpoint"]}), flush=True)
+    dp = runs["dispatch"]
+    print(json.dumps({"dispatch": {k: dp[k] for k in (
+        "ranks", "backend", "capacities", "spawn_to_done_s", "rank_wall_s",
+        "rank_ready_s", "call_s", "max_abs_err", "launches_per_rank")},
+        "phase_s": phase_s["dispatch"]}), flush=True)
     pt = runs["pipeline_trained"]
     print(json.dumps({"pipeline_trained": {k: pt[k] for k in (
         "params", "loss_curve", "backbone_s", "backbone_launches",

@@ -25,6 +25,14 @@ kept: MLA's ``w_q`` ``(D,H,qk)``, or its compressed q projection
 (DeepSeek-V2-236B), ``w_uk`` ``(rank,H,n)``; GQA's ``wq`` ``(D,H,hd)``;
 experts ``(E,D,F)``/``(E,F,D)``. Predictor: the stacked ``enc`` becomes a
 list of per-layer dicts.
+
+A file the reference's ``training/checkpoint.save`` wrote (its
+``launch/train.py`` ``save=``, the benchmarks' ``backbone.npz``) holds
+that stacked tree flattened to "/"-joined keys
+(``stack/scan/0/moe/w_up``, ``decoder/cross_attn/wq``), bfloat16 widened
+to float32: :func:`backbone_from_jax_checkpoint` reads it. It is not the
+port's own checkpoint format, whose tree is per layer
+(:mod:`repro_torch.training.checkpoint`).
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch
 
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.transformer import _layer_split
+from repro_torch.training.optimizer import named_leaves
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -91,6 +100,61 @@ def backbone_from_jax(cfg, params, device="cuda"):
     out["layers"] = [_tree(lp, lambda a: _tensor(a, dev))
                      for lp in unstack_layers(cfg, params["stack"])]
     return out
+
+
+def _unflatten(flat) -> dict:
+    """"/"-joined keys -> the nested tree; a dict whose keys are all
+    digits becomes a list in index order."""
+    root: dict = {}
+    for key, arr in flat.items():
+        *parents, leaf = key.split("/")
+        node = root
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[k] for k in sorted(node, key=int)]
+        return node
+    return lists(root)
+
+
+def _like_dtypes(tree, like, prefix: str = ""):
+    """``tree`` with each leaf cast to the dtype of ``like``'s leaf at
+    its place; a shape that differs raises ``ValueError`` naming it."""
+    if isinstance(like, dict):
+        return {k: _like_dtypes(tree[k], v, f"{prefix}{k}/")
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        if len(tree) != len(like):
+            raise ValueError(f"checkpoint {prefix[:-1]}: {len(tree)} "
+                             f"entries, the template's {len(like)}")
+        return type(like)(_like_dtypes(t, v, f"{prefix}{i}/")
+                          for i, (t, v) in enumerate(zip(tree, like)))
+    if tree.shape != like.shape:
+        raise ValueError(f"checkpoint leaf {prefix[:-1]}: shape "
+                         f"{tuple(tree.shape)}, the template's "
+                         f"{tuple(like.shape)}")
+    return tree.to(like.dtype)
+
+
+def backbone_from_jax_checkpoint(cfg, path: str, like):
+    """A backbone checkpoint the reference wrote (``np.savez`` of its
+    stacked ``model.init`` tree, bfloat16 widened to float32) -> the
+    port's per-layer tree on ``like``'s device, each leaf in the dtype of
+    ``like``'s leaf at the same place (``like``: a port tree of ``cfg``,
+    e.g. ``build_model(cfg).init(device=...)``)."""
+    with np.load(path) as data:
+        tree = _unflatten({k: data[k] for k in data.files})
+    if "stack" in tree:     # a run of no layers leaves no key behind
+        for part in ("head", "scan", "tail"):
+            tree["stack"].setdefault(part, [])
+    dev = named_leaves(like)[0][1].device
+    return _like_dtypes(backbone_from_jax(cfg, tree, device=dev), like)
 
 
 def predictor_from_jax(params, pc, device="cuda"):

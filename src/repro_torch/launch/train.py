@@ -1,23 +1,37 @@
-"""Single-device training of a backbone: the reference launcher's loop
-(``repro/launch/train.py``) on one card.
+r"""Single-device training of a backbone: the reference launcher's loop
+(``repro/launch/train.py``) on one card, with its checkpoint and its
+command line.
 
 ``train`` draws the weights from a seeded generator, then runs AdamW
 (clip 1.0, a cosine schedule with 20 warm-up steps) on ``lm_batches`` of
 the 8-topic corpus, one :func:`train_step` a batch; gradients come from
 autograd; a vision config gets a zero ``patches`` batch and an audio
-(encoder-decoder) config a zero ``frames`` batch, as in the reference. It runs on the card unless ``device="cpu"`` is passed. The
-production mesh and checkpointing (``save=``) are ROADMAP Queue 1 item 9.
-``examples/pipeline_torch.py`` and ``chip_smoke.py`` call it.
+(encoder-decoder) config a zero ``frames`` batch, as in the reference.
+With ``save=path`` it writes the trained parameters with
+:func:`repro_torch.training.checkpoint.save`. It runs on the card unless
+``device="cpu"`` is passed. The production mesh (``production_mesh=``)
+is the remainder of ROADMAP Queue 1 item 9 and raises.
+
+Usage::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch \
+        deepseek-v2-lite --reduced --steps 100 --batch 8 --seq 128 \
+        [--save params.npz] [--device cpu]
+
+``examples/pipeline_torch.py`` and ``chip_smoke.py`` call :func:`train`.
 """
 from __future__ import annotations
 
+import argparse
 import time
 
 import torch
 
+from repro_torch.configs import get_config, get_reduced
 from repro_torch.data import lm_batches, make_topic_corpus
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.model import build_model
+from repro_torch.training import checkpoint
 from repro_torch.training.optimizer import (cosine_schedule, make_adamw,
                                             named_leaves, tree_map)
 
@@ -53,11 +67,12 @@ def train(cfg, steps: int = 100, batch_size: int = 8, seq_len: int = 128,
           lr: float = 3e-3, seed: int = 0, device="cuda", log=print,
           save: str | None = None, production_mesh: bool = False):
     """Train ``cfg`` from seeded weights for ``steps`` batches of
-    ``batch_size`` x ``seq_len`` tokens. Returns (params, losses)."""
-    if production_mesh or save:
+    ``batch_size`` x ``seq_len`` tokens; with ``save``, write the
+    trained parameters there. Returns (params, losses)."""
+    if production_mesh:
         raise NotImplementedError(
-            "the production mesh and checkpoints: ROADMAP Queue 1 item 9 "
-            "(training at scale, and launch)")
+            "the production mesh (DeviceMesh placements of every parameter) "
+            "is the remainder of ROADMAP Queue 1 item 9")
     dev = resolve_device(device)
     model = build_model(cfg)
     params, leaves = trainable(
@@ -87,4 +102,30 @@ def train(cfg, steps: int = 100, batch_size: int = 8, seq_len: int = 128,
             log(f"step {i:5d} loss={losses[-1]:.4f} "
                 f"xent={mets['xent'].item():.4f} gnorm={gnorm.item():.2f} "
                 f"({(time.time() - t0) / (i + 1):.2f}s/step)")
-    return tree_map(lambda t: t.detach(), params), losses
+    params = tree_map(lambda t: t.detach(), params)
+    if save:
+        checkpoint.save(save, params)
+        log(f"saved params to {save}")
+    return params, losses
+
+
+def main(argv=None) -> None:
+    """The reference launcher's command line, plus ``--device``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    train(cfg, args.steps, args.batch, args.seq, args.lr, save=args.save,
+          device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
-"""AdamW with per-parameter learning rates, global-norm clipping and an
-optional schedule: the reference's ``make_adamw`` and
-``cosine_schedule`` (``repro/training/optimizer.py``) term for term,
+"""AdamW with per-parameter learning rates, global-norm clipping, an
+optional schedule and a dynamic loss scaler: the reference's
+``make_adamw``, ``cosine_schedule``, ``clip_by_global_norm`` and
+``DynamicLossScaler`` (``repro/training/optimizer.py``) term for term,
 over trees (dicts and lists) of tensors.
 
 The paper's predictor trains with AdamW(β1=.9, β2=.98, wd=.01), layerwise
@@ -74,6 +75,15 @@ def global_norm(leaves) -> torch.Tensor:
         part = torch.sum(norms * norms)
         sq = part if sq is None else sq + part
     return torch.sqrt(sq)
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """(``tree`` scaled by ``min(1, max_norm / (norm + 1e-9))``, norm):
+    the scale is float32, cast to each gradient's dtype before the
+    product. ``tree`` is a tree of tensors or a list of leaves."""
+    norm = global_norm([g for _, g in named_leaves(tree)])
+    scale = torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), tree), norm
 
 
 def cosine_schedule(base: float = 1.0, warmup: int = 100,
@@ -161,3 +171,40 @@ def make_adamw(lr: float | Callable[[str], float] = 1e-4,
                          "step": step}, {"grad_norm": gnorm})
 
     return init_fn, update_fn
+
+
+class DynamicLossScaler:
+    """fp16-style loss scaling (the paper's AMP GradScaler); an identity
+    when disabled, as it is for bfloat16. After ``growth_interval``
+    finite steps in a row the scale doubles; a non-finite step halves it
+    (never below 1.0) and starts the count again."""
+
+    def __init__(self, init_scale: float = 2.0 ** 15,
+                 growth_interval: int = 2000, enabled: bool = False):
+        self.scale = init_scale if enabled else 1.0
+        self.growth_interval = growth_interval
+        self.enabled = enabled
+        self._good_steps = 0
+
+    def scale_loss(self, loss):
+        return loss * self.scale
+
+    def unscale_and_check(self, grads):
+        """(``grads`` divided by the scale, a 0-d bool tensor: every entry
+        finite)."""
+        grads = tree_map(lambda g: g / self.scale, grads)
+        finite = torch.stack([torch.isfinite(g).all()
+                              for _, g in named_leaves(grads)]).all()
+        return grads, finite
+
+    def update(self, finite: bool) -> None:
+        if not self.enabled:
+            return
+        if finite:
+            self._good_steps += 1
+            if self._good_steps >= self.growth_interval:
+                self.scale *= 2.0
+                self._good_steps = 0
+        else:
+            self.scale = max(self.scale / 2.0, 1.0)
+            self._good_steps = 0

@@ -1011,3 +1011,43 @@ def test_telemetry_on_card_is_passive_and_matches_cpu(cuda, chip_smoke,
     spec.loader.exec_module(check_trace)
     assert check_trace.check_artifact(doc, min_request_tracks=len(prompts),
                                       min_channel_tracks=1) == []
+
+
+def test_shard_ffn_on_card_matches_cpu(cuda, monkeypatch):
+    """The dispatch's per-shard compute on the card (``expert_ffn``, one
+    launch per ``MAX_PAIRS`` run; 5 runs at ``MAX_PAIRS`` 8) against the
+    CPU's plain path on the same weights; padding rows exact zeros."""
+    from repro_torch.launch import sharding
+    g = torch.Generator().manual_seed(0)
+    s, c, e_local, d, f, shard = 4, 10, 3, 64, 96, 1
+    w = [torch.randn(*shape, generator=g) * 0.1
+         for shape in ((e_local, d, f), (e_local, d, f), (e_local, f, d))]
+    x = torch.randn(s, c, d, generator=g)
+    eid = torch.randint(shard * e_local, (shard + 1) * e_local, (s, c),
+                        generator=g, dtype=torch.int32)
+    eid[:, -3:] = -1
+    want = sharding.shard_ffn(*w, x, eid, shard)
+    monkeypatch.setattr(sharding, "MAX_PAIRS", 8)
+    reset_launch_counts()
+    got = sharding.shard_ffn(*(t.to(cuda) for t in w), x.to(cuda),
+                             eid.to(cuda), shard)
+    assert launch_counts()["expert_ffn"] == 5
+    assert (got[:, -3:] == 0).all()
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A bf16 tree on the card saved and loaded back: bit for bit, on the
+    template's device, the float32 leaf kept float32."""
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import named_leaves
+    g = torch.Generator(cuda).manual_seed(0)
+    tree = {"w": torch.randn(8, 16, generator=g, device=cuda).bfloat16(),
+            "layers": [{"router": torch.randn(16, 4, generator=g,
+                                              device=cuda)}]}
+    path = str(tmp_path / "ck.npz")
+    checkpoint.save(path, tree)
+    back = checkpoint.load(path, tree)
+    for (k, a), (_, b) in zip(named_leaves(tree), named_leaves(back)):
+        assert b.device == a.device and b.dtype == a.dtype, k
+        assert torch.equal(a, b), k

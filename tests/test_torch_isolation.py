@@ -15,6 +15,7 @@ from repro_torch.core.predictor_train import train_predictor
 from repro_torch.configs import get_reduced
 from repro_torch.configs.base import PredictorConfig
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch import train as launch_train
 from repro_torch.models.model import EncDecModel, Model, build_model
 from repro_torch.serving.engine import DecodeCore, OffloadEngine
 from repro_torch.serving.scheduler import BatchedOffloadEngine
@@ -26,7 +27,8 @@ ENTRY_POINTS = [Model.init, Model.init_decode_state, EncDecModel.init,
                 BatchedOffloadEngine.__init__,
                 OffloadEngine.__init__, DecodeCore.__init__, predictor_init,
                 train_predictor, convert.backbone_from_jax,
-                convert.predictor_from_jax, resolve_device]
+                convert.predictor_from_jax, resolve_device,
+                launch_train.train]
 
 
 def _port_files():
@@ -94,6 +96,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         BatchedOffloadEngine(model, params, None, 48, host_bw=100e9)
     with pytest.raises(RuntimeError, match="CUDA"):
         OffloadEngine(model, params, None, 48, host_bw=100e9)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "deepseek-v2-lite", "--steps", "1"])
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -112,7 +116,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                     "repro_torch.configs."
                                     "seamless_m4t_large_v2",
                                     "repro_torch.models.rglru",
-                                    "repro_torch.models.encdec"])
+                                    "repro_torch.models.encdec",
+                                    "repro_torch.training.checkpoint",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.sharding",
+                                    "repro_torch.launch.train"])
 def test_serving_modules_import_with_jax_and_reference_blocked(module):
     """The prefix index, the workload generator, the tiered expert store,
     the roofline terms, the scheduler that drives them and the configs

@@ -351,20 +351,27 @@ def test_quickstart_loop_matches_reference():
         assert abs(tloss.item() - float(loss)) <= 1e-4
 
 
-def test_train_launcher_on_cpu():
-    """``launch.train`` runs its loop on the CPU when asked and refuses
-    what is not ported, naming the ROADMAP item."""
+def test_train_launcher_on_cpu(tmp_path):
+    """``launch.train`` runs its loop on the CPU when asked, writes its
+    parameters with ``save=`` (``checkpoint.load`` restores them), and
+    refuses the production mesh, naming the ROADMAP item."""
+    from repro_torch.training import checkpoint as T_ckpt
     tcfg = torch_get_reduced(ARCH)
     lines = []
+    path = str(tmp_path / "params.npz")
     params, losses = T_train.train(tcfg, steps=3, batch_size=2, seq_len=16,
-                                   device="cpu", log=lines.append)
+                                   device="cpu", log=lines.append, save=path)
     assert len(losses) == 3 and np.isfinite(losses).all()
     assert lines[0].startswith("arch=deepseek-v2-lite")
+    assert lines[-1] == f"saved params to {path}"
     assert not any(t.requires_grad
                    for _, t in T_opt.named_leaves(params))
-    for kw in (dict(save="x.npz"), dict(production_mesh=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            T_train.train(tcfg, steps=1, device="cpu", **kw)
+    loaded = T_ckpt.load(path, torch_build_model(tcfg).init(device="cpu"))
+    for (k, a), (_, b) in zip(T_opt.named_leaves(params),
+                              T_opt.named_leaves(loaded)):
+        assert torch.equal(a, b), k
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        T_train.train(tcfg, steps=1, device="cpu", production_mesh=True)
 
 
 # ---------------------------------------------------------------------------

@@ -161,6 +161,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    global expert; fails if a rank raises, dies or outlasts its timeout,
    unless the errors are within phase 2's tolerance, padding is exact
    zeros and the launches are exact;
+4d'''. mesh_train: ``launch.train.train(production_mesh=)`` on 4 spawned
+   ranks sharing the card (``gloo`` over ``file://`` rendezvous) as a 2x2
+   ``("data", "model")`` ``DeviceMesh``: every parameter and both AdamW
+   moments sharded by the reference's rules, the whole tree gathered
+   each step, 4 rows a data rank, gradients averaged over ``"data"``;
+   the reduced DeepSeek-V2-Lite in float32, then the checkpoint phase's
+   model (full width, 2 layers, bfloat16) 2 steps at B 8 x S 1024,
+   against the same runs on one device, run first; fails if a rank
+   raises, dies or outlasts its timeout, unless the float32 losses and
+   gathered parameters are within 1e-5 and the bfloat16 losses within
+   2^-8 relative of the single-device ones, each rank holds the bytes
+   its placements give, and ``topk_gating`` launched once a MoE layer
+   and step on each rank; reports rank start, s a step, the bytes
+   exchanged a step, peak memory a rank;
 4e. pipeline trained: the ~100M config of ``examples/train_backbone.py``
    trained 200 steps at B 8 x S 256, then 4a's steps 2-4 on it at 10% and
    20% caches, beside 4a's random-backbone table;
@@ -237,7 +251,7 @@ Phases 3' and 3a-3f are named ``serve_telemetry``, ``parity_workload``,
 and ``parity_236b`` in the output;
 phases 4a-4f ``pipeline``, ``main_run_trained``, ``parity_pipeline``,
 ``train``, ``parity_train``, ``checkpoint``, ``dispatch``,
-``pipeline_trained`` and ``serve_trained``;
+``mesh_train``, ``pipeline_trained`` and ``serve_trained``;
 phases 9-14 ``facade_scout``, ``facade_gemma3``, ``parity_gqa``,
 ``facade_recurrentgemma``, ``facade_seamless`` and ``parity_recurrent``.
 Host memory:
@@ -254,8 +268,9 @@ counts of the main run that drives each kernel (Llama-4-Scout's for the
 four attention and MoE kernels, mamba2's for ``ssd_chunk``;
 ``launches_by_run`` has every main run's, main_run_236b's and the
 serve_telemetry, serve_workload, serve_tiers, pipeline, main_run_trained,
-train, checkpoint, dispatch (its ranks' ``expert_ffn`` calls),
-pipeline_trained, serve_trained, facade_scout, facade_gemma3,
+train, checkpoint, dispatch (its ranks' ``expert_ffn`` calls), mesh_train
+(its ranks' ``topk_gating`` calls), pipeline_trained, serve_trained,
+facade_scout, facade_gemma3,
 facade_recurrentgemma and facade_seamless phases'), and
 before that ``{"launch_floor_ms": ...}`` and the phases' summaries. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -2944,6 +2959,293 @@ def dispatch_run(torch, np, dev):
     return result, launches
 
 
+# the mesh_train phase: 4 ranks sharing the card as a 2x2 ("data",
+# "model") mesh train the checkpoint phase's model (full-width
+# DeepSeek-V2-Lite, 2 layers, its seed and lr) 2 steps at B 8 x S 1024:
+# 4 rows a data rank, one whole dispatch group of 4,096 tokens
+MESH_TRAIN = dict(ranks=4, mesh=(2, 2), batch=8, seq=1024, steps=2,
+                  timeout_s=300.0, f32_tol=1e-5)
+# the bf16 losses' tolerance, relative: the f32 run holds the sharded step
+# to the single-device one within f32_tol, so what is left between the
+# bf16 runs is bfloat16 rounding of products whose row counts differ (4
+# rows a rank against 8), one unit of bfloat16 rounding (2^-8) of the loss
+BF16_LOSS_REL = 2.0 ** -8
+
+
+def shard_shape(shape, places, mesh_shape):
+    """The local shape of a leaf of ``shape`` under ``places`` on a mesh
+    of ``mesh_shape`` (even splits)."""
+    shape = list(shape)
+    for k, pl in enumerate(places):
+        if pl.is_shard():
+            shape[pl.dim] //= mesh_shape[k]
+    return shape
+
+
+def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
+                    c: dict, device: str, spawned_at: float) -> None:
+    """One rank of the mesh_train phase, in a process of its own: a
+    ``gloo`` group over ``file://`` rendezvous (NCCL refuses two ranks on
+    one card), a 2x2 ``("data", "model")`` ``DeviceMesh`` on the card,
+    then ``launch.train.train(production_mesh=mesh)``: first the reduced
+    DeepSeek-V2-Lite in float32 (its gathered parameters written by rank
+    0), then full-width DeepSeek-V2-Lite at 2 layers in bfloat16 with the
+    launches counted. ``device`` is ``"cuda"`` (``"cpu"`` rehearses the
+    phase on the plain path). Writes its report to ``out_dir``."""
+    import re
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import build, launch_counts, reset_launch_counts
+    from repro_torch.launch import sharding
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import named_leaves
+
+    # seconds since the spawn at each step of the rank's start
+    start = {"imported": time.time() - spawned_at}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=world)
+    start["group"] = time.time() - spawned_at
+    try:
+        mesh = init_device_mesh(dev.type, c["mesh"],
+                                mesh_dim_names=("data", "model"))
+        start["mesh"] = time.time() - spawned_at
+        if on_card:
+            build.library()         # the parent's, from the build cache
+        ready_s = time.time() - spawned_at
+        run = dict(steps=c["steps"], batch_size=c["batch"],
+                   seq_len=c["seq"], lr=CHECKPOINT["lr"], seed=SEED,
+                   device=dev, production_mesh=mesh)
+        rlines = []
+        small, small_losses = train(get_reduced("deepseek-v2-lite"),
+                                    log=rlines.append, **run)
+        small = {k: sharding.full_tensor(t).cpu().numpy()
+                 for k, t in named_leaves(small)}
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "small.npz"), **small)
+        del small
+        small_s = time.time() - spawned_at - ready_s
+        cfg = get_config("deepseek-v2-lite").replace(
+            num_layers=CHECKPOINT["layers"])
+        want_params = want_moments = 0
+        for path, t in named_leaves(build_model(cfg).init(
+                torch.Generator(dev).manual_seed(SEED), device="meta")):
+            places = sharding.placements(
+                sharding.param_spec(path, t.shape, cfg, mesh), mesh)
+            n = int(np.prod(shard_shape(t.shape, places, c["mesh"])))
+            want_params += t.element_size() * n
+            want_moments += 2 * 4 * n      # both moments, float32
+        stamps = []
+
+        def note(line):
+            stamps.append((time.perf_counter(), line))
+
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with RssPeak() as rss:
+            params, losses = train(cfg, log=note, **run)
+            if on_card:
+                torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = launch_counts()
+        lines = [ln for _, ln in stamps]
+        held = re.search(r"holds params (\d+) B of (\d+) B, moments (\d+) B",
+                         lines[1])
+        step_at = [t for t, ln in stamps if ln.startswith("step ")]
+        report = {
+            "rank": rank, "coordinate": mesh.get_coordinate(),
+            "ready_s": ready_s, "start_s": start, "small_s": small_s,
+            "small_losses": small_losses,
+            "small_first_line": rlines[0], "losses": losses,
+            "first_line": lines[0],
+            "data_parallel": "batch=data-parallel" in lines[0],
+            "param_bytes": int(held.group(1)),
+            "whole_param_bytes": int(held.group(2)),
+            "moment_bytes": int(held.group(3)),
+            "want_param_bytes": want_params,
+            "want_moment_bytes": want_moments,
+            "exchanged_bytes_per_step": [
+                int(re.search(r"exchanged=(\d+)B", ln).group(1))
+                for ln in lines if ln.startswith("step ")],
+            "s_per_step": [b - a for a, b in zip(
+                [stamps[1][0]] + step_at[:-1], step_at)],
+            "train_s": train_s, "launches": launches,
+            "max_memory_allocated_bytes":
+                torch.cuda.max_memory_allocated() if on_card else None,
+            "peak_rss_bytes": rss.peak,
+            "wall_s": time.time() - spawned_at}
+        del params
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_train_run(torch, np, dev):
+    """``launch.train.train(production_mesh=)`` on ``MESH_TRAIN["ranks"]``
+    spawned ranks sharing the card (``mesh_train_rank``), against the same
+    2 steps on one device from the same seed and batches (``train``
+    without a mesh, i.e. ``train_step``), run first by this process and
+    freed before the spawn. Fails if a rank raises, dies or outlasts
+    ``timeout_s`` (every rank is stopped then), unless: the reduced
+    float32 run's losses and gathered parameters are within ``f32_tol``
+    of the single-device run's; the full-width bfloat16 losses of every
+    rank are within ``BF16_LOSS_REL`` of the single-device ones and ran
+    data-parallel; each rank holds the parameter and float32 moment
+    bytes its placements give; the sum over ranks is the whole tree's
+    bytes times each leaf's replication; and
+    ``topk_gating`` launched exactly once per MoE layer and step on each
+    rank, no other kernel."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.launch import sharding
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import moe_layer_ids
+    from repro_torch.training.optimizer import named_leaves
+
+    c = MESH_TRAIN
+    world = c["ranks"]
+    run = dict(steps=c["steps"], batch_size=c["batch"], seq_len=c["seq"],
+               lr=CHECKPOINT["lr"], seed=SEED, device=dev, log=lambda s: None)
+    t0 = time.perf_counter()
+    small, small_losses = train(get_reduced("deepseek-v2-lite"), **run)
+    cfg = get_config("deepseek-v2-lite").replace(
+        num_layers=CHECKPOINT["layers"])
+    torch.cuda.reset_peak_memory_stats()
+    params, losses = train(cfg, **run)
+    single_peak = torch.cuda.max_memory_allocated()
+    single_s = time.perf_counter() - t0
+    del params
+    release_host_memory(torch)
+
+    class Mesh:                 # the rules' stand-in: names and sizes
+        axis_names = ("data", "model")
+        shape = dict(zip(axis_names, c["mesh"]))
+    replicated = 0              # sum over ranks: bytes x replication
+    for path, t in named_leaves(build_model(cfg).init(
+            torch.Generator(dev).manual_seed(SEED), device="meta")):
+        spec = sharding.param_spec(path, t.shape, cfg, Mesh)
+        used = {a for ax in spec if ax is not None
+                for a in (ax if isinstance(ax, tuple) else (ax,))}
+        rep = int(np.prod([n for a, n in Mesh.shape.items()
+                           if a not in used]))
+        replicated += rep * t.numel() * t.element_size()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            mesh_train_rank, args=(world, os.path.join(tmp, "rendezvous"),
+                                   tmp, c, dev.type, time.time()),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + c["timeout_s"]
+        try:
+            while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    fail(f"mesh_train: the ranks did not finish within "
+                         f"{c['timeout_s']} s")
+        except ProcessException as exc:
+            fail(f"mesh_train: rank {exc.error_index} failed: {exc}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join(10)
+        spawn_to_done_s = time.perf_counter() - t0
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(world)]
+        gathered = dict(np.load(os.path.join(tmp, "small.npz")))
+    small_err = max(float(np.abs(gathered[k] - t.cpu().numpy()).max())
+                    for k, t in named_leaves(small))
+    if sorted(gathered) != sorted(k for k, _ in named_leaves(small)):
+        fail("mesh_train: the gathered reduced tree's keys differ")
+    if not small_err <= c["f32_tol"]:
+        fail(f"mesh_train: reduced f32 parameters differ by {small_err}")
+    n_moe = len(moe_layer_ids(cfg))
+    tol = [BF16_LOSS_REL * abs(x) for x in losses]
+    for rep in ranks:
+        label = f"mesh_train: rank {rep['rank']}"
+        err = max(abs(a - b) for a, b in zip(rep["small_losses"],
+                                             small_losses))
+        if not err <= c["f32_tol"]:
+            fail(f"{label}: reduced f32 losses {rep['small_losses']} "
+                 f"against {small_losses}")
+        if not all(abs(a - b) <= t for a, b, t in zip(rep["losses"], losses,
+                                                      tol)):
+            fail(f"{label}: losses {rep['losses']} against {losses}")
+        if not (rep["data_parallel"]
+                and "batch=data-parallel" in rep["small_first_line"]):
+            fail(f"{label}: did not run data-parallel: {rep['first_line']}")
+        if rep["param_bytes"] != rep["want_param_bytes"] \
+                or rep["moment_bytes"] != rep["want_moment_bytes"]:
+            fail(f"{label}: holds {rep['param_bytes']} B of parameters and "
+                 f"{rep['moment_bytes']} B of moments, its placements give "
+                 f"{rep['want_param_bytes']} and {rep['want_moment_bytes']}")
+        want = {k: 0 for k in rep["launches"]}
+        want["topk_gating"] = n_moe * c["steps"]
+        if rep["launches"] != want:
+            fail(f"{label}: launches {rep['launches']}, want {want}")
+    held = sum(rep["param_bytes"] for rep in ranks)
+    if held != replicated:
+        fail(f"mesh_train: the ranks hold {held} B of parameters, the whole "
+             f"tree times each leaf's replication is {replicated} B")
+    launches = {k: sum(rep["launches"][k] for rep in ranks)
+                for k in ranks[0]["launches"]}
+    whole = ranks[0]["whole_param_bytes"]
+    result = {
+        "config": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+        "moe_layers": n_moe, "ranks": world, "backend": "gloo",
+        "mesh": dict(zip(Mesh.axis_names, c["mesh"])),
+        **{k: c[k] for k in ("batch", "seq", "steps", "timeout_s",
+                             "f32_tol")},
+        "lr": CHECKPOINT["lr"], "bf16_loss_rel_tol": BF16_LOSS_REL,
+        "data_parallel": all(rep["data_parallel"] for rep in ranks),
+        "single_losses": losses, "rank_losses": [rep["losses"]
+                                                 for rep in ranks],
+        "max_loss_diff": max(abs(a - b) for rep in ranks
+                             for a, b in zip(rep["losses"], losses)),
+        "small_single_losses": small_losses,
+        "small_max_loss_diff": max(abs(a - b) for rep in ranks
+                                   for a, b in zip(rep["small_losses"],
+                                                   small_losses)),
+        "small_max_param_diff": small_err,
+        "single_device_s": single_s,
+        "single_max_memory_allocated_bytes": single_peak,
+        "spawn_to_done_s": spawn_to_done_s,
+        "rank_ready_s": [rep["ready_s"] for rep in ranks],
+        "rank_start_s": [rep["start_s"] for rep in ranks],
+        "rank_small_s": [rep["small_s"] for rep in ranks],
+        "rank_wall_s": [rep["wall_s"] for rep in ranks],
+        "rank_train_s": [rep["train_s"] for rep in ranks],
+        "s_per_step": [rep["s_per_step"] for rep in ranks],
+        "exchanged_bytes_per_step": [rep["exchanged_bytes_per_step"]
+                                     for rep in ranks],
+        "whole_param_bytes": whole,
+        "rank_param_bytes": [rep["param_bytes"] for rep in ranks],
+        "rank_moment_bytes": [rep["moment_bytes"] for rep in ranks],
+        "sum_param_bytes": held, "replicated_param_bytes": replicated,
+        "max_memory_allocated_bytes": [rep["max_memory_allocated_bytes"]
+                                       for rep in ranks],
+        "rank_peak_rss_bytes": [rep["peak_rss_bytes"] for rep in ranks],
+        "launches_per_rank": [rep["launches"]["topk_gating"]
+                              for rep in ranks]}
+    return result, launches
+
+
 # the trained backbone of the pipeline: the ~100M config trained with the
 # reference launcher's recipe, as examples/train_backbone.py runs it
 BACKBONE = dict(steps=200, batch=8, seq=256, lr=3e-3)
@@ -4030,6 +4332,8 @@ def main() -> None:
         ("checkpoint", ds, lambda: checkpoint_run(torch, np, dev),
          "checkpoint"),
         ("dispatch", ds, lambda: dispatch_run(torch, np, dev), "dispatch"),
+        ("mesh_train", ds, lambda: mesh_train_run(torch, np, dev),
+         "mesh_train"),
         ("pipeline_trained", ds,
          lambda: pipeline_trained_run(torch, np, dev,
                                       runs["pipeline"]["policies"], keep),
@@ -4205,6 +4509,17 @@ def main() -> None:
         "ranks", "backend", "capacities", "spawn_to_done_s", "rank_wall_s",
         "rank_ready_s", "call_s", "max_abs_err", "launches_per_rank")},
         "phase_s": phase_s["dispatch"]}), flush=True)
+    mt = runs["mesh_train"]
+    print(json.dumps({"mesh_train": {k: mt[k] for k in (
+        "ranks", "mesh", "batch", "seq", "steps", "data_parallel",
+        "single_losses", "rank_losses", "max_loss_diff",
+        "small_max_loss_diff", "small_max_param_diff", "spawn_to_done_s",
+        "rank_ready_s", "s_per_step", "exchanged_bytes_per_step",
+        "rank_param_bytes", "rank_moment_bytes", "sum_param_bytes",
+        "replicated_param_bytes", "max_memory_allocated_bytes",
+        "rank_peak_rss_bytes", "rank_start_s", "rank_small_s",
+        "launches_per_rank", "single_device_s")},
+        "phase_s": phase_s["mesh_train"]}), flush=True)
     pt = runs["pipeline_trained"]
     print(json.dumps({"pipeline_trained": {k: pt[k] for k in (
         "params", "loss_curve", "backbone_s", "backbone_launches",

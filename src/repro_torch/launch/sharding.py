@@ -1,11 +1,45 @@
-"""Expert-parallel compute dispatch over a ``torch.distributed`` group:
-the counterpart of the reference's ``expert_dispatch_ffn``
-(``repro/launch/sharding.py``), the real exchange behind the serving
-engines' modeled ship path (``TierConfig.dispatch``).
+"""Sharding: the reference's rules (``repro/launch/sharding.py``) as
+``torch.distributed`` ``DeviceMesh`` placements, and the expert-parallel
+compute dispatch over a process group.
 
-The reference is one ``shard_map`` program over an ``("expert",)`` mesh;
-here every rank of a group from
-:func:`~repro_torch.launch.mesh.make_expert_group` calls
+The rules, term for term (specs are tuples with one entry a tensor dim:
+None, an axis name, or a tuple of names for a combined axis):
+  * params (:func:`param_spec`): one matmul dim on ``"model"`` (tensor /
+    expert parallel) -- the expert dim for MoE weights, the head dim for
+    attention, the vocab for ``tok_emb``, else the largest trailing
+    divisible dim -- and one dim on the data axes (FSDP). Scan-stacked
+    leaves skip their leading group dim. :func:`placements` turns a spec
+    into one ``Shard``/``Replicate`` a mesh dim, :func:`shard_params` a
+    tree into ``DTensor``s, each rank taking its own slice.
+  * batches (:func:`batch_spec`): batch on the data axes; a batch of 1
+    shards its sequence instead.
+  * decode states (:func:`_state_leaf_spec`, :func:`shard_decode_state`)
+    and the activations between layers (:func:`act_sharding`).
+Everything is divisibility-guarded, so the same rules serve the 16x16 and
+2x16x16 production meshes and the small test meshes.
+
+The port's parameter tree is per layer (``layers/3/moe/w_up``) where the
+reference stacks scan groups (``stack/scan/0/moe/w_up``), so its leaves
+get the reference's specs less the group dim. seamless-m4t-large-v2's
+``encoder/layers`` and ``decoder`` are stacked over layers in the
+reference with no ``scan/`` in the path, so there the data axes may land
+on the layer axis; a per-layer tree has no such axis, and the rules
+apply to each layer's shape.
+
+The port's engines stay on one card, so :func:`batch_spec`'s and
+:func:`act_sharding`'s rules and the decode-state specs have no caller on
+the card yet; the sharded trainer (``launch/train.py``) reads
+:func:`param_spec` and :func:`batch_leaf_spec`. Its exchanges are
+:func:`full_tensor` (a ``DTensor``'s whole value, by
+``dist.all_gather``) and ``dist.all_reduce``, which ``gloo``
+takes on CUDA tensors; DTensor's own functional collectives are not used
+(under ``gloo`` on the card, ``DTensor.full_tensor`` crashes the process).
+
+Expert-parallel compute dispatch: the counterpart of the reference's
+``expert_dispatch_ffn``, the real exchange behind the serving engines'
+modeled ship path (``TierConfig.dispatch``). The reference is one
+``shard_map`` program over an ``("expert",)`` mesh; here every rank of a
+group from :func:`~repro_torch.launch.mesh.make_expert_group` calls
 :func:`expert_dispatch_ffn` with its own experts and its own row of the
 send buffers (SPMD). Each shard's expert compute is one ``expert_ffn``
 kernel call per ``MAX_PAIRS`` received tokens (:func:`shard_ffn`). The
@@ -15,10 +49,216 @@ or ``nccl``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.kernels.expert_ffn import MAX_PAIRS, expert_ffn
+from repro_torch.launch.mesh import axis_sizes, data_axes
+from repro_torch.training.optimizer import tree_map_with_path
+
+
+def _axis_size(mesh, name) -> int:
+    if isinstance(name, tuple):
+        return math.prod(_axis_size(mesh, n) for n in name)
+    return axis_sizes(mesh)[name]
+
+
+def _fits(dim: int, n: int) -> bool:
+    return n > 0 and dim % n == 0 and dim >= n
+
+
+def _data_axis(mesh):
+    """The spec entry of the data axes: ``"data"``, or ``("pod",
+    "data")`` on a mesh with pods."""
+    dp = data_axes(mesh)
+    return dp[0] if len(dp) == 1 else dp
+
+
+def param_spec(path: str, shape, cfg, mesh) -> tuple:
+    """The spec of one parameter leaf at ``path`` ("/"-joined keys)."""
+    nd = len(shape)
+    dp = _data_axis(mesh)
+    n_model = _axis_size(mesh, "model")
+    n_data = _axis_size(mesh, dp)
+    spec = [None] * nd
+    i0 = 1 if "/scan/" in f"/{path}/" or path.startswith("scan/") else 0
+    dims = list(range(i0, nd))
+    if not dims:
+        return tuple(spec)
+    used = set()
+
+    def assign(i, ax):
+        spec[i] = ax
+        used.add(i)
+
+    # ---- model (TP / EP) dim
+    model_dim = None
+    if cfg.moe is not None and ("moe/w_gate" in path or "moe/w_up" in path
+                                or "moe/w_down" in path):
+        for i in dims:                     # expert dim -> expert parallel
+            if shape[i] == cfg.moe.num_experts and _fits(shape[i], n_model):
+                model_dim = i
+                break
+    if model_dim is None and ("attn/" in path or "self_attn" in path
+                              or "cross_attn" in path):
+        for i in dims:                     # head dim -> tensor parallel
+            if shape[i] in (cfg.num_heads, cfg.num_kv_heads) \
+                    and _fits(shape[i], n_model):
+                model_dim = i
+    if model_dim is None and "tok_emb" in path:
+        if _fits(shape[0], n_model):
+            model_dim = 0                  # vocab on model
+    if model_dim is None:
+        # largest trailing dim divisible by model (prefer last)
+        for i in reversed(dims):
+            if _fits(shape[i], n_model) and shape[i] >= 2 * n_model:
+                model_dim = i
+                break
+    if model_dim is not None:
+        assign(model_dim, "model")
+
+    # ---- data (FSDP) dim
+    for i in dims:
+        if i not in used and _fits(shape[i], n_data):
+            assign(i, dp)
+            break
+    return tuple(spec)
+
+
+def placements(spec, mesh) -> list:
+    """One ``Shard(i)``/``Replicate()`` a mesh dim, in the mesh's order:
+    ``Shard(i)`` where tensor dim ``i``'s spec entry names the mesh dim.
+    A combined ``("pod", "data")`` entry shards dim ``i`` on both mesh
+    dims, pod-major, as JAX lays it out."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in axis_sizes(mesh):
+        dims = [i for i, ax in enumerate(spec)
+                if ax == name or (isinstance(ax, tuple) and name in ax)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
+
+def local_slice(t: torch.Tensor, mesh, places) -> torch.Tensor:
+    """This rank's slice of the whole tensor ``t`` under ``places`` (a
+    view; no exchange): chunk by chunk along each sharded mesh dim, in
+    the mesh's order, as ``DTensor`` lays an even split out."""
+    coord = mesh.get_coordinate()
+    for k, pl in enumerate(places):
+        if pl.is_shard():
+            t = t.chunk(mesh.size(k), dim=pl.dim)[coord[k]]
+    return t
+
+
+def shard_params(cfg, params, mesh):
+    """``params`` (the whole tree, equal on every rank: drawn from one
+    seed) as a tree of ``DTensor``s placed by :func:`param_spec`, each
+    rank keeping only its own slice (no exchange)."""
+    from torch.distributed.tensor import DTensor
+
+    def shard(path, t):
+        places = placements(param_spec(path, t.shape, cfg, mesh), mesh)
+        return DTensor.from_local(
+            local_slice(t, mesh, places).detach().clone(), mesh, places,
+            run_check=False, shape=t.shape, stride=t.stride())
+    return tree_map_with_path(shard, params)
+
+
+def full_tensor(t: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
+    """The whole value of a ``DTensor`` on every rank (a plain tensor is
+    returned as it is): one ``dist.all_gather`` a sharded mesh dim,
+    innermost first. With ``stats``, adds the bytes this rank
+    received to ``stats["gathered_bytes"]``."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t
+    mesh, out = t.device_mesh, t.to_local()
+    for k in reversed(range(mesh.ndim)):
+        pl = t.placements[k]
+        if not pl.is_shard():
+            continue
+        parts = [torch.empty_like(out) for _ in range(mesh.size(k))]
+        dist.all_gather(parts, out.contiguous(), group=mesh.get_group(k))
+        if stats is not None:
+            stats["gathered_bytes"] = stats.get("gathered_bytes", 0) + (
+                len(parts) - 1) * out.numel() * out.element_size()
+        out = torch.cat(parts, dim=pl.dim)
+    return out
+
+
+def batch_leaf_spec(global_batch: int, shape, mesh) -> tuple:
+    """The spec of one batch leaf of ``shape`` whose batch is
+    ``global_batch``: the batch on the data axes when they divide it,
+    else (a batch of 1) the sequence on them."""
+    dp = _data_axis(mesh)
+    n_data = _axis_size(mesh, dp)
+    bdim = dp if _fits(global_batch, n_data) else None
+    spec = [bdim] + [None] * (len(shape) - 1)
+    if bdim is None and len(shape) > 1 and _fits(shape[1], n_data):
+        spec[1] = dp                      # batch=1: shard sequence instead
+    return tuple(spec)
+
+
+def batch_spec(cfg, shape_name: str, mesh):
+    """The spec function of the input batch of ``INPUT_SHAPES[shape_name]``:
+    a leaf's shape -> its spec (:func:`batch_leaf_spec`)."""
+    batch = INPUT_SHAPES[shape_name].global_batch
+    return lambda shape: batch_leaf_spec(batch, shape, mesh)
+
+
+def _state_leaf_spec(path: str, shape, cfg, mesh) -> tuple:
+    """The spec of one decode-state leaf: its batch dim on the data axes
+    when they divide it; its largest other dim (the sequence) on
+    ``"model"``, else on the data axes when the batch is not. A stacked
+    leading layer/group dim (scanned caches, the encoder-decoder's
+    memory and caches) is skipped."""
+    dp = _data_axis(mesh)
+    n_data = _axis_size(mesh, dp)
+    n_model = _axis_size(mesh, "model")
+    nd = len(shape)
+    if nd == 0:
+        return ()
+    i0 = 1 if ("scan/" in path or "memory/" in path
+               or (cfg.encdec is not None and "caches/" in path)) else 0
+    spec = [None] * nd
+    dims = list(range(i0, nd))
+    if not dims:
+        return tuple(spec)
+    b_i = dims[0]
+    if _fits(shape[b_i], n_data):
+        spec[b_i] = dp
+    rest = dims[1:]
+    if rest:
+        cand = max(rest, key=lambda i: shape[i])
+        if shape[cand] >= 4 * n_model and _fits(shape[cand], n_model):
+            spec[cand] = "model"
+        elif spec[b_i] is None and _fits(shape[cand], n_data):
+            spec[cand] = dp
+    return tuple(spec)
+
+
+def shard_decode_state(cfg, state, mesh):
+    """The tree of specs of a decode state, by :func:`_state_leaf_spec`
+    on each leaf's path and shape (a Python number's is ``()``)."""
+    return tree_map_with_path(
+        lambda path, t: _state_leaf_spec(path, tuple(getattr(t, "shape", ())),
+                                         cfg, mesh), state)
+
+
+def act_sharding(cfg, shape_name: str, mesh) -> tuple:
+    """The spec of the (B, T, D) activations between layers: the batch on
+    the data axes, the sequence on ``"model"`` (Megatron-style sequence
+    parallelism) except at decode."""
+    shp = INPUT_SHAPES[shape_name]
+    dp = _data_axis(mesh)
+    bdim = dp if _fits(shp.global_batch, _axis_size(mesh, dp)) else None
+    if shp.mode == "decode":
+        return (bdim, None, None)
+    sdim = "model" if shp.seq_len % _axis_size(mesh, "model") == 0 else None
+    return (bdim, sdim, None)
 
 
 def shard_ffn(wg, wu, wd, x_recv, eid_recv, shard: int):

@@ -1,16 +1,28 @@
-r"""Single-device training of a backbone: the reference launcher's loop
-(``repro/launch/train.py``) on one card, with its checkpoint and its
-command line.
+r"""Training of a backbone: the reference launcher's loop
+(``repro/launch/train.py``), with its checkpoint and its command line, on
+one card or sharded over a process mesh.
 
 ``train`` draws the weights from a seeded generator, then runs AdamW
 (clip 1.0, a cosine schedule with 20 warm-up steps) on ``lm_batches`` of
-the 8-topic corpus, one :func:`train_step` a batch; gradients come from
-autograd; a vision config gets a zero ``patches`` batch and an audio
+the 8-topic corpus, one step a batch; gradients come from autograd; a
+vision config gets a zero ``patches`` batch and an audio
 (encoder-decoder) config a zero ``frames`` batch, as in the reference.
 With ``save=path`` it writes the trained parameters with
 :func:`repro_torch.training.checkpoint.save`. It runs on the card unless
-``device="cpu"`` is passed. The production mesh (``production_mesh=``)
-is the remainder of ROADMAP Queue 1 item 9 and raises.
+``device="cpu"`` is passed.
+
+``production_mesh=`` shards it over a ``DeviceMesh``
+(``launch/mesh.make_production_mesh`` for ``True``; the default process
+group is the caller's): every parameter and both AdamW moments live as
+``DTensor``s placed by the reference's rules (``launch/sharding.py``).
+Each :func:`mesh_train_step` gathers the whole tree, computes the loss
+and its gradients, averages them over the data axes and updates each
+rank's own slices. Where the rules put the batch on the data axes and
+each data rank then holds whole MoE dispatch groups, the rows are split
+over the data ranks (the load-balance loss taking its means over the
+whole batch, ``launch/shardctx.py``); otherwise every rank computes the
+whole batch. Ranks along ``"model"`` compute the same rows. The loss is
+the reference's global loss either way.
 
 Usage::
 
@@ -23,17 +35,25 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.data import lm_batches, make_topic_corpus
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch import shardctx
+from repro_torch.launch.mesh import axis_sizes, data_axes, make_production_mesh
+from repro_torch.launch.sharding import (batch_leaf_spec, full_tensor,
+                                         shard_params)
 from repro_torch.models.model import build_model
+from repro_torch.models.moe import dispatch_group
 from repro_torch.training import checkpoint
 from repro_torch.training.optimizer import (cosine_schedule, make_adamw,
-                                            named_leaves, tree_map)
+                                            make_sharded_adamw, named_leaves,
+                                            tree_map)
 
 
 def trainable(params):
@@ -63,27 +83,139 @@ def train_step(model, params, leaves, opt_update, opt_state, tokens,
             {k: v.detach() for k, v in mets.items()}, stats["grad_norm"])
 
 
+def _mesh(production_mesh, dev):
+    """The ``DeviceMesh`` that ``production_mesh`` asks for, or None."""
+    if production_mesh is False or production_mesh is None:
+        return None
+    if production_mesh is True:
+        return make_production_mesh(device_type=dev.type)
+    names = tuple(production_mesh.mesh_dim_names or ())
+    if names not in (("data", "model"), ("pod", "data", "model")):
+        raise ValueError(f"production_mesh: axes {names}, want ('data', "
+                         "'model') or ('pod', 'data', 'model')")
+    if production_mesh.device_type != dev.type:
+        raise ValueError(f"production_mesh on {production_mesh.device_type},"
+                         f" training on {dev.type}")
+    return production_mesh
+
+
+def data_rows(cfg, mesh, batch_size: int, row_tokens: int):
+    """The rows of a (``batch_size``, ...) batch this rank computes, as a
+    slice, when the rows go to the data ranks: where
+    ``sharding.batch_leaf_spec`` puts the batch on the data axes and each
+    data rank's ``row_tokens``-token rows hold whole MoE dispatch groups
+    of the whole batch (so its groups, capacities and drops stay the
+    reference's). None otherwise: every rank computes the whole batch.
+    Data ranks are numbered pod-major."""
+    if batch_leaf_spec(batch_size, (batch_size, row_tokens), mesh)[0] is None:
+        return None
+    sizes = axis_sizes(mesh)
+    n_data = math.prod(sizes[a] for a in data_axes(mesh))
+    rows = batch_size // n_data
+    if cfg.moe is not None:
+        sg = dispatch_group(cfg, batch_size * row_tokens)
+        if (rows * row_tokens) % sg:
+            return None
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    r = 0
+    for a in data_axes(mesh):
+        r = r * sizes[a] + coord[a]
+    return slice(r * rows, (r + 1) * rows)
+
+
+def mesh_train_step(model, params, opt_update, opt_state, tokens,
+                    modality=None, rows=None, stats=None):
+    """One AdamW step of a sharded tree (``DTensor`` leaves, placed by
+    ``sharding.shard_params``, moments by ``make_sharded_adamw``) on the
+    whole (B, T) batch, equal on every rank: every leaf is gathered
+    whole; with ``rows`` (:func:`data_rows`), this rank computes those
+    rows inside the data group and the gradients, loss and metrics are
+    averaged over the data axes; without, it computes the whole batch.
+    Each rank then updates its own slices. Returns (opt_state, loss,
+    metrics, grad_norm), the global values, detached. With ``stats``,
+    adds the bytes this rank received in gathers
+    (``stats["gathered_bytes"]``) and gave to all-reduces
+    (``stats["reduced_bytes"]``)."""
+    stats = {} if stats is None else stats
+    mesh = named_leaves(params)[0][1].device_mesh
+    whole = tree_map(
+        lambda t: full_tensor(t, stats).requires_grad_(True), params)
+    leaves = [t for _, t in named_leaves(whole)]
+    groups = ()
+    if rows is not None:
+        groups = tuple(mesh.get_group(a) for a in data_axes(mesh))
+        tokens = tokens[rows]
+        if modality:
+            modality = {k: v[rows] for k, v in modality.items()}
+    with shardctx.data_parallel(groups):
+        loss, mets = model.loss_fn(whole, {"tokens": tokens,
+                                           **(modality or {})})
+        grads = list(torch.autograd.grad(loss, leaves))
+    del whole, leaves
+    loss, mets = loss.detach(), {k: v.detach() for k, v in mets.items()}
+    if groups:
+        n = math.prod(dist.get_world_size(g) for g in groups)
+        scalars = torch.stack([loss, *(v.to(loss.device)
+                                       for v in mets.values())])
+        for g in groups:
+            for t in (*grads, scalars):
+                dist.all_reduce(t, group=g)
+                stats["reduced_bytes"] = stats.get("reduced_bytes", 0) + (
+                    t.numel() * t.element_size())
+        grads = [g.div_(n) for g in grads]
+        loss, *vals = (scalars / n).unbind()
+        mets = dict(zip(mets, vals))
+    _, opt_state, st = opt_update(grads, opt_state, params)
+    return opt_state, loss, mets, st["grad_norm"]
+
+
+def _local_bytes(tree) -> int:
+    return sum(t.to_local().numel() * t.element_size()
+               for _, t in named_leaves(tree))
+
+
 def train(cfg, steps: int = 100, batch_size: int = 8, seq_len: int = 128,
           lr: float = 3e-3, seed: int = 0, device="cuda", log=print,
-          save: str | None = None, production_mesh: bool = False):
+          save: str | None = None, production_mesh=False):
     """Train ``cfg`` from seeded weights for ``steps`` batches of
     ``batch_size`` x ``seq_len`` tokens; with ``save``, write the
-    trained parameters there. Returns (params, losses)."""
-    if production_mesh:
-        raise NotImplementedError(
-            "the production mesh (DeviceMesh placements of every parameter) "
-            "is the remainder of ROADMAP Queue 1 item 9")
+    trained parameters there. ``production_mesh``: ``True`` for
+    ``make_production_mesh()`` (256 ranks, else ``ValueError``), or a
+    ``DeviceMesh`` with axes ``("data", "model")`` or ``("pod", "data",
+    "model")`` on ``device``'s type; every rank of the default group
+    calls ``train`` alike. Returns (params, losses): the parameters as
+    ``DTensor``s on a mesh, the global losses."""
     dev = resolve_device(device)
+    mesh = _mesh(production_mesh, dev)
     model = build_model(cfg)
-    params, leaves = trainable(
-        model.init(torch.Generator(dev).manual_seed(seed), device=dev))
-    n_params = sum(t.numel() for t in leaves)
-    log(f"arch={cfg.name} params={n_params / 1e6:.1f}M "
-        f"layers={cfg.num_layers}")
-    opt_init, opt_update = make_adamw(
-        lr=lr, clip=1.0, schedule=cosine_schedule(1.0, warmup=20,
-                                                  total=steps))
-    opt_state = opt_init(params)
+    params = model.init(torch.Generator(dev).manual_seed(seed), device=dev)
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    head = (f"arch={cfg.name} params={n_params / 1e6:.1f}M "
+            f"layers={cfg.num_layers}")
+    sched = dict(lr=lr, clip=1.0, schedule=cosine_schedule(
+        1.0, warmup=20, total=steps))
+    rows = None
+    if mesh is None:
+        log(head)
+        params, leaves = trainable(params)
+        opt_init, opt_update = make_adamw(**sched)
+        opt_state = opt_init(params)
+    else:
+        row_tokens = seq_len + (cfg.frontend_len if cfg.frontend == "vision"
+                                else 0)
+        rows = data_rows(cfg, mesh, batch_size, row_tokens)
+        split = ("whole batch on every rank" if rows is None else
+                 f"data-parallel, {rows.stop - rows.start} of {batch_size} "
+                 f"rows a data rank")
+        log(f"{head} mesh={axis_sizes(mesh)} batch={split}")
+        whole_bytes = sum(t.numel() * t.element_size()
+                          for _, t in named_leaves(params))
+        params = shard_params(cfg, params, mesh)
+        opt_init, opt_update = make_sharded_adamw(**sched)
+        opt_state = opt_init(params)
+        moments = _local_bytes(opt_state["mu"]) + _local_bytes(opt_state["nu"])
+        log(f"rank {dist.get_rank()} holds params {_local_bytes(params)} B "
+            f"of {whole_bytes} B, moments {moments} B")
     corpus = make_topic_corpus(cfg.vocab_size, n_topics=8, seed=seed)
     losses = []
     t0 = time.time()
@@ -95,13 +227,22 @@ def train(cfg, steps: int = 100, batch_size: int = 8, seq_len: int = 128,
             modality = {_FRONTEND_KEY[cfg.frontend]: torch.zeros(
                 (batch_size, cfg.frontend_len, cfg.frontend_dim),
                 device=dev)}
-        opt_state, loss, mets, gnorm = train_step(
-            model, params, leaves, opt_update, opt_state, batch, modality)
+        stats = {}
+        if mesh is None:
+            opt_state, loss, mets, gnorm = train_step(
+                model, params, leaves, opt_update, opt_state, batch,
+                modality)
+        else:
+            opt_state, loss, mets, gnorm = mesh_train_step(
+                model, params, opt_update, opt_state, batch, modality,
+                rows, stats)
         losses.append(loss.item())
         if i % max(1, steps // 10) == 0:
+            moved = (f" exchanged={sum(stats.values())}B" if mesh is not None
+                     else "")
             log(f"step {i:5d} loss={losses[-1]:.4f} "
                 f"xent={mets['xent'].item():.4f} gnorm={gnorm.item():.2f} "
-                f"({(time.time() - t0) / (i + 1):.2f}s/step)")
+                f"({(time.time() - t0) / (i + 1):.2f}s/step){moved}")
     params = tree_map(lambda t: t.detach(), params)
     if save:
         checkpoint.save(save, params)

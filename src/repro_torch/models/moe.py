@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.expert_ffn import MAX_PAIRS, expert_ffn
 from repro_torch.kernels.topk_gating import topk_gating
+from repro_torch.launch.shardctx import data_mean
 from repro_torch.models.common import dense_init, ffn_apply, ffn_init
 
 # tokens per dispatch group when the config sets none (the reference's)
@@ -85,11 +86,13 @@ def route_train(p, cfg, x):
 
 
 def aux_load_balance_loss(cfg, probs, idx):
-    """Switch-style load-balance loss: E * sum_e density_e * usage_e."""
+    """Switch-style load-balance loss: E * sum_e density_e * usage_e, both
+    means over the whole batch inside a sharded step's data group
+    (``launch/shardctx.data_parallel``)."""
     e = cfg.moe.num_experts
-    density = probs.reshape(-1, e).mean(0)                      # router mass
-    usage = F.one_hot(idx.reshape(-1).long(), e).float().mean(0) * (
-        1.0 / cfg.moe.top_k)                                    # token share
+    density = data_mean(probs.reshape(-1, e).mean(0))           # router mass
+    usage = data_mean(F.one_hot(idx.reshape(-1).long(), e).float().mean(0)
+                      * (1.0 / cfg.moe.top_k))                  # token share
     return e * torch.sum(density * usage)
 
 

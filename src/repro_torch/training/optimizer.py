@@ -51,6 +51,18 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_map_with_path(fn, tree, prefix: str = ""):
+    """``tree`` with ``fn(path, leaf)`` applied to every leaf, ``path`` as
+    :func:`named_leaves` joins it."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, f"{prefix}{i}/")
+                          for i, v in enumerate(tree))
+    return fn(prefix[:-1], tree)
+
+
 def _groups(leaves) -> List[slice]:
     """Consecutive runs of ``leaves`` of at most ``GROUP_BYTES`` in
     float32 (one leaf at least each)."""
@@ -100,42 +112,20 @@ def cosine_schedule(base: float = 1.0, warmup: int = 100,
     return fn
 
 
-def make_adamw(lr: float | Callable[[str], float] = 1e-4,
-               b1: float = 0.9, b2: float = 0.98, eps: float = 1e-8,
-               weight_decay: float = 0.01, clip: float = 1.0,
-               schedule: Optional[Callable] = None):
-    """Returns (init_fn, update_fn).
-
-    ``lr`` is a float or a function from a parameter's path to its
-    learning rate; ``schedule(step)`` (steps counted from 1), when given,
-    multiplies it. ``update_fn(grads, state, params) -> (params, state,
-    stats)`` takes ``grads`` as a tree like ``params`` (or its leaves in
-    :func:`named_leaves` order), writes the new values into the parameter
-    tensors (any float dtype) and the moments in place and returns the
-    same trees; ``stats["grad_norm"]`` is the norm before clipping. Each
-    term is one ``torch._foreach_*`` launch over a group of tensors of at
-    most ``GROUP_BYTES``, so the float32 temporaries stay bounded whatever
-    the model's size.
-    """
+def _adamw_terms(lr, b1, b2, eps, weight_decay, clip, schedule):
+    """The update of :func:`make_adamw` over lists of tensors, shared by
+    the sharded update: ``apply(named, gs, mu, nu, step, gnorm)`` writes
+    the new values into the parameter tensors of ``named`` ((path,
+    tensor) pairs) and the moments ``mu``/``nu`` in place, given the
+    gradients ``gs`` and their clipping norm ``gnorm``; it returns the
+    incremented step."""
     lr_fn = lr if callable(lr) else (lambda _p: lr)
 
-    def init_fn(params):
-        leaves = [p for _, p in named_leaves(params)]
-        zeros = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
-        return {"mu": zeros, "nu": [z.clone() for z in zeros],
-                "step": torch.zeros((), dtype=torch.int32,
-                                    device=leaves[0].device)}
-
-    @torch.no_grad()
-    def update_fn(grads, state, params):
-        named = named_leaves(params)
+    def apply(named, gs, mu_all, nu_all, step, gnorm):
         ps = [t for _, t in named]
-        gs = (grads if isinstance(grads, list)
-              else [g for _, g in named_leaves(grads)])
-        gnorm = global_norm(gs)
         scale = (torch.clamp_max(clip / (gnorm + 1e-9), 1.0) if clip
                  else None)
-        step = state["step"] + 1
+        step = step + 1
         sf = step.float()
         bc1 = 1.0 - torch.full((), b1, device=sf.device) ** sf
         bc2 = 1.0 - torch.full((), b2, device=sf.device) ** sf
@@ -146,7 +136,7 @@ def make_adamw(lr: float | Callable[[str], float] = 1e-4,
         for grp in _groups(ps):
             g = [x.float() if scale is None
                  else x.float() * scale.to(x.dtype).float() for x in gs[grp]]
-            mu, nu = state["mu"][grp], state["nu"][grp]
+            mu, nu = mu_all[grp], nu_all[grp]
             # each term as the reference writes it: mu = b1 mu + (1 - b1) g,
             # nu = b2 nu + ((1 - b2) g) g, mhat / (sqrt(nhat) + eps) + wd p
             torch._foreach_mul_(mu, b1)
@@ -167,6 +157,93 @@ def make_adamw(lr: float | Callable[[str], float] = 1e-4,
             for p, q in zip(ps[grp], p32):
                 if q is not p:                  # one rounding to p's dtype
                     p.copy_(q)
+        return step
+
+    return apply
+
+
+def make_adamw(lr: float | Callable[[str], float] = 1e-4,
+               b1: float = 0.9, b2: float = 0.98, eps: float = 1e-8,
+               weight_decay: float = 0.01, clip: float = 1.0,
+               schedule: Optional[Callable] = None):
+    """Returns (init_fn, update_fn).
+
+    ``lr`` is a float or a function from a parameter's path to its
+    learning rate; ``schedule(step)`` (steps counted from 1), when given,
+    multiplies it. ``update_fn(grads, state, params) -> (params, state,
+    stats)`` takes ``grads`` as a tree like ``params`` (or its leaves in
+    :func:`named_leaves` order), writes the new values into the parameter
+    tensors (any float dtype) and the moments in place and returns the
+    same trees; ``stats["grad_norm"]`` is the norm before clipping. Each
+    term is one ``torch._foreach_*`` launch over a group of tensors of at
+    most ``GROUP_BYTES``, so the float32 temporaries stay bounded whatever
+    the model's size.
+    """
+    apply = _adamw_terms(lr, b1, b2, eps, weight_decay, clip, schedule)
+
+    def init_fn(params):
+        leaves = [p for _, p in named_leaves(params)]
+        zeros = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+        return {"mu": zeros, "nu": [z.clone() for z in zeros],
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=leaves[0].device)}
+
+    @torch.no_grad()
+    def update_fn(grads, state, params):
+        named = named_leaves(params)
+        gs = (grads if isinstance(grads, list)
+              else [g for _, g in named_leaves(grads)])
+        gnorm = global_norm(gs)
+        step = apply(named, gs, state["mu"], state["nu"], state["step"],
+                     gnorm)
+        return (params, {"mu": state["mu"], "nu": state["nu"],
+                         "step": step}, {"grad_norm": gnorm})
+
+    return init_fn, update_fn
+
+
+def make_sharded_adamw(lr: float | Callable[[str], float] = 1e-4,
+                       b1: float = 0.9, b2: float = 0.98, eps: float = 1e-8,
+                       weight_decay: float = 0.01, clip: float = 1.0,
+                       schedule: Optional[Callable] = None):
+    """:func:`make_adamw` on a tree of ``DTensor``s
+    (``launch/sharding.shard_params``): returns (init_fn, update_fn).
+
+    ``init_fn(params)`` gives both float32 moments as ``DTensor``s placed
+    like their parameters, each rank holding only its slices.
+    ``update_fn(grads, state, params)`` takes the whole gradients (every
+    rank holds the same, averaged over the data axes), in
+    :func:`named_leaves` order: it clips with their global norm, each
+    element counted once, and updates this rank's slices of the
+    parameters and moments in place, term for term as
+    :func:`make_adamw`."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import local_slice
+    apply = _adamw_terms(lr, b1, b2, eps, weight_decay, clip, schedule)
+
+    def init_fn(params):
+        leaves = [p for _, p in named_leaves(params)]
+
+        def zeros():
+            return [DTensor.from_local(
+                torch.zeros_like(p.to_local(), dtype=torch.float32),
+                p.device_mesh, p.placements, run_check=False,
+                shape=p.shape, stride=p.stride()) for p in leaves]
+        return {"mu": zeros(), "nu": zeros(),
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=leaves[0].device)}
+
+    @torch.no_grad()
+    def update_fn(grads, state, params):
+        named = named_leaves(params)
+        gnorm = global_norm(grads)
+        local = [(path, p.to_local()) for path, p in named]
+        gs = [local_slice(g, p.device_mesh, p.placements)
+              for g, (_, p) in zip(grads, named)]
+        step = apply(local, gs, [m.to_local() for m in state["mu"]],
+                     [v.to_local() for v in state["nu"]], state["step"],
+                     gnorm)
         return (params, {"mu": state["mu"], "nu": state["nu"],
                          "step": step}, {"grad_norm": gnorm})
 

@@ -1,0 +1,430 @@
+"""Sharded data-parallel training on the production mesh's rules
+(``launch/train.mesh_train_step``, ``launch/sharding.shard_params``,
+``training/optimizer.make_sharded_adamw``, the sharded checkpoint)
+against the port's single-device step and the JAX reference's, on the
+CPU.
+
+4 spawned processes joined by ``gloo`` over ``file://`` rendezvous in a
+temporary directory (no port is opened) form a 2x2 ``("data", "model")``
+``DeviceMesh`` (and a 2x2x1 ``("pod", "data", "model")`` one) and run the
+reduced DeepSeek-V2-Lite in float32 from weights bridged from the
+reference's ``model.init``, 2 AdamW steps (lr 3e-3, clip 1.0) at B 4 x
+T 16. With ``dispatch_group`` 16 (in both packages' configs) each data
+rank holds whole dispatch groups and takes its own rows; at the default
+4,096 the 64 tokens are one group and every rank computes the whole
+batch. Against the port's single-device ``train_step``, within 1e-5:
+every rank's losses; the data-averaged gradients of the first step; and
+every gathered parameter after 2 steps against ``make_adamw`` fed the
+averaged gradients the ranks computed. The parameters are held that way,
+not against the single-device run's, because Adam's first step moves an
+entry whose gradient is near its eps (1e-8) by up to lr / (4 eps) times
+that gradient's rounding: summing the rows in two halves moves a few of
+the reduced model's ~600 k entries by up to 3.2e-5 (ROADMAP Queue 3).
+The losses must also match the reference's jitted step on the same
+weights and batches within 1e-4 (both sides float32, differing in
+summation order only, as
+``test_torch_train.py::test_quickstart_loop_matches_reference`` holds
+them). Every spawn is joined with a timeout and its ranks stopped after
+it. This module imports no JAX at its top: the ranks import it."""
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch import convert
+from repro_torch.configs import get_reduced
+from repro_torch.data import lm_batches, make_topic_corpus
+from repro_torch.launch import sharding
+from repro_torch.launch.train import (data_rows, mesh_train_step, train,
+                                      train_step, trainable)
+from repro_torch.models.model import build_model
+from repro_torch.training import checkpoint
+from repro_torch.training.optimizer import (make_adamw, make_sharded_adamw,
+                                            named_leaves)
+
+ARCH = "deepseek-v2-lite"
+WORLD = 4
+B, T, STEPS, LR = 4, 16, 2, 3e-3
+TOL = dict(rtol=1e-5, atol=1e-5)
+REF_LOSS_TOL = 1e-4
+JOIN_TIMEOUT_S = 180.0
+# case: (mesh shape, mesh axes, dispatch group)
+CASES = {"data-parallel": ((2, 2), ("data", "model"), 16),
+         "whole-batch": ((2, 2), ("data", "model"), 4096),
+         "pod-data": ((2, 2, 1), ("pod", "data", "model"), 16)}
+
+
+def _cfg(get, group):
+    """The reduced config of ``get``'s package with ``dispatch_group``."""
+    cfg = get(ARCH)
+    return cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                               dispatch_group=group))
+
+
+def _batches(vocab):
+    corpus = make_topic_corpus(vocab, n_topics=4, seed=0)
+    return [b[:, :T] for b in lm_batches(corpus, B, T, STEPS, seed=1)]
+
+
+def _capturing(update_fn, out: list):
+    """``update_fn`` that first appends a copy of the gradients it is
+    given (in ``named_leaves`` order) to ``out``."""
+    def update(grads, state, params):
+        out.append([g.detach().clone() for g in grads])
+        return update_fn(grads, state, params)
+    return update
+
+
+def _rank(rank, world, rendezvous, out_dir, ref_tree):
+    """One rank: every case through ``mesh_train_step``, then the sharded
+    checkpoint, a pod-major slice, ``train(production_mesh=)`` and its
+    refusals. Writes its report (and rank 0 the gathered trees) to
+    ``out_dir``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=world)
+    try:
+        report, gathered = {"cases": {}}, {}
+        meshes = {}
+        for name, (shape, axes, group) in CASES.items():
+            if (shape, axes) not in meshes:
+                meshes[shape, axes] = init_device_mesh(
+                    "cpu", shape, mesh_dim_names=axes)
+            mesh = meshes[shape, axes]
+            cfg = _cfg(get_reduced, group)
+            model = build_model(cfg)
+            whole = convert.backbone_from_jax(cfg, ref_tree, device="cpu")
+            params = sharding.shard_params(cfg, whole, mesh)
+            init_fn, update_fn = make_sharded_adamw(lr=LR, clip=1.0)
+            state = init_fn(params)
+            held = []
+            for (path, p), m, v, (_, w) in zip(
+                    named_leaves(params), state["mu"], state["nu"],
+                    named_leaves(whole)):
+                want = distribute_tensor(w, mesh, p.placements,
+                                         src_data_rank=None).to_local()
+                held.append({
+                    "path": path, "placements": [str(q) for q in
+                                                 p.placements],
+                    "spec_placements": [str(q) for q in sharding.placements(
+                        sharding.param_spec(path, w.shape, cfg, mesh),
+                        mesh)],
+                    "local": list(p.to_local().shape),
+                    "want": list(want.shape),
+                    "moments": [list(m.to_local().shape),
+                                list(v.to_local().shape)],
+                    "moment_dtype": str(m.to_local().dtype),
+                    "equal": bool(torch.equal(p.to_local(), want))})
+            rows = data_rows(cfg, mesh, B, T)
+            losses, grads = [], []
+            for tokens in _batches(cfg.vocab_size):
+                state, loss, mets, gnorm = mesh_train_step(
+                    model, params, _capturing(update_fn, grads), state,
+                    torch.from_numpy(tokens), rows=rows)
+                losses.append(loss.item())
+            after = [(path, list(p.to_local().shape))
+                     for path, p in named_leaves(params)]
+            full = {k: sharding.full_tensor(t) for k, t in
+                    named_leaves(params)}
+            report["cases"][name] = {
+                "losses": losses, "held": held, "after": after,
+                "rows": None if rows is None else [rows.start, rows.stop],
+                "coordinate": mesh.get_coordinate(),
+                "dtensor_full_equal": all(
+                    torch.equal(full[k], t.full_tensor())
+                    for k, t in named_leaves(params))}
+            gathered[name] = {k: t.numpy() for k, t in full.items()}
+            gathered[name].update({
+                f"grad{i}/{k}": g.numpy() for i, step in enumerate(grads)
+                for (k, _), g in zip(named_leaves(params), step)})
+            if name == "data-parallel":
+                path = os.path.join(out_dir, "sharded.npz")
+                checkpoint.save(path, params)
+                report["saved_before_return"] = os.path.exists(path)
+                like = sharding.shard_params(cfg, build_model(cfg).init(
+                    torch.Generator().manual_seed(7), device="cpu"), mesh)
+                loaded = checkpoint.load(path, like)
+                report["round_trip"] = all(
+                    type(b) is type(a) and b.placements == a.placements
+                    and b.dtype == a.dtype
+                    and torch.equal(b.to_local(), a.to_local())
+                    for (_, a), (_, b) in zip(named_leaves(params),
+                                              named_leaves(loaded)))
+        # a ("pod", "data") dim: pod-major, as JAX lays it out
+        pod = meshes[(2, 2, 1), ("pod", "data", "model")]
+        t = torch.arange(8 * 3, dtype=torch.float32).reshape(8, 3)
+        places = sharding.placements((("pod", "data"), None), pod)
+        local = sharding.local_slice(t, pod, places)
+        p_i, d_i, _ = pod.get_coordinate()
+        k = p_i * 2 + d_i
+        dt = distribute_tensor(t, pod, places, src_data_rank=None)
+        report["pod_major"] = bool(
+            torch.equal(local, t[2 * k:2 * k + 2])
+            and torch.equal(dt.to_local(), local)
+            and torch.equal(sharding.full_tensor(dt), t))
+        # the entry point, seeded, against itself on one device
+        cfg = _cfg(get_reduced, 16)
+        lines = []
+        _, losses = train(cfg, steps=STEPS, batch_size=B, seq_len=T,
+                          device="cpu", log=lines.append,
+                          production_mesh=meshes[(2, 2), ("data", "model")])
+        report["train"] = {"losses": losses, "lines": lines}
+        refusals = {}
+        other = init_device_mesh("cpu", (2, 2), mesh_dim_names=("x", "y"))
+        for label, kw in (("axes", dict(production_mesh=other)),
+                          ("256 ranks", dict(production_mesh=True))):
+            try:
+                train(cfg, steps=1, batch_size=B, seq_len=T, device="cpu",
+                      log=lambda s: None, **kw)
+                refusals[label] = None
+            except ValueError as exc:
+                refusals[label] = str(exc)
+        report["refusals"] = refusals
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+        if rank == 0:
+            for name, tree in gathered.items():
+                np.savez(os.path.join(out_dir, f"gathered_{name}.npz"),
+                         **tree)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(out_dir, ref_tree):
+    """Run ``_rank`` on ``WORLD`` spawned processes; fail on a rank that
+    raises, dies or outlasts ``JOIN_TIMEOUT_S``."""
+    ctx = mp.start_processes(
+        _rank, args=(WORLD, os.path.join(out_dir, "rendezvous"), out_dir,
+                     ref_tree),
+        nprocs=WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                pytest.fail(f"{WORLD} ranks did not finish within "
+                            f"{JOIN_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+             for r in range(WORLD)]
+    gathered = {name: dict(np.load(os.path.join(out_dir,
+                                                f"gathered_{name}.npz")))
+                for name in CASES}
+    return ranks, gathered
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """The reference's weights, the ranks' reports and gathered trees,
+    and the single-device runs of the port and the reference."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced as r_get_reduced
+    from repro.models import build_model as r_build_model
+    from repro.training import optimizer as R_opt
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rcfg0 = r_get_reduced(ARCH)
+        ref_tree = jax.tree.map(np.asarray, r_build_model(rcfg0).init(
+            jax.random.PRNGKey(0)))
+        out = tmp_path_factory.mktemp("mesh_train")
+        ranks, gathered = _spawn(str(out), ref_tree)
+        single, reference, replayed = {}, {}, {}
+        for group in sorted({g for _, _, g in CASES.values()}):
+            cfg = _cfg(get_reduced, group)
+            model = build_model(cfg)
+            params, leaves = trainable(convert.backbone_from_jax(
+                cfg, ref_tree, device="cpu"))
+            init_fn, update_fn = make_adamw(lr=LR, clip=1.0)
+            state, losses, grads = init_fn(params), [], []
+            for tokens in _batches(cfg.vocab_size):
+                state, loss, _, _ = train_step(
+                    model, params, leaves, _capturing(update_fn, grads),
+                    state, torch.from_numpy(tokens))
+                losses.append(loss.item())
+            single[group] = (losses, [g.numpy() for g in grads[0]])
+            rmodel = r_build_model(_cfg(r_get_reduced, group))
+            r_init, r_update = R_opt.make_adamw(lr=LR, clip=1.0)
+
+            @jax.jit
+            def step(p, st, tokens):
+                (loss, _), g = jax.value_and_grad(
+                    lambda q: rmodel.loss_fn(q, {"tokens": tokens}),
+                    has_aux=True)(p)
+                p, st, _ = r_update(g, st, p)
+                return p, st, loss
+
+            p, st, losses = ref_tree, r_init(ref_tree), []
+            for tokens in _batches(cfg.vocab_size):
+                p, st, loss = step(p, st, jnp.asarray(tokens))
+                losses.append(float(loss))
+            reference[group] = losses
+        for case in CASES:             # make_adamw fed the ranks' gradients
+            got = gathered[case]
+            params = convert.backbone_from_jax(_cfg(get_reduced, 16),
+                                               ref_tree, device="cpu")
+            keys = [k for k, _ in named_leaves(params)]
+            init_fn, update_fn = make_adamw(lr=LR, clip=1.0)
+            state = init_fn(params)
+            for i in range(STEPS):
+                state = update_fn([torch.from_numpy(got[f"grad{i}/{k}"])
+                                   for k in keys], state, params)[1]
+            replayed[case] = {k: t.numpy() for k, t in named_leaves(params)}
+        seeded_lines = []
+        _, seeded = train(_cfg(get_reduced, 16), steps=STEPS, batch_size=B,
+                          seq_len=T, device="cpu", log=seeded_lines.append)
+        single_save = str(out / "single.npz")
+        checkpoint.save(single_save, {
+            k: torch.from_numpy(v)
+            for k, v in gathered["data-parallel"].items()
+            if not k.startswith("grad")})
+        yield dict(ranks=ranks, gathered=gathered, single=single,
+                   replayed=replayed, reference=reference, seeded=seeded,
+                   seeded_lines=seeded_lines, out=out,
+                   single_save=single_save)
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_step_matches_single_device(run, case):
+    """Every rank's losses, and the first step's data-averaged gradient of
+    every leaf, within 1e-5 of the port's single-device ``train_step``."""
+    want_losses, want_grads = run["single"][CASES[case][2]]
+    for rep in run["ranks"]:
+        np.testing.assert_allclose(rep["cases"][case]["losses"],
+                                   want_losses, **TOL)
+    got = run["gathered"][case]
+    keys = [k for k in run["replayed"][case]]
+    assert len(keys) == len(want_grads)
+    for k, g in zip(keys, want_grads):
+        np.testing.assert_allclose(got[f"grad0/{k}"], g, err_msg=k, **TOL)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_update_matches_adamw_on_the_same_gradients(run, case):
+    """Every gathered parameter after 2 steps within 1e-5 of
+    ``make_adamw`` fed the ranks' data-averaged gradients from the same
+    weights: the sharded update (its slices, moments and global-norm
+    clip) is the unsharded one."""
+    got, want = run["gathered"][case], run["replayed"][case]
+    assert sorted(k for k in got if not k.startswith("grad")) == \
+        sorted(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, err_msg=k, **TOL)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_step_matches_reference(run, case):
+    """Every rank's losses within 1e-4 of the reference's jitted step on
+    the same weights and batches (the reference computes the whole
+    batch's loss however it is sharded)."""
+    want = run["reference"][CASES[case][2]]
+    for rep in run["ranks"]:
+        got = rep["cases"][case]["losses"]
+        assert max(abs(a - b) for a, b in zip(got, want)) <= REF_LOSS_TOL
+
+
+def test_rows_go_to_data_ranks_only_as_whole_groups(run):
+    """With dispatch group 16 each data rank takes its own rows, data
+    ranks numbered pod-major and ``"model"`` ranks taking the same rows;
+    at 4,096 (one group of 64 tokens) every rank computes the whole
+    batch."""
+    for rep in run["ranks"]:
+        cases = rep["cases"]
+        d, _ = cases["data-parallel"]["coordinate"]
+        assert cases["data-parallel"]["rows"] == [2 * d, 2 * d + 2]
+        assert cases["whole-batch"]["rows"] is None
+        p, d, _ = cases["pod-data"]["coordinate"]
+        assert cases["pod-data"]["rows"] == [2 * p + d, 2 * p + d + 1]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_each_rank_holds_only_its_placements_shards(run, case):
+    """Every parameter's placements are its spec's; its local shard is
+    ``distribute_tensor``'s (``src_data_rank=None``) slice, before the
+    steps and after them, and both float32 moments are shaped alike; a
+    2x2 mesh shards each of the big leaves 4 ways."""
+    for rep in run["ranks"]:
+        c = rep["cases"][case]
+        assert [h["local"] for h in c["held"]] == [s for _, s in c["after"]]
+        for h in c["held"]:
+            assert h["placements"] == h["spec_placements"], h["path"]
+            assert h["local"] == h["want"] and h["equal"], h["path"]
+            assert h["moments"] == [h["want"], h["want"]], h["path"]
+            assert h["moment_dtype"] == "torch.float32"
+        if CASES[case][0] == (2, 2):
+            assert any("Replicate()" not in h["placements"]
+                       for h in c["held"])
+
+
+def test_gather_equals_dtensor_full_tensor(run):
+    """``sharding.full_tensor`` (``dist.all_gather`` a mesh dim) gives
+    ``DTensor.full_tensor``'s value for every leaf on every mesh."""
+    assert all(c["dtensor_full_equal"] for rep in run["ranks"]
+               for c in rep["cases"].values())
+
+
+def test_combined_data_axis_slices_pod_major(run):
+    """A ``("pod", "data")`` dim gives rank (pod p, data d) slice
+    ``2 p + d``, as ``distribute_tensor`` and JAX lay it out, and the
+    gather restores the whole."""
+    assert all(rep["pod_major"] for rep in run["ranks"])
+
+
+def test_sharded_save_equals_single_device_save(run):
+    """``checkpoint.save`` of the sharded tree (every rank gathering, rank
+    0 writing, every rank returning after the write) holds the keys,
+    dtypes, shapes and bytes of a single-device ``save`` of the gathered
+    weights."""
+    assert all(rep["saved_before_return"] for rep in run["ranks"])
+    with np.load(str(run["out"] / "sharded.npz")) as a, \
+            np.load(run["single_save"]) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+            assert a[k].tobytes() == b[k].tobytes(), k
+
+
+def test_sharded_load_round_trips(run):
+    """``checkpoint.load`` into a sharded template gives each rank its own
+    slice bit for bit, placed as the template."""
+    assert all(rep["round_trip"] for rep in run["ranks"])
+
+
+def test_train_production_mesh_matches_single_device(run):
+    """``train(production_mesh=mesh)`` from seeded weights: every rank's
+    losses within 1e-5 of ``train`` on one device; its first line names
+    the mesh and the data-parallel split, its second the bytes the rank
+    holds, and its step lines the bytes exchanged."""
+    for rep in run["ranks"]:
+        np.testing.assert_allclose(rep["train"]["losses"], run["seeded"],
+                                   **TOL)
+        lines = rep["train"]["lines"]
+        assert lines[0] == (run["seeded_lines"][0] + " mesh={'data': 2, "
+                            "'model': 2} batch=data-parallel, 2 of 4 rows "
+                            "a data rank")
+        assert lines[1].startswith("rank ") and " holds params " in lines[1]
+        assert all(" exchanged=" in ln for ln in lines[2:])
+
+
+def test_train_refuses_other_meshes(run):
+    """A mesh of other axes, and the production mesh without its 256
+    ranks, raise ``ValueError``."""
+    for rep in run["ranks"]:
+        assert "axes ('x', 'y')" in rep["refusals"]["axes"]
+        assert "needs 256 ranks" in rep["refusals"]["256 ranks"]

@@ -354,7 +354,8 @@ def test_quickstart_loop_matches_reference():
 def test_train_launcher_on_cpu(tmp_path):
     """``launch.train`` runs its loop on the CPU when asked, writes its
     parameters with ``save=`` (``checkpoint.load`` restores them), and
-    refuses the production mesh, naming the ROADMAP item."""
+    refuses the production mesh in a single process, naming the 256
+    ranks it needs."""
     from repro_torch.training import checkpoint as T_ckpt
     tcfg = torch_get_reduced(ARCH)
     lines = []
@@ -370,7 +371,7 @@ def test_train_launcher_on_cpu(tmp_path):
     for (k, a), (_, b) in zip(T_opt.named_leaves(params),
                               T_opt.named_leaves(loaded)):
         assert torch.equal(a, b), k
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         T_train.train(tcfg, steps=1, device="cpu", production_mesh=True)
 
 

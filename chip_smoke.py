@@ -8,6 +8,8 @@ CUDA toolkit::
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
+0. refuse ``python -O`` (it strips the ledger checks' asserts), then
+   enter one ``repro_torch.analysis.RetraceGuard`` for the whole process;
 1. build the five CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and identify the card;
 2. hold each kernel against its plain PyTorch version at the main runs'
@@ -42,7 +44,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    replayed from a CUDA graph), ``eager_ms`` the time per eager call,
    Python and launch overhead included; ``launch_floor_ms`` is one trivial
    launch timed the same way, first, and ``topk_gating``'s
-   ``floor_ratio`` is its ms over that floor;
+   ``floor_ratio`` is its ms over that floor; then the guard's
+   ``self_check``: it must have seen the library load and phase 2's CUDA
+   graph captures, and a trivial capture inside ``frozen("probe")`` must
+   raise ``RetraceError``; every later phase runs inside
+   ``guard.frozen(phase)`` (the ranks that ``dispatch`` and
+   ``mesh_train`` spawn are other processes, unguarded);
 3. main run: full-width DeepSeek-V2-Lite in bfloat16 (seeded random
    weights, routed experts in pinned host memory, 28.8 GB) served by
    ``BatchedOffloadEngine`` with the paper's learned prefetch policy at a
@@ -67,8 +74,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    identical streams, routed ids, ``EngineStats``, ``PoolStats`` and
    ``PrefixStats``, and, with telemetry on at both sides, its
    deterministic content (``telemetry_content``);
-3b. serve workload: main run 1's backbone (full width and depth,
-   bfloat16, its routed experts pinned once in place) serving 8
+3b. serve workload: main run 1's backbone (full width, bfloat16, its
+   routed experts pinned once in place) cut to its first 14 of 27 layers
+   (1 dense, 13 MoE, 83 slots: a 10% cache) serving 8
    priority-1 requests that share a 64-token system prompt (32 new tokens
    each) and 2 priority-0 ones (8 new) arriving at 0.25 and 0.5 of a
    closed-loop run of the same requests, through ``run_workload`` with
@@ -76,7 +84,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    unless it preempted, served >= 8 x 64 prompt positions from the index,
    cut ``prefill_tokens`` by exactly the hit tokens less the positions the
    preempted requests had processed, leaked no block and launched every
-   kernel of the path;
+   kernel of the path; a ``LeakSanitizer`` on both runs' engines must
+   sweep the pool at each of their 10 retires;
 3c. parity tiers: the tiered expert store on the reduced DeepSeek-V2-Lite
    in float32, card against CPU: 4 shards on the consistent-hash ring, a
    disk spill, a tier-1 cache of 4, int8 cold tiers, auto fetch-vs-ship
@@ -94,6 +103,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one-layer horizons, is left out for time). (b) and (c) must give main
    run 1's stream and route digests; every run must fetch from disk, (b)
    from peers, (c)-(d) ship, and (d)'s cold fetches move the int8 size;
+   (c) runs under a ``LeakSanitizer``, which must sweep the pool and the
+   store's residency ledger at each of its 4 retires;
    the ``expert_ffn`` check of phase 2 includes the ship rows past the
    166 slots;
 3e. main run 236B: DeepSeek-V2-236B at full width (128 heads, MLA with
@@ -142,6 +153,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    CPU, each step from the same weights and moments: routed ids
    identical, loss, gradients and step losses within tolerance, a step
    routed apart only at a near-tie;
+4d0. examples_cli: the port's four example command lines in this
+   process through ``main(argv)`` with ``--device cuda``:
+   ``collect_traces_torch`` (8 traces, 24 new tokens, 30 training
+   steps), ``train_predictor_torch`` (3 epochs) on its file,
+   ``train_backbone_torch`` (4 steps at B 8 x S 256, ``--save``) and
+   ``serve_with_cache_torch`` (8 tokens); fails unless the trace file
+   reads back with (T, MoE layers, k) experts in range, the predictor
+   file (the reference's flat-npz layout) reads back bit for bit with
+   the same logits on one batch, the backbone's checkpoint reloads bit
+   for bit, each printed the reference CLI's lines, and ``topk_gating``
+   and ``expert_ffn`` launched;
 4d'. checkpoint: ``launch.train.train(save=)`` on DeepSeek-V2-Lite at
    full width in bfloat16, depth cut to 2 layers (1 dense, 1 MoE; 1.085 B
    parameters, a 4.34 GB float32 npz in a temporary directory whose free
@@ -250,7 +272,7 @@ Phases 3' and 3a-3f are named ``serve_telemetry``, ``parity_workload``,
 ``serve_workload``, ``parity_tiers``, ``serve_tiers``, ``main_run_236b``
 and ``parity_236b`` in the output;
 phases 4a-4f ``pipeline``, ``main_run_trained``, ``parity_pipeline``,
-``train``, ``parity_train``, ``checkpoint``, ``dispatch``,
+``train``, ``parity_train``, ``examples_cli``, ``checkpoint``, ``dispatch``,
 ``mesh_train``, ``pipeline_trained`` and ``serve_trained``;
 phases 9-14 ``facade_scout``, ``facade_gemma3``, ``parity_gqa``,
 ``facade_recurrentgemma``, ``facade_seamless`` and ``parity_recurrent``.
@@ -268,11 +290,14 @@ counts of the main run that drives each kernel (Llama-4-Scout's for the
 four attention and MoE kernels, mamba2's for ``ssd_chunk``;
 ``launches_by_run`` has every main run's, main_run_236b's and the
 serve_telemetry, serve_workload, serve_tiers, pipeline, main_run_trained,
-train, checkpoint, dispatch (its ranks' ``expert_ffn`` calls), mesh_train
+train, examples_cli, checkpoint, dispatch (its ranks' ``expert_ffn``
+calls), mesh_train
 (its ranks' ``topk_gating`` calls), pipeline_trained, serve_trained,
 facade_scout, facade_gemma3,
 facade_recurrentgemma and facade_seamless phases'), and
-before that ``{"launch_floor_ms": ...}`` and the phases' summaries. Details go to
+before that ``{"launch_floor_ms": ...}``, ``{"retrace_guard": ...}``
+(the guard's events by source and program, the probe's message) and the
+phases' summaries. Details go to
 ``chiprun_out/chip_smoke.json``.
 This script imports nothing of JAX or of the reference package.
 """
@@ -1567,10 +1592,13 @@ def parity_run_236b(torch, np, dev):
 # step or prefill chunk); ``serve_workload`` serves a shared system prompt
 # to two priority classes through ``run_workload`` on the real clock
 WORKLOAD_DT = 1.0
+# serve_workload serves the first 14 of main run 1's 27 layers (1 dense,
+# 13 MoE; all 27 until the examples_cli phase needed the time): every
+# check it makes is structural, and its time scales with the MoE layers
 WORKLOAD = dict(background=8, urgent=2, system=64, suffix=12, max_new=32,
                 urgent_max_new=8, arrivals=(0.25, 0.5), max_batch=4,
                 block_size=8, prefill_chunk=8, cache_len=128,
-                urgent_ttft_share=0.1)
+                urgent_ttft_share=0.1, layers=14)
 
 
 def parity_run_workload(torch, np, dev):
@@ -1662,10 +1690,13 @@ def parity_run_workload(torch, np, dev):
 
 def serve_workload_run(torch, np, dev, host_bw, handed):
     """Main run 1's backbone (``handed``: model, params, capacity; full
-    width and depth, bfloat16, seeded) serving a shared 64-token system
+    width, bfloat16, seeded) cut to its first ``WORKLOAD["layers"]``
+    layers (a shorter model over the same per-layer params, nothing
+    copied) serving a shared 64-token system
     prompt through ``run_workload`` with the prefix cache and preemption
     on (``WORKLOAD``), a seeded full-size ``OnlineMoEBeyondPolicy`` per
-    request, at main run 1's 10% cache and this card's host rate. Eight
+    request, at a 10% cache of its MoE layers and this card's host rate,
+    a ``LeakSanitizer`` on each engine. Eight
     priority-1 requests arrive at 0; two priority-0 ones at 0.25 and 0.5
     of a closed-loop run of the same requests on the same engine
     configuration with both features off, which also gives the comparison
@@ -1674,22 +1705,31 @@ def serve_workload_run(torch, np, dev, host_bw, handed):
     least 8 x 64 prompt positions from the index, cut ``prefill_tokens``
     by exactly the hit tokens less the positions preempted requests had
     processed (a resume brings those back, as hits or as prefill), leaked
-    no block, launched each kernel of the path and gave well-formed
-    streams. The streams are reported against the closed loop's, not
-    required equal: in bfloat16 another batch composition rounds
+    no block (at the end and, under the sanitizer, at every one of the 10
+    retires of each run), launched each kernel of the path and gave
+    well-formed streams. The streams are reported against the closed
+    loop's, not required equal: in bfloat16 another batch composition rounds
     differently."""
+    from repro_torch.analysis import LeakSanitizer
     from repro_torch.configs.base import PredictorConfig
     from repro_torch.core.metrics import latency_stats
     from repro_torch.core.policies import OnlineMoEBeyondPolicy
     from repro_torch.core.predictor import predictor_init
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import build_model
     from repro_torch.serving.config import ServeConfig
     from repro_torch.serving.scheduler import BatchedOffloadEngine
     from repro_torch.serving.workload import SLO, WorkloadRequest
 
     c = WORKLOAD
-    model, params, capacity = handed
-    cfg = model.cfg
+    model, params, _ = handed
+    full_depth = model.cfg.num_layers
+    cfg = model.cfg.replace(num_layers=min(c["layers"], full_depth))
+    model = build_model(cfg)
+    params = {**params, "layers": params["layers"][:cfg.num_layers]}
+    m = cfg.moe
+    capacity = max(int(0.10 * (cfg.num_layers - m.first_dense_layers)
+                       * m.num_experts), 4 * m.top_k)
     pin_s = pin_experts(params)
     pc = predictor_config(PredictorConfig, cfg)
     pp = predictor_init(torch.Generator(dev).manual_seed(SEED + 1), pc,
@@ -1711,12 +1751,25 @@ def serve_workload_run(torch, np, dev, host_bw, handed):
                 prefill_chunk=c["prefill_chunk"], prefix_cache=on,
                 preemption=on), device=dev)
 
+    where = "serve_workload"
+    leak_checks = {}
+
+    def sanitized(label, eng, drive):
+        """``drive()`` under a LeakSanitizer: a sweep at every retire."""
+        with LeakSanitizer(eng) as san:
+            out = drive()
+        if san.checks != n_req:
+            fail(f"{where}: {san.checks} leak checks in the {label} run, "
+                 f"want one per retired request ({n_req})")
+        leak_checks[label] = san.checks
+        return out
+
     eng = engine(False)
     for i in range(n_req):
         eng.submit(prompts[i], max_new[i], priority=priority[i], seed=i)
     record_routes(eng.core, check_finite=True)
     t0 = time.perf_counter()
-    closed = eng.run(c["cache_len"])
+    closed = sanitized("closed_loop", eng, lambda: eng.run(c["cache_len"]))
     closed_s = since(torch, t0)
     closed_stats = eng.stats.as_dict()
     eng.pool.check_leaks(expected_in_use=0)
@@ -1741,13 +1794,13 @@ def serve_workload_run(torch, np, dev, host_bw, handed):
     routes = record_routes(eng.core, check_finite=True)
     reset_launch_counts()
     t0 = time.perf_counter()
-    outs = eng.run_workload(wl, c["cache_len"])
+    outs = sanitized("open_loop", eng,
+                     lambda: eng.run_workload(wl, c["cache_len"]))
     run_s = since(torch, t0)
     launches = launch_counts()
     st, pool, prefix = eng.stats, eng.pool.stats, eng.prefix.stats
     cached = eng.prefix.cached_blocks
     eng.pool.check_leaks(expected_in_use=cached)
-    where = "serve_workload"
     if st.preemptions < 1:
         fail(f"{where}: no request was preempted")
     if prefix.hit_tokens < c["background"] * c["system"]:
@@ -1781,9 +1834,11 @@ def serve_workload_run(torch, np, dev, host_bw, handed):
                                     if x != y), min(len(a), len(b)))
     generated = sum(len(s) for s in outs.values())
     del eng
-    return {"config": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
-            **c, "requests": n_req, "capacity_slots": capacity,
+    return {"config": cfg.name, "dtype": cfg.dtype, **c,
+            "layers": cfg.num_layers, "full_depth": full_depth,
+            "requests": n_req, "capacity_slots": capacity,
             "host_bw_bytes_per_s": host_bw, "pin_s": pin_s,
+            "leak_checks": leak_checks,
             "policy": "moe-beyond-online (seeded)",
             "closed_loop_s": closed_s, "run_s": run_s,
             "urgent_ttft_slo_s": ttft_slo.ttft_s,
@@ -1963,9 +2018,12 @@ def serve_tiers_run(torch, np, dev, host_bw, handed, main1):
     1's stream and route digests (``main1``), (b) fetched from tier 2,
     every run from tier 3, (c) and (d) shipped, each (d) fetch from tiers
     2-3 moved the int8 wire size, every kernel of the path launched in
-    every run and each spill file is gone after ``close()``."""
+    every run, each spill file is gone after ``close()`` and (c), under a
+    ``LeakSanitizer``, swept the pool and the residency ledger at each of
+    its 4 retires."""
     import shutil
 
+    from repro_torch.analysis import LeakSanitizer
     from repro_torch.configs.base import PredictorConfig
     from repro_torch.core.policies import OnlineMoEBeyondPolicy
     from repro_torch.core.predictor import predictor_init
@@ -2007,12 +2065,20 @@ def serve_tiers_run(torch, np, dev, host_bw, handed, main1):
         path = store._spill_path
         spill_bytes = os.path.getsize(path) if path else 0
         routes = record_routes(eng.core, check_finite=True)
+        # run (c) under the leak sanitizer: the pool and the store's
+        # residency ledger swept at every retire
+        san = LeakSanitizer(eng).install() if label == "c" else None
         reset_launch_counts()
         t1 = time.perf_counter()
         outs = eng.generate(prompts, c["max_new"], c["cache_len"])
         run_s = since(torch, t1)
         launches = launch_counts()
         where = f"serve_tiers ({label})"
+        if san is not None:
+            san.uninstall()
+            if san.checks != len(prompts):
+                fail(f"{where}: {san.checks} leak checks, want one per "
+                     f"retired request ({len(prompts)})")
         for name in MAIN_RUNS["deepseek-v2-lite"][2]:
             if launches[name] == 0:
                 fail(f"{where} never launched the {name} kernel")
@@ -2076,7 +2142,8 @@ def serve_tiers_run(torch, np, dev, host_bw, handed, main1):
             "spill_read_bytes": read, "spill_read_s": read_s,
             "spill_read_bytes_per_s": read / read_s if read_s else None,
             "spill_read_modeled_bytes_per_s": tc.disk_bw,
-            "launches": launches, **digests}
+            "launches": launches, **digests,
+            **({"leak_checks": san.checks} if san is not None else {})}
         for name, n in launches.items():
             total[name] = total.get(name, 0) + n
         del eng, store
@@ -2605,6 +2672,142 @@ def parity_run_train(torch, np, dev):
                            "step_loss": 1e-4, "step_grad_norm_rel": 1e-4,
                            "update_of_max": 1e-5, "step_of_max": 1e-4,
                            "near_tie": NEAR_TIE}}
+
+
+# the examples_cli phase: the four example command lines of the port, in
+# this process, on the card (argv without the output paths)
+EXAMPLES_CLI = (
+    ("collect_traces", ["--n", "8", "--max-new", "24",
+                        "--train-steps", "30"]),
+    ("train_predictor", ["--epochs", "3"]),
+    ("train_backbone", ["--steps", "4", "--batch", "8", "--seq", "256"]),
+    ("serve_with_cache", ["--tokens", "8", "--train-steps", "5",
+                          "--n-train-traces", "2"]))
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, HERE / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_cli_run(torch, np, dev):
+    """The port's four example command lines through their ``main(argv)``
+    on ``dev`` (``--device cuda`` on the card; ``EXAMPLES_CLI``): traces
+    and the predictor written to ``chiprun_out/examples_cli/``, the ~100M
+    backbone's checkpoint to a temporary directory (214 MB, too large to
+    bring back from the card's machine). Fails unless the trace
+    file reads back through ``load_traces`` with (T, MoE layers, k)
+    experts in range, the predictor file read through
+    ``convert.predictor_from_jax_checkpoint`` equals the trained
+    parameters bit for bit and gives the same logits on one batch, the
+    backbone's file reloads bit for bit through ``checkpoint.load``, each
+    command printed the reference CLI's lines, and ``topk_gating`` and
+    ``expert_ffn`` launched. Each command's stdout goes to
+    ``chiprun_out/examples_cli/<name>.txt``."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.deepseek_v2_lite import hundred_m_config
+    from repro_torch.convert import predictor_from_jax_checkpoint
+    from repro_torch.core.predictor import predictor_apply
+    from repro_torch.core.tracing import load_traces, moe_layer_ids
+    from repro_torch.data.traces import PredictorDataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import build_model
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import named_leaves
+
+    where = "examples_cli"
+    out_dir = HERE / "chiprun_out" / "examples_cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    traces_path = out_dir / "traces.npz"
+    pred_path = out_dir / "predictor.npz"
+    tmp = tempfile.TemporaryDirectory()
+    backbone_path = Path(tmp.name) / "backbone_100m.npz"
+    paths = {"collect_traces": ["--out", str(traces_path)],
+             "train_predictor": ["--traces", str(traces_path),
+                                 "--out", str(pred_path)],
+             "train_backbone": ["--save", str(backbone_path)],
+             "serve_with_cache": []}
+    expect = {"collect_traces": "saved 8 traces",
+              "train_predictor": "saved predictor to",
+              "train_backbone": "-param MoE (8L x 16e top-2)",
+              "serve_with_cache": "cache hit rate:"}
+    reset_launch_counts()
+    returned, seconds, printed = {}, {}, {}
+    for name, argv in EXAMPLES_CLI:
+        main = load_example(f"{name}_torch").main
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            returned[name] = main(argv + paths[name]
+                                  + ["--device", dev.type])
+        seconds[name] = since(torch, t0)
+        text = buf.getvalue()
+        (out_dir / f"{name}.txt").write_text(text)
+        if expect[name] not in text:
+            fail(f"{where}: {name} did not print {expect[name]!r}:\n{text}")
+        printed[name] = text.strip().splitlines()[-3:]
+        log(f"{where}: {name} done in {seconds[name]:.1f} s")
+    launches = launch_counts()
+    for name in ("topk_gating", "expert_ffn"):
+        if launches[name] == 0:
+            fail(f"{where} never launched the {name} kernel")
+
+    cfg = get_reduced("deepseek-v2-lite")
+    traces = load_traces(str(traces_path))
+    n_moe, k, e = len(moe_layer_ids(cfg)), cfg.moe.top_k, cfg.moe.num_experts
+    for tr in traces:
+        shape = tr.experts.shape
+        if len(shape) != 3 or shape[1:] != (n_moe, k) or \
+                not ((tr.experts >= 0) & (tr.experts < e)).all():
+            fail(f"{where}: trace experts of shape {shape}, want (T, "
+                 f"{n_moe}, {k}) in [0, {e})")
+    if len(traces) != 8:
+        fail(f"{where}: {len(traces)} traces read back, want 8")
+
+    params, pc, hist = returned["train_predictor"]
+    read = predictor_from_jax_checkpoint(str(pred_path), device=dev)
+    mine, theirs = named_leaves(params), named_leaves(read)
+    if [k for k, _ in mine] != [k for k, _ in theirs] or not all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(mine, theirs)):
+        fail(f"{where}: the predictor file does not read back bit for bit")
+    emb, lids, mask, _ = next(PredictorDataset(traces, pc).batches(
+        4, shuffle=False))
+    batch = [torch.as_tensor(a, device=dev) for a in (emb, lids, mask)]
+    with torch.no_grad():
+        same_logits = torch.equal(predictor_apply(params, pc, *batch),
+                                  predictor_apply(read, pc, *batch))
+    if not same_logits:
+        fail(f"{where}: the reloaded predictor's logits differ")
+
+    trained, losses = returned["train_backbone"]
+    like = build_model(hundred_m_config()).init(device=dev)
+    loaded = checkpoint.load(str(backbone_path), like)
+    backbone_bytes = backbone_path.stat().st_size
+    pairs = list(zip(named_leaves(trained), named_leaves(loaded)))
+    if not all(ka == kb and a.dtype == b.dtype and torch.equal(a, b)
+               for (ka, a), (kb, b) in pairs):
+        fail(f"{where}: the backbone checkpoint does not reload bit for bit")
+    del like, loaded, trained, params, read
+    tmp.cleanup()
+    return {"commands": {name: argv for name, argv in EXAMPLES_CLI},
+            "seconds": seconds, "printed": printed,
+            "traces": len(traces),
+            "trace_experts_shape": list(traces[0].experts.shape),
+            "predictor_leaves": len(mine), "predictor_bit_identical": True,
+            "predictor_same_logits": same_logits,
+            "predictor_best_val_loss": min(hist.val_loss),
+            "backbone_leaves": len(pairs), "backbone_file_bytes":
+                backbone_bytes, "backbone_bit_identical": True,
+            "backbone_losses": losses, "launches": launches}, launches
 
 
 # the checkpoint phase: full-width DeepSeek-V2-Lite cut to 1 dense and 1
@@ -4250,10 +4453,48 @@ def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
              "repository")
+    if sys.flags.optimize:
+        fail("python -O strips the assert statements that the leak "
+             "sanitizer's ledger checks are made of: run without -O")
     sys.path.insert(0, str(SRC))
+    from repro_torch.analysis import RetraceGuard
+
+    # one guard for the whole process: it sees the kernel library load and
+    # phase 2's graph captures, then freezes every later phase
+    with RetraceGuard() as guard:
+        run(torch, guard)
+
+
+def probe_guard(torch, dev, guard) -> dict:
+    """The guard's own checks on this card's PyTorch: it saw the library
+    load and phase 2's graph captures, and a trivial capture inside
+    ``frozen`` raises ``RetraceError``."""
+    from repro_torch.analysis import RetraceError
+
+    guard.self_check()
+    seen = guard.by_source()
+    if not seen["kernel_library"] or not seen["cuda_graph"]:
+        fail(f"the retrace guard missed the library load or phase 2's "
+             f"graph captures: {seen}")
+    x = torch.zeros(1, device=dev)
+    try:
+        with guard.frozen("probe"):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                x.add_(1.0)
+            torch.cuda.synchronize()
+    except RetraceError as e:
+        return {"self_check": "passed", "probe_raised": str(e)}
+    fail("a graph captured inside the retrace guard's frozen region did "
+         "not raise RetraceError: the capture hook is not wired")
+
+
+def run(torch, guard) -> None:
+    """Every phase (the module docstring's list), under ``guard``."""
     import numpy as np
     import torch.nn.functional as F
 
+    from repro_torch.analysis import RetraceError
     from repro_torch.kernels import build
 
     # float32 means float32: no TF32 in matmuls (the default) or in cuDNN
@@ -4279,6 +4520,8 @@ def main() -> None:
     phase_s["kernel_checks"] = time.perf_counter() - t
     release_host_memory(torch)
     log(f"kernel checks passed in {phase_s['kernel_checks']:.1f} s")
+    retrace = probe_guard(torch, dev, guard)
+    log(f"retrace guard: {retrace['probe_raised']}")
 
     # the main runs' modeled fetches at this card's host-to-device rate:
     # pinned copies of one DeepSeek-V2-Lite expert, measured once
@@ -4329,6 +4572,8 @@ def main() -> None:
          None),
         ("train", ds, lambda: train_run(torch, np, dev), "train"),
         ("parity_train", ds, lambda: parity_run_train(torch, np, dev), None),
+        ("examples_cli", ds, lambda: examples_cli_run(torch, np, dev),
+         "examples_cli"),
         ("checkpoint", ds, lambda: checkpoint_run(torch, np, dev),
          "checkpoint"),
         ("dispatch", ds, lambda: dispatch_run(torch, np, dev), "dispatch"),
@@ -4361,12 +4606,19 @@ def main() -> None:
         ("main_run_3", MAMBA2, lambda: mamba_run(torch, np, dev), MAMBA2),
         ("parity_run_3", MAMBA2, lambda: parity_run_mamba(torch, np, dev),
          None))
-    for phase, arch, run, key in phases:
+    frozen = []
+    for phase, arch, run_phase, key in phases:
         t = time.perf_counter()
-        if key is None:
-            runs[phase] = run()
-        else:
-            runs[phase], launches[key] = run()
+        try:
+            # nothing may compile, capture or load the library mid-run
+            with guard.frozen(phase):
+                if key is None:
+                    runs[phase] = run_phase()
+                else:
+                    runs[phase], launches[key] = run_phase()
+        except RetraceError as e:
+            fail(str(e))
+        frozen.append(phase)
         phase_s[phase] = time.perf_counter() - t
         release_host_memory(torch)
         # device bytes still allocated once the phase's tensors are freed:
@@ -4449,6 +4701,8 @@ def main() -> None:
                 entry[f"{shape}_shape_max_abs_err"] = c[shape]
         kernels.append(entry)
     report = {"gpu": ident, "build_s": build_s, "phase_s": phase_s,
+              "retrace_guard": {**retrace, "frozen_phases": frozen,
+                                "counts": guard.counts()},
               "allocated_bytes_after_phase": allocated,
               "launch_floor_ms": floor_ms,
               "kernels": kernels, "checks": checks, **runs,
@@ -4569,7 +4823,7 @@ def main() -> None:
         "closed_loop_hit_rate", "fetch_bytes", "closed_loop_fetch_bytes",
         "prefill_tokens", "closed_loop_prefill_tokens", "cow_copies",
         "retains", "preempt_ref_drops", "streams_equal_closed_loop",
-        "first_divergence", "launches")},
+        "first_divergence", "launches", "full_depth", "leak_checks")},
         "seconds": phase_s["serve_workload"]}), flush=True)
     pt = runs["parity_tiers"]
     print(json.dumps({"parity_tiers": {k: pt[k] for k in (
@@ -4590,7 +4844,8 @@ def main() -> None:
             "deep_prefetch_hits", "horizon_clamps", "evictions_learned",
             "evictions_lru", "spill_bytes", "spill_read_bytes_per_s",
             "stream_digest", "route_digest", *(
-                ("streams_equal_c",) if label == "d" else ()))}
+                ("streams_equal_c",) if label == "d" else ()),
+            *(("leak_checks",) if label == "c" else ()))}
             for label, r in stt["runs"].items()}},
         "seconds": phase_s["serve_tiers"]}), flush=True)
     for phase in ("facade_scout", "facade_gemma3", "facade_recurrentgemma",
@@ -4611,6 +4866,18 @@ def main() -> None:
         "card_launches")}, "seconds": phase_s["parity_gqa"]}), flush=True)
     print(json.dumps({"parity_recurrent": runs["parity_recurrent"],
                       "seconds": phase_s["parity_recurrent"]}), flush=True)
+    ex = runs["examples_cli"]
+    print(json.dumps({"examples_cli": {k: ex[k] for k in (
+        "seconds", "printed", "traces", "trace_experts_shape",
+        "predictor_bit_identical", "predictor_same_logits",
+        "backbone_file_bytes", "backbone_bit_identical", "launches")},
+        "phase_s": phase_s["examples_cli"]}), flush=True)
+    retrace.update(frozen_phases=len(frozen), new_in_frozen_phases=0,
+                   counts_by_source=guard.by_source(),
+                   library=guard.signatures(next(
+                       p for p in guard.counts()
+                       if p.startswith("kernel_library"))))
+    print(json.dumps({"retrace_guard": retrace}), flush=True)
     print(json.dumps({"launch_floor_ms": floor_ms}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ident, flush=True)

@@ -24,7 +24,10 @@ kept: MLA's ``w_q`` ``(D,H,qk)``, or its compressed q projection
 ``w_dq`` ``(D,r)``, ``q_ln`` ``(r,)`` and ``w_uq`` ``(r,H,qk)``
 (DeepSeek-V2-236B), ``w_uk`` ``(rank,H,n)``; GQA's ``wq`` ``(D,H,hd)``;
 experts ``(E,D,F)``/``(E,F,D)``. Predictor: the stacked ``enc`` becomes a
-list of per-layer dicts.
+list of per-layer dicts, and :func:`predictor_to_jax` stacks it back;
+:func:`save_predictor_for_jax` and :func:`predictor_from_jax_checkpoint`
+write and read a predictor file in the reference's flat-npz layout
+(``enc/wq`` of shape (layers, d, d)), which the two packages share.
 
 A file the reference's ``training/checkpoint.save`` wrote (its
 ``launch/train.py`` ``save=``, the benchmarks' ``backbone.npz``) holds
@@ -41,6 +44,7 @@ import torch
 
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.transformer import _layer_split
+from repro_torch.training import checkpoint
 from repro_torch.training.optimizer import named_leaves
 
 
@@ -157,12 +161,50 @@ def backbone_from_jax_checkpoint(cfg, path: str, like):
     return _like_dtypes(backbone_from_jax(cfg, tree, device=dev), like)
 
 
+def _predictor_tree(params, n_layers: int, dev) -> dict:
+    out = {k: _tensor(v, dev) for k, v in params.items() if k != "enc"}
+    enc = params.get("enc") or {}
+    out["enc"] = [{k: _tensor(np.asarray(v)[i], dev) for k, v in enc.items()}
+                  for i in range(n_layers)] if enc else []
+    return out
+
+
 def predictor_from_jax(params, pc, device="cuda"):
     """The reference's ``predictor_init`` tree (numpy leaves, ``enc``
     stacked over layers) -> the port's, ``enc`` a per-layer list."""
-    dev = resolve_device(device)
-    out = {k: _tensor(v, dev) for k, v in params.items() if k != "enc"}
+    return _predictor_tree(params, pc.num_layers, resolve_device(device))
+
+
+def predictor_to_jax(params) -> dict:
+    """The port's predictor tree -> the reference's layout, tensors as
+    they are: ``enc`` stacked over layers into one tensor per name
+    (``enc/wq`` of shape (layers, d, d)), ``{}`` for no layers. The
+    inverse of :func:`predictor_from_jax`."""
+    out = {k: v for k, v in params.items() if k != "enc"}
     enc = params["enc"]
-    out["enc"] = [{k: _tensor(np.asarray(v)[i], dev) for k, v in enc.items()}
-                  for i in range(pc.num_layers)] if enc else []
+    out["enc"] = {k: torch.stack([lp[k] for lp in enc])
+                  for k in enc[0]} if enc else {}
     return out
+
+
+def save_predictor_for_jax(path: str, params) -> None:
+    """Write the port's predictor as the reference's
+    ``training/checkpoint.save`` writes one (``examples/train_predictor.py``
+    ``--out``): :func:`predictor_to_jax`'s tree in the flat npz of
+    :func:`repro_torch.training.checkpoint.save`, keys "/"-joined
+    (``in_w``, ``enc/wq``), so the reference's ``checkpoint.load(path,
+    like=predictor_init(...))`` restores it."""
+    checkpoint.save(path, predictor_to_jax(params))
+
+
+def predictor_from_jax_checkpoint(path: str, device="cuda"):
+    """A predictor file in the reference's layout (its
+    ``examples/train_predictor.py`` output, or
+    :func:`save_predictor_for_jax`'s) -> the port's per-layer tree on
+    ``device``, float32 as written."""
+    dev = resolve_device(device)
+    with np.load(path) as data:
+        tree = _unflatten({k: data[k] for k in data.files})
+    enc = tree.get("enc") or {}
+    n_layers = len(next(iter(enc.values()))) if enc else 0
+    return _predictor_tree(tree, n_layers, dev)

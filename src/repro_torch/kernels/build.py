@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -38,6 +39,10 @@ SIGNATURES = {
 
 _LIB = None
 BUILD_LOG = ""      # nvcc's -Xptxas -v output of the last build
+# one record per first load of the library ({"library": file name,
+# "built": whether nvcc ran, "s": seconds}); ``analysis.RetraceGuard``
+# reads it
+LOAD_EVENTS: list = []
 
 
 def _nvcc() -> str:
@@ -55,16 +60,21 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def library_path() -> Path:
+    """Where the library of the current sources and flags lives."""
+    h = hashlib.sha256()
+    for s in sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
 def build() -> Path:
     """Compile every source in parallel and link the shared library."""
     global BUILD_LOG
     srcs = sources()
-    h = hashlib.sha256()
-    for s in srcs + sorted(CSRC.glob("*.cuh")):
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
+    out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -98,15 +108,21 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use); each first load
+    appends one record to :data:`LOAD_EVENTS`."""
     global _LIB
     if _LIB is None:
+        t0 = time.perf_counter()
+        path = library_path()
+        built = not path.exists()
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _LIB = lib
+        LOAD_EVENTS.append({"library": path.name, "built": built,
+                            "s": time.perf_counter() - t0})
     return _LIB
 
 

@@ -1051,3 +1051,49 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     for (k, a), (_, b) in zip(named_leaves(tree), named_leaves(back)):
         assert b.device == a.device and b.dtype == a.dtype, k
         assert torch.equal(a, b), k
+
+
+def test_retrace_guard_counts_a_graph_capture_on_card(cuda):
+    """A CUDA graph captured on the card counts once at its caller; a
+    capture inside ``frozen`` raises; the hook is gone after exit."""
+    from repro_torch.analysis import RetraceError, RetraceGuard
+    before = vars(torch.cuda.CUDAGraph).get("capture_begin")
+    x = torch.zeros(4, device=cuda)
+    with RetraceGuard() as guard:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            x.add_(1.0)
+        graph.replay()
+        guard.self_check()
+        (site, n), = guard.by_source()["cuda_graph"].items()
+        assert "test_torch_gpu.py" in site and n == 1
+        with guard.frozen("replay"):
+            graph.replay()                  # a replay captures nothing
+        with pytest.raises(RetraceError, match="cuda_graph"):
+            with guard.frozen("second capture"):
+                again = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(again):
+                    x.mul_(2.0)
+    torch.cuda.synchronize()
+    assert x.tolist() == [2.0] * 4
+    assert vars(torch.cuda.CUDAGraph).get("capture_begin") is before
+
+
+def test_retrace_guard_sees_the_kernel_library_load(cuda, monkeypatch):
+    """A first load of the kernel library inside the guard (the library
+    handle dropped first) is one ``kernel_library`` event, and raises
+    inside ``frozen``; a second call loads nothing."""
+    from repro_torch.analysis import RetraceError, RetraceGuard
+    from repro_torch.kernels import build
+    build.library()                          # built (or loaded) once
+    monkeypatch.setattr(build, "_LIB", None)
+    with RetraceGuard() as guard:
+        with pytest.raises(RetraceError, match="kernel_library"):
+            with guard.frozen("load"):
+                build.library()
+        with guard.frozen("loaded"):
+            build.library()
+        (name, n), = guard.by_source()["kernel_library"].items()
+        assert name == build.library_path().name and n == 1
+        assert guard.signatures(f"kernel_library {name}")[0].startswith(
+            "loaded in ")

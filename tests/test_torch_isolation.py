@@ -27,14 +27,16 @@ ENTRY_POINTS = [Model.init, Model.init_decode_state, EncDecModel.init,
                 BatchedOffloadEngine.__init__,
                 OffloadEngine.__init__, DecodeCore.__init__, predictor_init,
                 train_predictor, convert.backbone_from_jax,
-                convert.predictor_from_jax, resolve_device,
+                convert.predictor_from_jax,
+                convert.predictor_from_jax_checkpoint, resolve_device,
                 launch_train.train]
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "examples", "pipeline_torch.py"),
-             os.path.join(REPO, "examples", "serve_batched_torch.py")] + [
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "examples", f"{n}_torch.py")
+        for n in ("pipeline", "serve_batched", "collect_traces",
+                  "train_predictor", "train_backbone", "serve_with_cache")] + [
         os.path.join(REPO, "tools", n)
         for n in ("kernel_phase2.py", "profile_mamba_torch.py")]
     for root, _, names in os.walk(PORT):
@@ -98,6 +100,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         OffloadEngine(model, params, None, 48, host_bw=100e9)
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_train.main(["--arch", "deepseek-v2-lite", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.predictor_from_jax_checkpoint("unread.npz")
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -120,7 +124,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                     "repro_torch.training.checkpoint",
                                     "repro_torch.launch.mesh",
                                     "repro_torch.launch.sharding",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.analysis.retrace_guard",
+                                    "repro_torch.analysis.sanitize"])
 def test_serving_modules_import_with_jax_and_reference_blocked(module):
     """The prefix index, the workload generator, the tiered expert store,
     the roofline terms, the scheduler that drives them and the configs

@@ -186,17 +186,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4d'''. mesh_train: ``launch.train.train(production_mesh=)`` on 4 spawned
    ranks sharing the card (``gloo`` over ``file://`` rendezvous) as a 2x2
    ``("data", "model")`` ``DeviceMesh``: every parameter and both AdamW
-   moments sharded by the reference's rules, the whole tree gathered
-   each step, 4 rows a data rank, gradients averaged over ``"data"``;
+   moments sharded by the reference's rules, one unit (the embedding, a
+   layer, the head) gathered at a time where the loss uses it and again
+   for its backward pass, 4 rows a data rank, each gradient
+   reduce-scattered over ``"data"`` into the rank's slice;
    the reduced DeepSeek-V2-Lite in float32, then the checkpoint phase's
    model (full width, 2 layers, bfloat16) 2 steps at B 8 x S 1024,
    against the same runs on one device, run first; fails if a rank
    raises, dies or outlasts its timeout, unless the float32 losses and
    gathered parameters are within 1e-5 and the bfloat16 losses within
    2^-8 relative of the single-device ones, each rank holds the bytes
-   its placements give, and ``topk_gating`` launched once a MoE layer
-   and step on each rank; reports rank start, s a step, the bytes
-   exchanged a step, peak memory a rank;
+   its placements give, ``topk_gating`` launched once a MoE layer and
+   step on each rank, no rank held more gathered bytes at once than the
+   largest unit's or any once ``train`` returned, and each rank's peak
+   device memory is below the whole-tree step's; reports rank start, s
+   a step, the bytes exchanged a step, the gathered peak, peak memory a
+   rank;
 4e. pipeline trained: the ~100M config of ``examples/train_backbone.py``
    trained 200 steps at B 8 x S 256, then 4a's steps 2-4 on it at 10% and
    20% caches, beside 4a's random-backbone table;
@@ -3168,6 +3173,12 @@ def dispatch_run(torch, np, dev):
 # 4 rows a data rank, one whole dispatch group of 4,096 tokens
 MESH_TRAIN = dict(ranks=4, mesh=(2, 2), batch=8, seq=1024, steps=2,
                   timeout_s=300.0, f32_tol=1e-5)
+# each rank's peak device memory in the mesh_train phase must stay below
+# the highest rank's peak when every rank gathered the whole tree and
+# all-reduced whole gradients (10,385,082,368 B on an NVIDIA H100 80GB
+# HBM3 at 700 W, torch 2.11): allocation repeats for one torch and one
+# code path
+WHOLE_TREE_MESH_PEAK_BYTES = 10_385_082_368
 # the bf16 losses' tolerance, relative: the f32 run holds the sharded step
 # to the single-device one within f32_tol, so what is left between the
 # bf16 runs is bfloat16 rounding of products whose row counts differ (4
@@ -3232,6 +3243,10 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
         rlines = []
         small, small_losses = train(get_reduced("deepseek-v2-lite"),
                                     log=rlines.append, **run)
+        small_peak = [int(re.search(r"gathered_peak=(\d+)B", ln).group(1))
+                      for ln in rlines if ln.startswith("step ")]
+        small_bound = int(re.search(r"gathers at most (\d+) B",
+                                    rlines[1]).group(1))
         small = {k: sharding.full_tensor(t).cpu().numpy()
                  for k, t in named_leaves(small)}
         if rank == 0:
@@ -3266,8 +3281,8 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
         train_s = time.perf_counter() - t0
         launches = launch_counts()
         lines = [ln for _, ln in stamps]
-        held = re.search(r"holds params (\d+) B of (\d+) B, moments (\d+) B",
-                         lines[1])
+        held = re.search(r"holds params (\d+) B of (\d+) B, moments (\d+) B"
+                         r", gathers at most (\d+) B", lines[1])
         step_at = [t for t, ln in stamps if ln.startswith("step ")]
         report = {
             "rank": rank, "coordinate": mesh.get_coordinate(),
@@ -3284,6 +3299,13 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
             "exchanged_bytes_per_step": [
                 int(re.search(r"exchanged=(\d+)B", ln).group(1))
                 for ln in lines if ln.startswith("step ")],
+            "gathered_peak_bytes_per_step": [
+                int(re.search(r"gathered_peak=(\d+)B", ln).group(1))
+                for ln in lines if ln.startswith("step ")],
+            "largest_unit_bytes": int(held.group(4)),
+            "small_gathered_peak_bytes_per_step": small_peak,
+            "small_largest_unit_bytes": small_bound,
+            "gathered_alive_after_bytes": sharding.gathered_alive_bytes(),
             "s_per_step": [b - a for a, b in zip(
                 [stamps[1][0]] + step_at[:-1], step_at)],
             "train_s": train_s, "launches": launches,
@@ -3309,9 +3331,12 @@ def mesh_train_run(torch, np, dev):
     rank are within ``BF16_LOSS_REL`` of the single-device ones and ran
     data-parallel; each rank holds the parameter and float32 moment
     bytes its placements give; the sum over ranks is the whole tree's
-    bytes times each leaf's replication; and
+    bytes times each leaf's replication;
     ``topk_gating`` launched exactly once per MoE layer and step on each
-    rank, no other kernel."""
+    rank, no other kernel; no rank held more gathered bytes at once than
+    the largest unit's (``train``'s log), or any once ``train`` returned;
+    and each rank's peak device memory is below
+    ``WHOLE_TREE_MESH_PEAK_BYTES``."""
     import tempfile
     import torch.multiprocessing as mp
     from torch.multiprocessing.spawn import ProcessException
@@ -3402,6 +3427,21 @@ def mesh_train_run(torch, np, dev):
         want["topk_gating"] = n_moe * c["steps"]
         if rep["launches"] != want:
             fail(f"{label}: launches {rep['launches']}, want {want}")
+        for run_peak, bound in (
+                (rep["gathered_peak_bytes_per_step"],
+                 rep["largest_unit_bytes"]),
+                (rep["small_gathered_peak_bytes_per_step"],
+                 rep["small_largest_unit_bytes"])):
+            if not max(run_peak) <= bound:
+                fail(f"{label}: held {run_peak} B gathered at once, more "
+                     f"than the largest unit's {bound} B")
+        if rep["gathered_alive_after_bytes"] != 0:
+            fail(f"{label}: {rep['gathered_alive_after_bytes']} B of "
+                 "gathered weights alive after train returned")
+        peak = rep["max_memory_allocated_bytes"]
+        if peak is not None and not peak < WHOLE_TREE_MESH_PEAK_BYTES:
+            fail(f"{label}: peak device memory {peak} B, not below the "
+                 f"whole-tree step's {WHOLE_TREE_MESH_PEAK_BYTES} B")
     held = sum(rep["param_bytes"] for rep in ranks)
     if held != replicated:
         fail(f"mesh_train: the ranks hold {held} B of parameters, the whole "
@@ -3437,6 +3477,12 @@ def mesh_train_run(torch, np, dev):
         "s_per_step": [rep["s_per_step"] for rep in ranks],
         "exchanged_bytes_per_step": [rep["exchanged_bytes_per_step"]
                                      for rep in ranks],
+        "gathered_peak_bytes_per_step": [rep["gathered_peak_bytes_per_step"]
+                                         for rep in ranks],
+        "largest_unit_bytes": ranks[0]["largest_unit_bytes"],
+        "gathered_alive_after_bytes": [rep["gathered_alive_after_bytes"]
+                                       for rep in ranks],
+        "whole_tree_mesh_peak_bytes": WHOLE_TREE_MESH_PEAK_BYTES,
         "whole_param_bytes": whole,
         "rank_param_bytes": [rep["param_bytes"] for rep in ranks],
         "rank_moment_bytes": [rep["moment_bytes"] for rep in ranks],
@@ -4769,8 +4815,11 @@ def run(torch, guard) -> None:
         "single_losses", "rank_losses", "max_loss_diff",
         "small_max_loss_diff", "small_max_param_diff", "spawn_to_done_s",
         "rank_ready_s", "s_per_step", "exchanged_bytes_per_step",
+        "gathered_peak_bytes_per_step", "largest_unit_bytes",
+        "gathered_alive_after_bytes",
         "rank_param_bytes", "rank_moment_bytes", "sum_param_bytes",
         "replicated_param_bytes", "max_memory_allocated_bytes",
+        "whole_tree_mesh_peak_bytes",
         "rank_peak_rss_bytes", "rank_start_s", "rank_small_s",
         "launches_per_rank", "single_device_s")},
         "phase_s": phase_s["mesh_train"]}), flush=True)

@@ -1,5 +1,5 @@
-"""The data group of a sharded training step: the counterpart of the
-reference's ``repro/launch/shardctx.py``.
+"""The data group and the gathering of a sharded training step: the
+counterpart of the reference's ``repro/launch/shardctx.py``.
 
 Under ``jit`` the reference computes the loss of the whole batch however
 it is sharded. The port's sharded trainer (``launch/train.py``) gives
@@ -9,9 +9,19 @@ product of two batch means. Inside :func:`data_parallel`,
 ``models/moe.aux_load_balance_loss`` takes both as means over the whole
 batch through :func:`data_mean`; outside it nothing changes.
 
+The reference keeps its weights sharded under ``jit`` and XLA gathers
+each where it is used. The port's model code asks for each gathering
+unit (a layer's weights, the embedding, the head: ``Model.units``)
+through :func:`unit` where it uses it, as the reference's model code
+calls ``constrain_act`` at layer boundaries. Inside :func:`gathering`
+the gatherer (``launch/sharding.Gatherer``) hands out the unit's whole
+weights and the saved-tensor hooks that keep the autograd graph from
+pinning them; outside it :func:`unit` returns its argument as it is.
+
 The reference's ``constrain_act``/``constrain_qkv``/``constrain_tokens``
-are XLA layout hints; they have no counterpart while each rank computes
-on the gathered tree, and wait for tensor-parallel compute (ROADMAP).
+are XLA layout hints for tensor-parallel compute along ``"model"``; every
+rank here computes its rows with whole weights, so they have no
+counterpart yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -23,6 +33,10 @@ import torch
 import torch.distributed as dist
 
 _state = threading.local()
+# a module global, not thread-local: autograd runs a CUDA graph's
+# backward pass (and the recomputation of a checkpointed chunk, which
+# asks for its unit again) on a thread of its own
+_gatherer = None
 
 
 @contextlib.contextmanager
@@ -67,3 +81,27 @@ def data_mean(x: torch.Tensor) -> torch.Tensor:
     if not groups:
         return x
     return _AllReduceMean.apply(x, groups)
+
+
+@contextlib.contextmanager
+def gathering(gatherer):
+    """Run the ``with`` block (a loss and its backward pass) with
+    ``gatherer`` answering :func:`unit`, and its ``pack``/``unpack`` as
+    the saved-tensor hooks of the graph built inside it; ``gatherer.
+    close()`` on the way out."""
+    global _gatherer
+    prev, _gatherer = _gatherer, gatherer
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(gatherer.pack,
+                                                      gatherer.unpack):
+            yield gatherer
+    finally:
+        _gatherer = prev
+        gatherer.close()
+
+
+def unit(p):
+    """One gathering unit ``p`` (a subtree of the parameters, or a leaf)
+    as the model uses it: inside :func:`gathering`, the same tree with
+    whole tensors; outside it, ``p`` itself."""
+    return p if _gatherer is None else _gatherer.unit(p)

@@ -29,11 +29,14 @@ apply to each layer's shape.
 The port's engines stay on one card, so :func:`batch_spec`'s and
 :func:`act_sharding`'s rules and the decode-state specs have no caller on
 the card yet; the sharded trainer (``launch/train.py``) reads
-:func:`param_spec` and :func:`batch_leaf_spec`. Its exchanges are
-:func:`full_tensor` (a ``DTensor``'s whole value, by
-``dist.all_gather``) and ``dist.all_reduce``, which ``gloo``
-takes on CUDA tensors; DTensor's own functional collectives are not used
-(under ``gloo`` on the card, ``DTensor.full_tensor`` crashes the process).
+:func:`param_spec` and :func:`batch_leaf_spec`, and its step gathers
+through a :class:`Gatherer`: one unit's leaves whole at a time
+(:func:`gather_all`: ``dist.all_gather_into_tensor``, also
+:func:`full_tensor`'s route), each gradient back to this rank's slice
+(:func:`reduce_all`: ``dist.reduce_scatter`` and ``dist.all_reduce``
+over the data axes). ``gloo`` takes all three on CUDA tensors; DTensor's
+own functional collectives are not used (under ``gloo`` on the card,
+``DTensor.full_tensor`` crashes the process).
 
 Expert-parallel compute dispatch: the counterpart of the reference's
 ``expert_dispatch_ffn``, the real exchange behind the serving engines'
@@ -50,6 +53,7 @@ or ``nccl``.
 from __future__ import annotations
 
 import math
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -57,7 +61,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.kernels.expert_ffn import MAX_PAIRS, expert_ffn
 from repro_torch.launch.mesh import axis_sizes, data_axes
-from repro_torch.training.optimizer import tree_map_with_path
+from repro_torch.training.optimizer import named_leaves, tree_map_with_path
 
 
 def _axis_size(mesh, name) -> int:
@@ -167,26 +171,243 @@ def shard_params(cfg, params, mesh):
     return tree_map_with_path(shard, params)
 
 
+def _add(stats, key: str, nbytes: int) -> None:
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + nbytes
+
+
+def gather_all(locals_, mesh, places_list, stats=None) -> list:
+    """The whole tensors of this rank's shards ``locals_``, each placed by
+    its entry of ``places_list``: per sharded mesh dim, innermost first,
+    one ``dist.all_gather_into_tensor`` a tensor, all issued before any
+    is waited on (``gloo`` runs them side by side), the ranks' pieces
+    stacked along dim 0 (the whole tensor itself where the dim is 0).
+    With ``stats``, adds the bytes this rank received to
+    ``stats["gathered_bytes"]``."""
+    outs = list(locals_)
+    for k in reversed(range(mesh.ndim)):
+        group, n = mesh.get_group(k), mesh.size(k)
+        pending = []
+        for i, places in enumerate(places_list):
+            if not places[k].is_shard():
+                continue
+            src = outs[i].contiguous()
+            buf = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+            work = dist.all_gather_into_tensor(buf, src, group=group,
+                                               async_op=True)
+            pending.append((i, places[k].dim, buf, work, src))
+            _add(stats, "gathered_bytes",
+                 (n - 1) * src.numel() * src.element_size())
+        for i, dim, buf, work, _ in pending:
+            work.wait()
+            outs[i] = buf if dim == 0 else torch.cat(buf.chunk(n), dim=dim)
+    return outs
+
+
 def full_tensor(t: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
     """The whole value of a ``DTensor`` on every rank (a plain tensor is
-    returned as it is): one ``dist.all_gather`` a sharded mesh dim,
-    innermost first. With ``stats``, adds the bytes this rank
-    received to ``stats["gathered_bytes"]``."""
+    returned as it is), by :func:`gather_all`."""
     from torch.distributed.tensor import DTensor
     if not isinstance(t, DTensor):
         return t
-    mesh, out = t.device_mesh, t.to_local()
-    for k in reversed(range(mesh.ndim)):
-        pl = t.placements[k]
-        if not pl.is_shard():
-            continue
-        parts = [torch.empty_like(out) for _ in range(mesh.size(k))]
-        dist.all_gather(parts, out.contiguous(), group=mesh.get_group(k))
-        if stats is not None:
-            stats["gathered_bytes"] = stats.get("gathered_bytes", 0) + (
-                len(parts) - 1) * out.numel() * out.element_size()
-        out = torch.cat(parts, dim=pl.dim)
-    return out
+    return gather_all([t.to_local()], t.device_mesh, [t.placements],
+                      stats)[0]
+
+
+def reduce_all(grads, mesh, places_list, data_split: bool,
+               stats: dict | None = None) -> list:
+    """This rank's slices under ``places_list`` of the whole gradients
+    that the ranks computed, ``grads`` on this rank: ``local_slice`` of
+    the mean of each over the data axes when the rows went to the data
+    ranks (``data_split``), of each itself when every rank computed the
+    whole batch. Ranks along ``"model"`` compute the same rows, so their
+    dims are sliced with no exchange, first; then each data mesh dim, in
+    the mesh's order (a combined ``("pod", "data")`` dim pod-major), is
+    reduce-scattered (``dist.reduce_scatter``,
+    ``stats["reduce_scattered_bytes"]``) where a leaf is sharded on it
+    and all-reduced (``stats["reduced_bytes"]``) where it is not, every
+    gradient's exchange issued before any is waited on."""
+    coord, dp = mesh.get_coordinate(), data_axes(mesh)
+    data = [k for k in range(mesh.ndim) if mesh.mesh_dim_names[k] in dp]
+    gs = list(grads)
+    for i, places in enumerate(places_list):
+        for k, pl in enumerate(places):
+            if pl.is_shard() and (k not in data or not data_split):
+                gs[i] = gs[i].chunk(mesh.size(k), dim=pl.dim)[coord[k]]
+    if not data_split:          # copies: a view would pin the whole gradient
+        return [g.clone(memory_format=torch.contiguous_format) for g in gs]
+    for k in data:
+        group, n = mesh.get_group(k), mesh.size(k)
+        pending = []
+        for i, places in enumerate(places_list):
+            g = gs[i]
+            if places[k].is_shard():
+                parts = [c.contiguous() for c in g.chunk(n, dim=places[k].dim)]
+                out = torch.empty_like(parts[0])
+                work = dist.reduce_scatter(out, parts, group=group,
+                                           async_op=True)
+                key = "reduce_scattered_bytes"
+            else:
+                parts = out = g.clone(memory_format=torch.contiguous_format)
+                work = dist.all_reduce(out, group=group, async_op=True)
+                key = "reduced_bytes"
+            _add(stats, key, g.numel() * g.element_size())
+            pending.append((i, out, work, parts))
+        for i, out, work, _ in pending:
+            work.wait()
+            gs[i] = out
+    n_data = math.prod(mesh.size(k) for k in data)
+    return [g / n_data for g in gs]
+
+
+# bytes of the whole tensors that Gatherers handed out and that are
+# still alive in this process, over every gatherer
+_ALIVE = [0]
+
+
+def gathered_alive_bytes() -> int:
+    """Bytes of gathered whole tensors alive in this process: 0 once a
+    sharded step has returned."""
+    return _ALIVE[0]
+
+
+def _released(registry: dict, ptr: int, nbytes: int) -> None:
+    registry.pop(ptr, None)
+    _ALIVE[0] -= nbytes
+
+
+class _Saved:
+    """A saved tensor whose storage is a gathered leaf: the unit, the
+    leaf, and the view's geometry."""
+    __slots__ = ("key", "j", "size", "stride", "offset")
+
+    def __init__(self, key, j, t):
+        self.key, self.j = key, j
+        self.size, self.stride = t.size(), t.stride()
+        self.offset = t.storage_offset()
+
+
+class _GatherUnit(torch.autograd.Function):
+    """A unit's shards -> its whole tensors; the backward pass turns the
+    whole gradients into this rank's slices (:func:`reduce_all`)."""
+
+    @staticmethod
+    def forward(ctx, gatherer, key, *locals_):
+        ctx.gatherer, ctx.key = gatherer, key
+        return tuple(gatherer.whole(key, locals_))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.gatherer.reduce(ctx.key, grads))
+
+
+class Gatherer:
+    """The gathering of one sharded training step (``launch/shardctx.
+    gathering``), over ``params`` (a tree of ``DTensor``s on one mesh).
+
+    ``leaves`` are this rank's shards as autograd leaves, in
+    :func:`named_leaves` order: the step differentiates the loss with
+    respect to them, so each gradient comes out as this rank's slice.
+    :meth:`unit` gathers a unit's leaves whole (``_GatherUnit``), keeping
+    the last unit (a unit asked for again, as the head by each chunk of
+    the loss, is not gathered again) and dropping it before the next is
+    gathered. The saved-tensor hooks :meth:`pack` and :meth:`unpack`
+    keep the autograd graph from pinning gathered weights: a saved view
+    of a gathered storage becomes a handle, and the backward pass
+    gathers the handle's unit again when it first needs it, one unit at
+    a time. Each unit is then gathered at most once a pass (the
+    encoder-decoder's cross-attention, used by the memory and by its
+    layer, twice).
+
+    ``data_split``: the rows went to the data ranks, so the gradients
+    are averaged over the data axes in the backward pass. ``stats``
+    gets ``gathered_bytes``, ``reduce_scattered_bytes`` and
+    ``reduced_bytes`` (by :func:`gather_all` and :func:`reduce_all`)
+    and, on :meth:`close`, ``gathered_peak_bytes``: the most gathered
+    bytes alive at once in this process, counted when each is gathered
+    and released (``weakref.finalize``) when its storage is freed."""
+
+    def __init__(self, params, data_split: bool, stats: dict | None = None):
+        named = named_leaves(params)
+        self.mesh = named[0][1].device_mesh
+        self.data_split, self.stats = data_split, stats
+        self._index = {id(p): j for j, (_, p) in enumerate(named)}
+        self._places = [p.placements for _, p in named]
+        self.leaves = [p.to_local().detach().requires_grad_(True)
+                       for _, p in named]
+        self._storages = {}          # data_ptr -> (unit key, leaf number)
+        self._fwd = None             # (key, tree, {leaf: whole})
+        self._bwd = (None, {})       # (key, {leaf: whole})
+        self.peak = _ALIVE[0]
+
+    def _key(self, tree) -> tuple:
+        key = tuple(self._index.get(id(t), -1) for _, t in named_leaves(tree))
+        if -1 in key:
+            raise ValueError("unit: a leaf that is not one of the step's "
+                             "parameters")
+        return key
+
+    def unit(self, tree):
+        key = self._key(tree)
+        if self._fwd is not None and self._fwd[0] == key:
+            return self._fwd[1]
+        self._fwd = None              # the last unit goes before this comes
+        whole = dict(zip(key, _GatherUnit.apply(
+            self, key, *(self.leaves[j] for j in key))))
+        out = tree_map_with_path(
+            lambda _, t: whole[self._index[id(t)]], tree)
+        self._fwd = (key, out, whole)
+        return out
+
+    def whole(self, key, locals_) -> list:
+        """The whole tensors of unit ``key`` from this rank's shards
+        ``locals_``: a view of a shard that no mesh dim shards, else a
+        gathered storage, registered and counted alive."""
+        places = [self._places[j] for j in key]
+        sharded = [i for i, pl in enumerate(places)
+                   if any(p.is_shard() for p in pl)]
+        out = [t.view_as(t) for t in locals_]
+        gathered = gather_all([locals_[i].detach() for i in sharded],
+                              self.mesh, [places[i] for i in sharded],
+                              self.stats)
+        for i, t in zip(sharded, gathered):
+            st = t.untyped_storage()
+            ptr, nbytes = st.data_ptr(), st.nbytes()
+            self._storages[ptr] = (key, key[i])
+            _ALIVE[0] += nbytes
+            weakref.finalize(st, _released, self._storages, ptr, nbytes)
+            out[i] = t
+        self.peak = max(self.peak, _ALIVE[0])
+        return out
+
+    def reduce(self, key, grads) -> list:
+        return reduce_all(grads, self.mesh, [self._places[j] for j in key],
+                          self.data_split, self.stats)
+
+    def pack(self, t):
+        if t.layout != torch.strided:
+            return t
+        ent = self._storages.get(t.untyped_storage().data_ptr())
+        return t if ent is None else _Saved(ent[0], ent[1], t)
+
+    def unpack(self, h):
+        if not isinstance(h, _Saved):
+            return h
+        if self._fwd is not None and self._fwd[0] == h.key:
+            whole = self._fwd[2][h.j]
+        else:
+            if self._bwd[0] != h.key:  # the last unit goes before this comes
+                self._fwd, self._bwd = None, (None, {})
+                self._bwd = (h.key, dict(zip(h.key, self.whole(
+                    h.key, [self.leaves[j].detach() for j in h.key]))))
+            whole = self._bwd[1][h.j]
+        return whole.detach().as_strided(h.size, h.stride, h.offset)
+
+    def close(self) -> None:
+        """Drop the units still held; set ``stats["gathered_peak_bytes"]``."""
+        self._fwd, self._bwd = None, (None, {})
+        if self.stats is not None:
+            self.stats["gathered_peak_bytes"] = self.peak
 
 
 def batch_leaf_spec(global_batch: int, shape, mesh) -> tuple:

@@ -15,13 +15,16 @@ With ``save=path`` it writes the trained parameters with
 (``launch/mesh.make_production_mesh`` for ``True``; the default process
 group is the caller's): every parameter and both AdamW moments live as
 ``DTensor``s placed by the reference's rules (``launch/sharding.py``).
-Each :func:`mesh_train_step` gathers the whole tree, computes the loss
-and its gradients, averages them over the data axes and updates each
-rank's own slices. Where the rules put the batch on the data axes and
-each data rank then holds whole MoE dispatch groups, the rows are split
-over the data ranks (the load-balance loss taking its means over the
-whole batch, ``launch/shardctx.py``); otherwise every rank computes the
-whole batch. Ranks along ``"model"`` compute the same rows. The loss is
+Each :func:`mesh_train_step` gathers one unit at a time (the embedding,
+a layer, the head) where the loss uses it and again for its backward
+pass, reduce-scatters each gradient into this rank's slice, averaged
+over the data axes, and updates each rank's own slices from its own
+gradient slices: a rank holds its shards, their moments and gradient
+slices, and one gathered unit. Where the rules put the batch on the
+data axes and each data rank then holds whole MoE dispatch groups, the
+rows are split over the data ranks (the load-balance loss taking its
+means over the whole batch, ``launch/shardctx.py``); otherwise every
+rank computes the whole batch. Ranks along ``"model"`` compute the same rows. The loss is
 the reference's global loss either way.
 
 Usage::
@@ -46,7 +49,7 @@ from repro_torch.data import lm_batches, make_topic_corpus
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch import shardctx
 from repro_torch.launch.mesh import axis_sizes, data_axes, make_production_mesh
-from repro_torch.launch.sharding import (batch_leaf_spec, full_tensor,
+from repro_torch.launch.sharding import (Gatherer, batch_leaf_spec,
                                          shard_params)
 from repro_torch.models.model import build_model
 from repro_torch.models.moe import dispatch_group
@@ -127,46 +130,55 @@ def mesh_train_step(model, params, opt_update, opt_state, tokens,
                     modality=None, rows=None, stats=None):
     """One AdamW step of a sharded tree (``DTensor`` leaves, placed by
     ``sharding.shard_params``, moments by ``make_sharded_adamw``) on the
-    whole (B, T) batch, equal on every rank: every leaf is gathered
-    whole; with ``rows`` (:func:`data_rows`), this rank computes those
-    rows inside the data group and the gradients, loss and metrics are
-    averaged over the data axes; without, it computes the whole batch.
-    Each rank then updates its own slices. Returns (opt_state, loss,
-    metrics, grad_norm), the global values, detached. With ``stats``,
-    adds the bytes this rank received in gathers
-    (``stats["gathered_bytes"]``) and gave to all-reduces
-    (``stats["reduced_bytes"]``)."""
+    whole (B, T) batch, equal on every rank. The loss runs inside
+    ``shardctx.gathering``: each unit the model asks for (the embedding,
+    a layer, the head) is gathered whole where it is used and dropped
+    before the next, and gathered again for its backward pass
+    (``sharding.Gatherer``), so no rank holds the whole tree. With
+    ``rows`` (:func:`data_rows`), this rank computes those rows inside the
+    data group, each leaf's gradient is reduce-scattered over the data
+    axes into this rank's slice, averaged, and the loss and metrics are
+    averaged; without, it computes the whole batch and slices its
+    gradients. Each rank then updates its own slices from its gradient
+    slices. Returns (opt_state, loss, metrics, grad_norm), the global
+    values, detached. With ``stats``, adds the bytes this rank received
+    in gathers (``stats["gathered_bytes"]``), gave to reduce-scatters
+    (``"reduce_scattered_bytes"``) and to all-reduces
+    (``"reduced_bytes"``), and sets ``"gathered_peak_bytes"``, the most
+    gathered bytes alive at once."""
     stats = {} if stats is None else stats
     mesh = named_leaves(params)[0][1].device_mesh
-    whole = tree_map(
-        lambda t: full_tensor(t, stats).requires_grad_(True), params)
-    leaves = [t for _, t in named_leaves(whole)]
     groups = ()
     if rows is not None:
         groups = tuple(mesh.get_group(a) for a in data_axes(mesh))
         tokens = tokens[rows]
         if modality:
             modality = {k: v[rows] for k, v in modality.items()}
-    with shardctx.data_parallel(groups):
-        loss, mets = model.loss_fn(whole, {"tokens": tokens,
-                                           **(modality or {})})
-        grads = list(torch.autograd.grad(loss, leaves))
-    del whole, leaves
+    gatherer = Gatherer(params, bool(groups), stats)
+    with shardctx.data_parallel(groups), shardctx.gathering(gatherer):
+        loss, mets = model.loss_fn(params, {"tokens": tokens,
+                                            **(modality or {})})
+        grads = list(torch.autograd.grad(loss, gatherer.leaves))
     loss, mets = loss.detach(), {k: v.detach() for k, v in mets.items()}
     if groups:
         n = math.prod(dist.get_world_size(g) for g in groups)
         scalars = torch.stack([loss, *(v.to(loss.device)
                                        for v in mets.values())])
         for g in groups:
-            for t in (*grads, scalars):
-                dist.all_reduce(t, group=g)
-                stats["reduced_bytes"] = stats.get("reduced_bytes", 0) + (
-                    t.numel() * t.element_size())
-        grads = [g.div_(n) for g in grads]
+            dist.all_reduce(scalars, group=g)
+            stats["reduced_bytes"] = stats.get("reduced_bytes", 0) + (
+                scalars.numel() * scalars.element_size())
         loss, *vals = (scalars / n).unbind()
         mets = dict(zip(mets, vals))
     _, opt_state, st = opt_update(grads, opt_state, params)
     return opt_state, loss, mets, st["grad_norm"]
+
+
+EXCHANGED = ("gathered_bytes", "reduce_scattered_bytes", "reduced_bytes")
+
+
+def _whole_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in named_leaves(tree))
 
 
 def _local_bytes(tree) -> int:
@@ -208,14 +220,15 @@ def train(cfg, steps: int = 100, batch_size: int = 8, seq_len: int = 128,
                  f"data-parallel, {rows.stop - rows.start} of {batch_size} "
                  f"rows a data rank")
         log(f"{head} mesh={axis_sizes(mesh)} batch={split}")
-        whole_bytes = sum(t.numel() * t.element_size()
-                          for _, t in named_leaves(params))
+        whole_bytes = _whole_bytes(params)
+        largest = max(_whole_bytes(u) for u in model.units(params))
         params = shard_params(cfg, params, mesh)
         opt_init, opt_update = make_sharded_adamw(**sched)
         opt_state = opt_init(params)
         moments = _local_bytes(opt_state["mu"]) + _local_bytes(opt_state["nu"])
         log(f"rank {dist.get_rank()} holds params {_local_bytes(params)} B "
-            f"of {whole_bytes} B, moments {moments} B")
+            f"of {whole_bytes} B, moments {moments} B, gathers at most "
+            f"{largest} B (the largest unit)")
     corpus = make_topic_corpus(cfg.vocab_size, n_topics=8, seed=seed)
     losses = []
     t0 = time.time()
@@ -238,8 +251,9 @@ def train(cfg, steps: int = 100, batch_size: int = 8, seq_len: int = 128,
                 rows, stats)
         losses.append(loss.item())
         if i % max(1, steps // 10) == 0:
-            moved = (f" exchanged={sum(stats.values())}B" if mesh is not None
-                     else "")
+            moved = ("" if mesh is None else
+                     f" exchanged={sum(stats.get(k, 0) for k in EXCHANGED)}B"
+                     f" gathered_peak={stats['gathered_peak_bytes']}B")
             log(f"step {i:5d} loss={losses[-1]:.4f} "
                 f"xent={mets['xent'].item():.4f} gnorm={gnorm.item():.2f} "
                 f"({(time.time() - t0) / (i + 1):.2f}s/step){moved}")

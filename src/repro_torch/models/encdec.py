@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch import shardctx
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (dense_init, dtype_of, ffn_apply,
                                        ffn_init, rms_norm, rms_norm_init)
@@ -47,16 +48,20 @@ def encoder_apply(params, cfg, frames):
     dtype, projected, then every layer attending bidirectionally at
     RoPE positions 0..S-1."""
     ecfg = _enc_cfg(cfg)
-    x = frames.to(dtype_of(cfg)) @ params["in_proj"]
+    x = frames.to(dtype_of(cfg)) @ shardctx.unit(params["in_proj"])
     positions = torch.arange(x.shape[1], device=x.device)
-    for lp in params["layers"]:
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        o, _ = attn.attn_apply(lp["attn"], ecfg, "global", h, positions,
-                               "full", causal=False)
-        x = x + o
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn_apply(lp["ffn"], h, cfg.ffn_kind)
-    return rms_norm(x, params["final_ln"], cfg.norm_eps)
+    for lp in params["layers"]:     # the unit is handed on, never bound
+        x = _encoder_layer(shardctx.unit(lp), cfg, ecfg, x, positions)
+    return rms_norm(x, shardctx.unit(params["final_ln"]), cfg.norm_eps)
+
+
+def _encoder_layer(lp, cfg, ecfg, x, positions):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    o, _ = attn.attn_apply(lp["attn"], ecfg, "global", h, positions,
+                           "full", causal=False)
+    x = x + o
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + ffn_apply(lp["ffn"], h, cfg.ffn_kind)
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +80,7 @@ def decoder_init(gen, cfg, dtype, device) -> list:
 
 def cross_memory(layers, cfg, enc_out) -> list:
     """Each decoder layer's cross-attention k/v of the encoder's output."""
-    return [attn.cross_attn_memory(lp["cross_attn"], enc_out)
+    return [attn.cross_attn_memory(shardctx.unit(lp["cross_attn"]), enc_out)
             for lp in layers]
 
 
@@ -90,17 +95,24 @@ def decoder_apply(layers, cfg, x, positions, memory, mode: str, caches=None,
     mode)."""
     new_caches = []
     for i, lp in enumerate(layers):
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        o, nc = attn.attn_apply(lp["self_attn"], cfg, "global", h, positions,
-                                mode, caches[i] if mode == "decode" else None,
-                                pos, cache_len=cache_len)
-        x = x + o
-        h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
-        x = x + attn.cross_attn_apply(lp["cross_attn"], cfg, h, memory[i])
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn_apply(lp["ffn"], h, cfg.ffn_kind)
+        x, nc = _decoder_layer(shardctx.unit(lp), cfg, x, positions,
+                               memory[i], mode,
+                               caches[i] if mode == "decode" else None, pos,
+                               cache_len)
         new_caches.append(nc)
     return x, (None if mode == "full" else new_caches)
+
+
+def _decoder_layer(lp, cfg, x, positions, memory, mode, cache, pos,
+                   cache_len):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    o, nc = attn.attn_apply(lp["self_attn"], cfg, "global", h, positions,
+                            mode, cache, pos, cache_len=cache_len)
+    x = x + o
+    h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+    x = x + attn.cross_attn_apply(lp["cross_attn"], cfg, h, memory)
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + ffn_apply(lp["ffn"], h, cfg.ffn_kind), nc
 
 
 def decoder_cache_init(cfg, batch: int, cache_len: int, dtype,

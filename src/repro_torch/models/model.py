@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch import shardctx
 from repro_torch.models import encdec, transformer
 from repro_torch.models.common import dense_init, dtype_of, rms_norm
 
@@ -99,6 +100,13 @@ class Model:
         with torch.no_grad():
             return transformer.lm_init(generator, self.cfg, dev,
                                        expert_device)
+
+    def units(self, params) -> list:
+        """The gathering units of ``params`` in the order the whole-sequence
+        pass asks for them (``launch/shardctx.unit``): the embedding, each
+        layer, the head. A sharded step holds one gathered at a time."""
+        return [transformer.embed_unit(params), *params["layers"],
+                transformer.head_unit(params, self.cfg)]
 
     def forward(self, params, batch) -> torch.Tensor:
         """batch {"tokens": (B, T)[, "patches": (B, S_m, F)]} -> float32
@@ -193,8 +201,18 @@ class EncDecModel(Model):
                                    dtype, dev),
             }
 
+    def units(self, params) -> list:
+        """The gathering units in the order the whole-sequence pass asks
+        for them: the encoder's input projection, layers and final norm,
+        each decoder layer's cross-attention (its memory), ``tok_emb``,
+        the decoder's layers, ``final_ln``, ``head``."""
+        enc, dec = params["encoder"], params["decoder"]
+        return [enc["in_proj"], *enc["layers"], enc["final_ln"],
+                *(lp["cross_attn"] for lp in dec), params["tok_emb"], *dec,
+                params["final_ln"], params["head"]]
+
     def _head(self, params, h):
-        return (h @ params["head"]).float()
+        return (h @ shardctx.unit(params["head"])).float()
 
     def _memory(self, params, frames):
         enc = encdec.encoder_apply(params["encoder"], self.cfg, frames)
@@ -204,13 +222,14 @@ class EncDecModel(Model):
                       pos=0, cache_len: int = 0):
         """Embed ``tokens`` at positions ``pos``.., the decoder in
         ``mode``, the final norm. Returns (hidden, new caches)."""
-        x = params["tok_emb"][tokens.long()]
+        x = shardctx.unit(params["tok_emb"])[tokens.long()]
         b, t, _ = x.shape
         positions = (torch.arange(t, device=x.device) + pos).expand(b, t)
         x, new_caches = encdec.decoder_apply(
             params["decoder"], self.cfg, x, positions, memory, mode, caches,
             pos, cache_len)
-        return rms_norm(x, params["final_ln"], self.cfg.norm_eps), new_caches
+        return (rms_norm(x, shardctx.unit(params["final_ln"]),
+                         self.cfg.norm_eps), new_caches)
 
     def forward(self, params, batch) -> torch.Tensor:
         """batch {"tokens": (B, T), "frames": (B, S, F)} -> float32 logits

@@ -21,6 +21,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.launch import shardctx
 from repro_torch.models import attention as attn
 from repro_torch.models import mla, moe, rglru, ssd
 from repro_torch.models.common import (dense_init, dtype_of, ffn_apply,
@@ -268,8 +269,10 @@ def stack_apply(layers, cfg, x, mode: str, caches=None, pos=None,
     new_caches, extras = [], []
     for i, kind in enumerate(cfg.layer_kinds()):
         c = caches[i] if mode == "decode" else None
-        x, nc, ex = block_apply(layers[i], cfg, kind, x, mode, c, pos,
-                                cache_len)
+        # the unit is handed on, never bound here: a sharded step frees
+        # this layer's gathered weights before it gathers the next's
+        x, nc, ex = block_apply(shardctx.unit(layers[i]), cfg, kind, x,
+                                mode, c, pos, cache_len)
         new_caches.append(nc)
         extras.append(ex)
     return x, (None if mode == "full" else new_caches), extras
@@ -329,16 +332,32 @@ def embed(params, cfg, tokens, modality=None):
     the patches go through ``frontend_proj`` and are prepended to the
     token embeddings (early fusion; the vision tower itself is a stub, as
     in the reference), and ``n_prefix`` is S_m; otherwise 0."""
-    x = params["tok_emb"][tokens.long()]
+    p = shardctx.unit(embed_unit(params))
+    x = p["tok_emb"][tokens.long()]
     if modality is None or cfg.frontend != "vision":
         return x, 0
-    m = modality.to(x.dtype) @ params["frontend_proj"]
+    m = modality.to(x.dtype) @ p["frontend_proj"]
     return torch.cat([m, x], dim=1), modality.shape[1]
 
 
+def embed_unit(params) -> dict:
+    """The gathering unit of :func:`embed`: ``tok_emb``, and
+    ``frontend_proj`` where the config has a frontend."""
+    return {k: params[k] for k in ("tok_emb", "frontend_proj")
+            if k in params}
+
+
+def head_unit(params, cfg) -> dict:
+    """The gathering unit of :func:`unembed`: ``final_ln`` and the
+    output projection (``tok_emb`` when the embeddings are tied)."""
+    return {"final_ln": params["final_ln"],
+            "w": params["tok_emb" if cfg.tie_embeddings else "head"]}
+
+
 def unembed(params, cfg, x):
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    w = params["tok_emb"].T if cfg.tie_embeddings else params["head"]
+    p = shardctx.unit(head_unit(params, cfg))
+    x = rms_norm(x, p["final_ln"], cfg.norm_eps)
+    w = p["w"].T if cfg.tie_embeddings else p["w"]
     return (x @ w).float()
 
 

@@ -202,6 +202,28 @@ def make_adamw(lr: float | Callable[[str], float] = 1e-4,
     return init_fn, update_fn
 
 
+def sharded_global_norm(grads, params) -> torch.Tensor:
+    """:func:`global_norm` of the whole gradients, from each rank's slices
+    ``grads`` of the ``DTensor`` leaves ``params``: each rank sums its
+    slices' squares in float32, a leaf weighted by one over the number of
+    ranks holding the same slice (its mesh dims that replicate it), and
+    one ``dist.all_reduce`` over the default group gives every rank the
+    total."""
+    import torch.distributed as dist
+    weights = [1.0 / math.prod(p.device_mesh.size(k)
+                               for k, pl in enumerate(p.placements)
+                               if not pl.is_shard()) for p in params]
+    sq = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    for grp in _groups(grads):
+        norms = torch.stack(torch._foreach_norm(
+            [g.float() for g in grads[grp]]))
+        w = torch.tensor(weights[grp], dtype=torch.float32,
+                         device=norms.device)
+        sq = sq + torch.sum(norms * norms * w)
+    dist.all_reduce(sq)
+    return torch.sqrt(sq)
+
+
 def make_sharded_adamw(lr: float | Callable[[str], float] = 1e-4,
                        b1: float = 0.9, b2: float = 0.98, eps: float = 1e-8,
                        weight_decay: float = 0.01, clip: float = 1.0,
@@ -211,15 +233,14 @@ def make_sharded_adamw(lr: float | Callable[[str], float] = 1e-4,
 
     ``init_fn(params)`` gives both float32 moments as ``DTensor``s placed
     like their parameters, each rank holding only its slices.
-    ``update_fn(grads, state, params)`` takes the whole gradients (every
-    rank holds the same, averaged over the data axes), in
-    :func:`named_leaves` order: it clips with their global norm, each
-    element counted once, and updates this rank's slices of the
-    parameters and moments in place, term for term as
-    :func:`make_adamw`."""
+    ``update_fn(grads, state, params)`` takes this rank's slices of the
+    gradients averaged over the data axes, each shaped like its
+    parameter's ``to_local()``, in :func:`named_leaves` order (what
+    ``launch/train.mesh_train_step`` computes): it clips with the whole
+    gradients' global norm (:func:`sharded_global_norm`) and updates this
+    rank's slices of the parameters and moments in place, term for term
+    as :func:`make_adamw`."""
     from torch.distributed.tensor import DTensor
-
-    from repro_torch.launch.sharding import local_slice
     apply = _adamw_terms(lr, b1, b2, eps, weight_decay, clip, schedule)
 
     def init_fn(params):
@@ -237,11 +258,14 @@ def make_sharded_adamw(lr: float | Callable[[str], float] = 1e-4,
     @torch.no_grad()
     def update_fn(grads, state, params):
         named = named_leaves(params)
-        gnorm = global_norm(grads)
         local = [(path, p.to_local()) for path, p in named]
-        gs = [local_slice(g, p.device_mesh, p.placements)
-              for g, (_, p) in zip(grads, named)]
-        step = apply(local, gs, [m.to_local() for m in state["mu"]],
+        for g, (path, p) in zip(grads, local):
+            if g.shape != p.shape:
+                raise ValueError(f"sharded update: the gradient of {path} "
+                                 f"is {tuple(g.shape)}, its slice "
+                                 f"{tuple(p.shape)}")
+        gnorm = sharded_global_norm(grads, [p for _, p in named])
+        step = apply(local, grads, [m.to_local() for m in state["mu"]],
                      [v.to_local() for v in state["nu"]], state["step"],
                      gnorm)
         return (params, {"mu": state["mu"], "nu": state["nu"],

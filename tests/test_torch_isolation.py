@@ -38,7 +38,8 @@ def _port_files():
         for n in ("pipeline", "serve_batched", "collect_traces",
                   "train_predictor", "train_backbone", "serve_with_cache")] + [
         os.path.join(REPO, "tools", n)
-        for n in ("kernel_phase2.py", "profile_mamba_torch.py")]
+        for n in ("kernel_phase2.py", "profile_mamba_torch.py",
+                  "gloo_collectives_probe.py", "mesh_memory_probe.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files

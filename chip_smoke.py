@@ -188,8 +188,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``("data", "model")`` ``DeviceMesh``: every parameter and both AdamW
    moments sharded by the reference's rules, one unit (the embedding, a
    layer, the head) gathered at a time where the loss uses it and again
-   for its backward pass, 4 rows a data rank, each gradient
-   reduce-scattered over ``"data"`` into the rank's slice;
+   for its backward pass, the routed experts expert-parallel and the MLA
+   heads head-parallel along ``"model"`` (each rank gathering only its
+   ``"model"`` shard of them, partial outputs all-reduced over
+   ``"model"``), 4 rows a data rank, each gradient reduce-scattered over
+   ``"data"`` into the rank's slice;
    the reduced DeepSeek-V2-Lite in float32, then the checkpoint phase's
    model (full width, 2 layers, bfloat16) 2 steps at B 8 x S 1024,
    against the same runs on one device, run first; fails if a rank
@@ -197,11 +200,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gathered parameters are within 1e-5 and the bfloat16 losses within
    2^-8 relative of the single-device ones, each rank holds the bytes
    its placements give, ``topk_gating`` launched once a MoE layer and
-   step on each rank, no rank held more gathered bytes at once than the
-   largest unit's or any once ``train`` returned, and each rank's peak
-   device memory is below the whole-tree step's; reports rank start, s
-   a step, the bytes exchanged a step, the gathered peak, peak memory a
-   rank;
+   step on each rank, the routed ids of every MoE layer and step are the
+   same on the two ``"model"`` ranks of each data rank, every step's
+   gathered peak equals the largest unit as gathered (counted from the
+   specs here), no gathered bytes are alive once ``train`` returned,
+   ``model_reduced_bytes`` equals the count the shapes give, and each
+   rank's peak device memory is below the per-layer-gathering step's;
+   reports rank start, s a step, the bytes gathered, reduce-scattered
+   and all-reduced over the data axes and over ``"model"`` a step, the
+   gathered peak, peak memory a rank;
 4e. pipeline trained: the ~100M config of ``examples/train_backbone.py``
    trained 200 steps at B 8 x S 256, then 4a's steps 2-4 on it at 10% and
    20% caches, beside 4a's random-backbone table;
@@ -312,6 +319,7 @@ import gc
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3179,6 +3187,11 @@ MESH_TRAIN = dict(ranks=4, mesh=(2, 2), batch=8, seq=1024, steps=2,
 # HBM3 at 700 W, torch 2.11): allocation repeats for one torch and one
 # code path
 WHOLE_TREE_MESH_PEAK_BYTES = 10_385_082_368
+# ... and below the highest rank's peak when each rank gathered every
+# layer whole, one layer at a time, and computed all of it (8,630,632,448
+# B on an NVIDIA H100 80GB HBM3 at 700.00 W, torch 2.11): computing the
+# experts and MLA heads along "model" holds half of their buffers
+PER_LAYER_MESH_PEAK_BYTES = 8_630_632_448
 # the bf16 losses' tolerance, relative: the f32 run holds the sharded step
 # to the single-device one within f32_tol, so what is left between the
 # bf16 runs is bfloat16 rounding of products whose row counts differ (4
@@ -3196,6 +3209,29 @@ def shard_shape(shape, places, mesh_shape):
     return shape
 
 
+def model_reduced_want(cfg, rows: int, seq: int) -> int:
+    """The bytes a rank all-reduces over ``"model"`` in one step of
+    ``rows`` x ``seq`` tokens when every MLA and MoE layer computes along
+    it (``launch/shardctx.enter_model``/``leave_model``): an MLA layer's
+    input, latent and rope key (their gradients, in the model's dtype) and
+    its output (float32); a MoE layer's input (its gradient), float32
+    combine weights (their gradient) and float32 output."""
+    import torch
+    es = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    n, d, m = rows * seq, cfg.d_model, cfg.mla
+    mla = n * (d + m.kv_lora_rank + m.rope_head_dim) * es + n * d * 4
+    moe = n * d * es + n * cfg.moe.top_k * 4 + n * d * 4
+    return (cfg.num_layers * mla
+            + (cfg.num_layers - cfg.moe.first_dense_layers) * moe)
+
+
+def step_bytes(line: str) -> dict:
+    """{"gathered", "reduce_scattered", "reduced", "model_reduced"}: the
+    bytes of one of ``train``'s sharded step lines, by exchange."""
+    inner = line.split("(", 2)[2].split(")")[0]
+    return {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)B", inner)}
+
+
 def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
                     c: dict, device: str, spawned_at: float) -> None:
     """One rank of the mesh_train phase, in a process of its own: a
@@ -3204,10 +3240,9 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
     then ``launch.train.train(production_mesh=mesh)``: first the reduced
     DeepSeek-V2-Lite in float32 (its gathered parameters written by rank
     0), then full-width DeepSeek-V2-Lite at 2 layers in bfloat16 with the
-    launches counted. ``device`` is ``"cuda"`` (``"cpu"`` rehearses the
-    phase on the plain path). Writes its report to ``out_dir``."""
-    import re
-
+    launches counted; a digest of every MoE layer's routed ids a step in
+    each. ``device`` is ``"cuda"`` (``"cpu"`` rehearses the phase on the
+    plain path). Writes its report to ``out_dir``."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3216,9 +3251,18 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
     from repro_torch.kernels import build, launch_counts, reset_launch_counts
     from repro_torch.launch import sharding
     from repro_torch.launch.train import train
+    from repro_torch.models import moe
     from repro_torch.models.model import build_model
     from repro_torch.training.optimizer import named_leaves
 
+    routed, route = [], moe.route_train
+
+    def route_digest(p, cfg, x):            # what the "model" ranks compare
+        out = route(p, cfg, x)
+        routed.append(hashlib.sha256(
+            out[1].cpu().numpy().tobytes()).hexdigest())
+        return out
+    moe.route_train = route_digest
     # seconds since the spawn at each step of the rank's start
     start = {"imported": time.time() - spawned_at}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3247,6 +3291,7 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
                       for ln in rlines if ln.startswith("step ")]
         small_bound = int(re.search(r"gathers at most (\d+) B",
                                     rlines[1]).group(1))
+        small_routed, routed[:] = list(routed), []
         small = {k: sharding.full_tensor(t).cpu().numpy()
                  for k, t in named_leaves(small)}
         if rank == 0:
@@ -3302,6 +3347,12 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
             "gathered_peak_bytes_per_step": [
                 int(re.search(r"gathered_peak=(\d+)B", ln).group(1))
                 for ln in lines if ln.startswith("step ")],
+            "bytes_per_step": [step_bytes(ln) for ln in lines
+                               if ln.startswith("step ")],
+            "small_model_reduced_per_step": [
+                step_bytes(ln)["model_reduced"] for ln in rlines
+                if ln.startswith("step ")],
+            "routed": routed, "small_routed": small_routed,
             "largest_unit_bytes": int(held.group(4)),
             "small_gathered_peak_bytes_per_step": small_peak,
             "small_largest_unit_bytes": small_bound,
@@ -3333,16 +3384,19 @@ def mesh_train_run(torch, np, dev):
     bytes its placements give; the sum over ranks is the whole tree's
     bytes times each leaf's replication;
     ``topk_gating`` launched exactly once per MoE layer and step on each
-    rank, no other kernel; no rank held more gathered bytes at once than
-    the largest unit's (``train``'s log), or any once ``train`` returned;
-    and each rank's peak device memory is below
-    ``WHOLE_TREE_MESH_PEAK_BYTES``."""
+    rank, no other kernel; the two ``"model"`` ranks of each data rank
+    routed alike (every MoE layer and step, both runs); every step's
+    gathered peak equals the largest unit as gathered (``train``'s log,
+    and ``unit_gathered_bytes`` of the specs here), none alive once
+    ``train`` returned; ``model_reduced_bytes`` is
+    :func:`model_reduced_want` at every step; and each rank's peak device
+    memory is below ``PER_LAYER_MESH_PEAK_BYTES``."""
     import tempfile
     import torch.multiprocessing as mp
     from torch.multiprocessing.spawn import ProcessException
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.launch import sharding
-    from repro_torch.launch.train import train
+    from repro_torch.launch.train import train, unit_gathered_bytes
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import moe_layer_ids
     from repro_torch.training.optimizer import named_leaves
@@ -3366,8 +3420,19 @@ def mesh_train_run(torch, np, dev):
         axis_names = ("data", "model")
         shape = dict(zip(axis_names, c["mesh"]))
     replicated = 0              # sum over ranks: bytes x replication
-    for path, t in named_leaves(build_model(cfg).init(
-            torch.Generator(dev).manual_seed(SEED), device="meta")):
+    meta = build_model(cfg).init(torch.Generator(dev).manual_seed(SEED),
+                                 device="meta")
+    small_cfg = get_reduced("deepseek-v2-lite")
+    unit_want = {
+        "full": max(unit_gathered_bytes(build_model(cfg), meta, Mesh)),
+        "small": max(unit_gathered_bytes(
+            build_model(small_cfg), build_model(small_cfg).init(
+                torch.Generator(dev).manual_seed(SEED), device="meta"),
+            Mesh))}
+    rows = c["batch"] // c["mesh"][0]
+    reduced_want = {"full": model_reduced_want(cfg, rows, c["seq"]),
+                    "small": model_reduced_want(small_cfg, rows, c["seq"])}
+    for path, t in named_leaves(meta):
         spec = sharding.param_spec(path, t.shape, cfg, Mesh)
         used = {a for ax in spec if ax is not None
                 for a in (ax if isinstance(ax, tuple) else (ax,))}
@@ -3427,21 +3492,39 @@ def mesh_train_run(torch, np, dev):
         want["topk_gating"] = n_moe * c["steps"]
         if rep["launches"] != want:
             fail(f"{label}: launches {rep['launches']}, want {want}")
-        for run_peak, bound in (
-                (rep["gathered_peak_bytes_per_step"],
+        for run, run_peak, bound in (
+                ("full", rep["gathered_peak_bytes_per_step"],
                  rep["largest_unit_bytes"]),
-                (rep["small_gathered_peak_bytes_per_step"],
+                ("small", rep["small_gathered_peak_bytes_per_step"],
                  rep["small_largest_unit_bytes"])):
-            if not max(run_peak) <= bound:
-                fail(f"{label}: held {run_peak} B gathered at once, more "
-                     f"than the largest unit's {bound} B")
+            if not bound == unit_want[run] \
+                    or run_peak != [bound] * c["steps"]:
+                fail(f"{label}: held {run_peak} B gathered at once, the "
+                     f"largest unit as gathered is {bound} B in the log, "
+                     f"{unit_want[run]} B by the specs")
+        for run, got in (("full", [b["model_reduced"]
+                                   for b in rep["bytes_per_step"]]),
+                         ("small", rep["small_model_reduced_per_step"])):
+            if got != [reduced_want[run]] * c["steps"]:
+                fail(f"{label}: all-reduced {got} B over \"model\" in the "
+                     f"{run} run, the shapes give {reduced_want[run]} B")
         if rep["gathered_alive_after_bytes"] != 0:
             fail(f"{label}: {rep['gathered_alive_after_bytes']} B of "
                  "gathered weights alive after train returned")
         peak = rep["max_memory_allocated_bytes"]
-        if peak is not None and not peak < WHOLE_TREE_MESH_PEAK_BYTES:
+        if peak is not None and not peak < PER_LAYER_MESH_PEAK_BYTES:
             fail(f"{label}: peak device memory {peak} B, not below the "
-                 f"whole-tree step's {WHOLE_TREE_MESH_PEAK_BYTES} B")
+                 f"per-layer-gathering step's {PER_LAYER_MESH_PEAK_BYTES} B")
+    for rep in ranks:           # the "model" ranks of a data rank route alike
+        for other in ranks:
+            if other["coordinate"][0] != rep["coordinate"][0]:
+                continue
+            for key in ("routed", "small_routed"):
+                if not rep[key] or rep[key] != other[key]:
+                    fail(f"mesh_train: ranks {rep['rank']} and "
+                         f"{other['rank']} of one data rank routed apart "
+                         f"({key}: {len(rep[key])} and {len(other[key])} "
+                         "digests)")
     held = sum(rep["param_bytes"] for rep in ranks)
     if held != replicated:
         fail(f"mesh_train: the ranks hold {held} B of parameters, the whole "
@@ -3479,10 +3562,15 @@ def mesh_train_run(torch, np, dev):
                                      for rep in ranks],
         "gathered_peak_bytes_per_step": [rep["gathered_peak_bytes_per_step"]
                                          for rep in ranks],
+        "bytes_per_step": [rep["bytes_per_step"] for rep in ranks],
+        "model_reduced_want": reduced_want["full"],
+        "routed_digests_per_rank": len(ranks[0]["routed"]),
         "largest_unit_bytes": ranks[0]["largest_unit_bytes"],
+        "largest_unit_want": unit_want["full"],
         "gathered_alive_after_bytes": [rep["gathered_alive_after_bytes"]
                                        for rep in ranks],
         "whole_tree_mesh_peak_bytes": WHOLE_TREE_MESH_PEAK_BYTES,
+        "per_layer_mesh_peak_bytes": PER_LAYER_MESH_PEAK_BYTES,
         "whole_param_bytes": whole,
         "rank_param_bytes": [rep["param_bytes"] for rep in ranks],
         "rank_moment_bytes": [rep["moment_bytes"] for rep in ranks],
@@ -3593,12 +3681,13 @@ def pipeline_trained_run(torch, np, dev, random_table, keep):
 # a 50 us layer-compute clock), batch 1 at both of pipeline_trained's
 # caches with every launcher policy at width top-k (the simulator table's)
 # and the untrained predictor as a control, then the batched engine at the
-# 10% cache. Batch 1 serves the first 4 of the 8 held-out prompts: on an
-# H100 80GB HBM3 (700 W) the batch-1 engine runs ~55 positions/s on this
-# backbone (~23 with the learned policy's 7 predictor forwards a step), so
-# all 8 would take ~250 s
+# 10% cache. Batch 1 serves the first 3 of the 8 held-out prompts (4
+# until the phase took 175.8 s on a slow host): on an H100 80GB HBM3
+# (700 W) the batch-1 engine runs ~55 positions/s on this backbone (~23
+# with the learned policy's 7 predictor forwards a step), so all 8 would
+# take ~250 s
 SERVE = dict(layer_compute_s=50e-6, max_batch=4, block_size=8,
-             prefill_chunk=8, batch1_prompts=4)
+             prefill_chunk=8, batch1_prompts=3)
 SERVE_POLICIES = ("none", "random", "next-layer-all", "global-frequency",
                   "moe-infinity", "moe-beyond", "moe-beyond-untrained")
 SERVE_BATCHED = ("none", "moe-beyond")
@@ -4815,11 +4904,12 @@ def run(torch, guard) -> None:
         "single_losses", "rank_losses", "max_loss_diff",
         "small_max_loss_diff", "small_max_param_diff", "spawn_to_done_s",
         "rank_ready_s", "s_per_step", "exchanged_bytes_per_step",
+        "bytes_per_step", "model_reduced_want", "routed_digests_per_rank",
         "gathered_peak_bytes_per_step", "largest_unit_bytes",
-        "gathered_alive_after_bytes",
+        "largest_unit_want", "gathered_alive_after_bytes",
         "rank_param_bytes", "rank_moment_bytes", "sum_param_bytes",
         "replicated_param_bytes", "max_memory_allocated_bytes",
-        "whole_tree_mesh_peak_bytes",
+        "whole_tree_mesh_peak_bytes", "per_layer_mesh_peak_bytes",
         "rank_peak_rss_bytes", "rank_start_s", "rank_small_s",
         "launches_per_rank", "single_device_s")},
         "phase_s": phase_s["mesh_train"]}), flush=True)

@@ -1,5 +1,6 @@
-"""The data group and the gathering of a sharded training step: the
-counterpart of the reference's ``repro/launch/shardctx.py``.
+"""The data group, the gathering of a sharded training step and its
+``"model"``-parallel regions: the counterpart of the reference's
+``repro/launch/shardctx.py``.
 
 Under ``jit`` the reference computes the loss of the whole batch however
 it is sharded. The port's sharded trainer (``launch/train.py``) gives
@@ -14,13 +15,24 @@ each where it is used. The port's model code asks for each gathering
 unit (a layer's weights, the embedding, the head: ``Model.units``)
 through :func:`unit` where it uses it, as the reference's model code
 calls ``constrain_act`` at layer boundaries. Inside :func:`gathering`
-the gatherer (``launch/sharding.Gatherer``) hands out the unit's whole
-weights and the saved-tensor hooks that keep the autograd graph from
-pinning them; outside it :func:`unit` returns its argument as it is.
+the gatherer (``launch/sharding.Gatherer``) hands out the unit's weights
+and the saved-tensor hooks that keep the autograd graph from pinning
+them; outside it :func:`unit` returns its argument as it is.
 
-The reference's ``constrain_act``/``constrain_qkv``/``constrain_tokens``
-are XLA layout hints for tensor-parallel compute along ``"model"``; every
-rank here computes its rows with whole weights, so they have no
+Where the reference's specs put a MoE layer's expert dim or an MLA
+layer's head dim on ``"model"``, XLA computes each expert and head on
+the shard that owns it. The gatherer then hands out this rank's
+``"model"`` shard of those weights (``sharding.model_computed``), and
+the model computes that half as a region over the ``"model"`` group, the
+counterpart of the reference's ``constrain_qkv``/``constrain_tokens``
+hints: what enters it (:func:`enter_model`) is the same on every
+``"model"`` rank, so its gradient is the sum of the ranks' partial
+gradients (an all-reduce in the backward pass), and what leaves it
+(:func:`leave_model`) is each rank's partial sum, all-reduced in the
+forward pass. :func:`model_shard` gives this rank's index along
+``"model"`` and the axis' size. Outside :func:`gathering`, or at one
+``"model"`` rank, all three are no-ops. The sequence-sharded
+``constrain_act``/``constrain_tokens`` of ``act_sharding`` have no
 counterpart yet (ROADMAP).
 """
 from __future__ import annotations
@@ -105,3 +117,71 @@ def unit(p):
     as the model uses it: inside :func:`gathering`, the same tree with
     whole tensors; outside it, ``p`` itself."""
     return p if _gatherer is None else _gatherer.unit(p)
+
+
+def model_shard() -> tuple:
+    """(this rank's index along ``"model"``, the axis' size) inside
+    :func:`gathering`; (0, 1) outside it or at one ``"model"`` rank."""
+    m = getattr(_gatherer, "model", None)
+    return (0, 1) if m is None else (m[1], m[2])
+
+
+def _all_reduce(t: torch.Tensor, group, stats) -> torch.Tensor:
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    if stats is not None:
+        stats["model_reduced_bytes"] = stats.get("model_reduced_bytes", 0) \
+            + out.numel() * out.element_size()
+    return out
+
+
+class _EnterModel(torch.autograd.Function):
+    """Into a ``"model"``-parallel region: the identity, and the sum of
+    the ranks' partial gradients in the backward pass."""
+
+    @staticmethod
+    def forward(ctx, x, group, stats):
+        ctx.group, ctx.stats = group, stats
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group, ctx.stats), None, None
+
+
+class _LeaveModel(torch.autograd.Function):
+    """Out of a ``"model"``-parallel region: the sum of the ranks'
+    partial outputs, in float32 at least and rounded once to the
+    partial's dtype; the identity in the backward pass."""
+
+    @staticmethod
+    def forward(ctx, y, group, stats):
+        wide = torch.promote_types(y.dtype, torch.float32)
+        return _all_reduce(y.to(wide), group, stats).to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def enter_model(x: torch.Tensor) -> torch.Tensor:
+    """``x``, the same on every ``"model"`` rank, as the input of a
+    ``"model"``-parallel region: its gradient is all-reduced over
+    ``"model"`` (``stats["model_reduced_bytes"]``). ``x`` itself outside
+    :func:`gathering` or at one ``"model"`` rank."""
+    m = getattr(_gatherer, "model", None)
+    if m is None:
+        return x
+    return _EnterModel.apply(x, m[0], _gatherer.stats)
+
+
+def leave_model(y: torch.Tensor) -> torch.Tensor:
+    """This rank's partial output ``y`` of a ``"model"``-parallel region
+    as the sum over the ``"model"`` ranks (all-reduced in float32 at
+    least, ``stats["model_reduced_bytes"]``); its gradient passes as it
+    is. ``y`` itself outside :func:`gathering` or at one ``"model"``
+    rank."""
+    m = getattr(_gatherer, "model", None)
+    if m is None:
+        return y
+    return _LeaveModel.apply(y, m[0], _gatherer.stats)

@@ -9,8 +9,9 @@ None, an axis name, or a tuple of names for a combined axis):
     attention, the vocab for ``tok_emb``, else the largest trailing
     divisible dim -- and one dim on the data axes (FSDP). Scan-stacked
     leaves skip their leading group dim. :func:`placements` turns a spec
-    into one ``Shard``/``Replicate`` a mesh dim, :func:`shard_params` a
-    tree into ``DTensor``s, each rank taking its own slice.
+    into one ``Shard``/``Replicate`` a mesh dim (:func:`spec_of` back),
+    :func:`shard_params` a tree into ``DTensor``s, each rank taking its
+    own slice.
   * batches (:func:`batch_spec`): batch on the data axes; a batch of 1
     shards its sequence instead.
   * decode states (:func:`_state_leaf_spec`, :func:`shard_decode_state`)
@@ -30,13 +31,23 @@ The port's engines stay on one card, so :func:`batch_spec`'s and
 :func:`act_sharding`'s rules and the decode-state specs have no caller on
 the card yet; the sharded trainer (``launch/train.py``) reads
 :func:`param_spec` and :func:`batch_leaf_spec`, and its step gathers
-through a :class:`Gatherer`: one unit's leaves whole at a time
+through a :class:`Gatherer`: one unit's leaves at a time
 (:func:`gather_all`: ``dist.all_gather_into_tensor``, also
 :func:`full_tensor`'s route), each gradient back to this rank's slice
 (:func:`reduce_all`: ``dist.reduce_scatter`` and ``dist.all_reduce``
 over the data axes). ``gloo`` takes all three on CUDA tensors; DTensor's
 own functional collectives are not used (under ``gloo`` on the card,
 ``DTensor.full_tensor`` crashes the process).
+
+Compute along ``"model"``, as the reference's jitted step does where its
+specs put the expert dim or the head dim there: :func:`model_computed`
+names the halves whose every weight ``"model"`` shards on that dim (a
+MoE layer's routed experts, an MLA layer's head leaves). The gatherer
+gathers their leaves over the data axes only, so a rank holds its
+``"model"`` shard of them (E/n experts, H/n heads), and their gradients
+come back as that shard; the model computes those halves as
+``"model"``-parallel regions (``launch/shardctx.enter_model`` and
+``leave_model``). Every other leaf is gathered whole over every mesh dim.
 
 Expert-parallel compute dispatch: the counterpart of the reference's
 ``expert_dispatch_ffn``, the real exchange behind the serving engines'
@@ -146,6 +157,52 @@ def placements(spec, mesh) -> list:
     return out
 
 
+def spec_of(places, ndim: int, mesh) -> tuple:
+    """The spec that :func:`placements` turns into ``places`` for a
+    tensor of ``ndim`` dims: each dim's mesh axis, a tuple of them
+    where several shard it."""
+    spec = [None] * ndim
+    for name, pl in zip(axis_sizes(mesh), places):
+        if pl.is_shard():
+            ax = spec[pl.dim]
+            spec[pl.dim] = name if ax is None else (
+                (ax if isinstance(ax, tuple) else (ax,)) + (name,))
+    return tuple(spec)
+
+
+# the halves that compute along "model", by the last key of their path:
+# each leaf's dim that "model" must shard (the expert dim of the routed
+# experts; the head dim of MLA's head leaves, whose query leaf is w_q, or
+# w_uq on the q_lora_rank path)
+_MODEL_HALVES = {"moe": ({"w_gate": 0, "w_up": 0, "w_down": 0},),
+                 "attn": ({"w_q": 1, "w_uk": 1, "w_uv": 1, "wo": 0},
+                          {"w_uq": 1, "w_uk": 1, "w_uv": 1, "wo": 0})}
+
+
+def model_computed(specs: dict) -> set:
+    """The paths of the leaves that compute along ``"model"``, from
+    ``specs`` (path -> spec of every leaf of a tree): those of a MoE
+    layer's routed experts (``moe/w_gate``, ``w_up``, ``w_down``) when
+    the spec of each puts ``"model"`` on its expert dim, and those of an
+    MLA layer's head leaves (``attn/w_q`` or ``w_uq``, ``w_uk``, ``w_uv``,
+    ``wo``) when each has ``"model"`` on its head dim. Where the expert
+    or head count does not divide ``"model"``, :func:`param_spec` puts it
+    on another dim and the half is gathered whole; so is every other
+    leaf (norms, the router, ``w_dkv``, ``w_dq``, shared experts, dense
+    FFNs, the embedding, the head, every GQA attention)."""
+    halves = {}
+    for path in specs:
+        head, _, leaf = path.rpartition("/")
+        halves.setdefault(head, {})[leaf] = path
+    out = set()
+    for head, leaves in halves.items():
+        for want in _MODEL_HALVES.get(head.rpartition("/")[2], ()):
+            if all(k in leaves and specs[leaves[k]][dim] == "model"
+                   for k, dim in want.items()):
+                out.update(leaves[k] for k in want)
+    return out
+
+
 def local_slice(t: torch.Tensor, mesh, places) -> torch.Tensor:
     """This rank's slice of the whole tensor ``t`` under ``places`` (a
     view; no exchange): chunk by chunk along each sharded mesh dim, in
@@ -220,8 +277,11 @@ def reduce_all(grads, mesh, places_list, data_split: bool,
     that the ranks computed, ``grads`` on this rank: ``local_slice`` of
     the mean of each over the data axes when the rows went to the data
     ranks (``data_split``), of each itself when every rank computed the
-    whole batch. Ranks along ``"model"`` compute the same rows, so their
-    dims are sliced with no exchange, first; then each data mesh dim, in
+    whole batch. A leaf gathered whole is computed whole by every rank
+    along ``"model"``, each holding the same gradient, so its ``"model"``
+    dim is sliced with no exchange, first (a leaf that computes along
+    ``"model"`` comes with ``Replicate()`` there: its gradient is this
+    rank's shard already); then each data mesh dim, in
     the mesh's order (a combined ``("pod", "data")`` dim pod-major), is
     reduce-scattered (``dist.reduce_scatter``,
     ``stats["reduce_scattered_bytes"]``) where a leaf is sharded on it
@@ -288,8 +348,9 @@ class _Saved:
 
 
 class _GatherUnit(torch.autograd.Function):
-    """A unit's shards -> its whole tensors; the backward pass turns the
-    whole gradients into this rank's slices (:func:`reduce_all`)."""
+    """A unit's shards -> its tensors as gathered (:meth:`Gatherer.
+    whole`); the backward pass turns their gradients into this rank's
+    slices (:func:`reduce_all`)."""
 
     @staticmethod
     def forward(ctx, gatherer, key, *locals_):
@@ -308,7 +369,12 @@ class Gatherer:
     ``leaves`` are this rank's shards as autograd leaves, in
     :func:`named_leaves` order: the step differentiates the loss with
     respect to them, so each gradient comes out as this rank's slice.
-    :meth:`unit` gathers a unit's leaves whole (``_GatherUnit``), keeping
+    Where ``"model"`` has more than one rank (``model``: its group, this
+    rank's index and the size; None otherwise), a leaf that computes
+    along it (:func:`model_computed` of the specs its placements give) is
+    gathered over the data axes only and stays this rank's ``"model"``
+    shard, in the forward pass and again in the backward pass.
+    :meth:`unit` gathers a unit's leaves (``_GatherUnit``), keeping
     the last unit (a unit asked for again, as the head by each chunk of
     the loss, is not gathered again) and dropping it before the next is
     gathered. The saved-tensor hooks :meth:`pack` and :meth:`unpack`
@@ -325,14 +391,29 @@ class Gatherer:
     ``reduced_bytes`` (by :func:`gather_all` and :func:`reduce_all`)
     and, on :meth:`close`, ``gathered_peak_bytes``: the most gathered
     bytes alive at once in this process, counted when each is gathered
-    and released (``weakref.finalize``) when its storage is freed."""
+    and released (``weakref.finalize``) when its storage is freed; the
+    ``"model"``-parallel regions add ``model_reduced_bytes``."""
 
     def __init__(self, params, data_split: bool, stats: dict | None = None):
+        from torch.distributed.tensor import Replicate
         named = named_leaves(params)
         self.mesh = named[0][1].device_mesh
         self.data_split, self.stats = data_split, stats
         self._index = {id(p): j for j, (_, p) in enumerate(named)}
-        self._places = [p.placements for _, p in named]
+        names = list(axis_sizes(self.mesh))
+        km = names.index("model") if "model" in names else None
+        self.model, along = None, set()
+        if km is not None and self.mesh.size(km) > 1:
+            self.model = (self.mesh.get_group(km),
+                          self.mesh.get_local_rank(km), self.mesh.size(km))
+            along = model_computed({
+                path: spec_of(p.placements, p.ndim, self.mesh)
+                for path, p in named})
+        # the placements a leaf is gathered and reduced by: "model"
+        # replicated for a leaf that computes along it
+        self._places = [tuple(Replicate() if k == km and path in along
+                              else pl for k, pl in enumerate(p.placements))
+                        for path, p in named]
         self.leaves = [p.to_local().detach().requires_grad_(True)
                        for _, p in named]
         self._storages = {}          # data_ptr -> (unit key, leaf number)
@@ -360,9 +441,11 @@ class Gatherer:
         return out
 
     def whole(self, key, locals_) -> list:
-        """The whole tensors of unit ``key`` from this rank's shards
-        ``locals_``: a view of a shard that no mesh dim shards, else a
-        gathered storage, registered and counted alive."""
+        """The tensors of unit ``key`` as the model uses them, from this
+        rank's shards ``locals_``: a view of a shard that no mesh dim
+        shards, else a gathered storage (whole, or this rank's
+        ``"model"`` shard of a leaf that computes along it), registered
+        and counted alive."""
         places = [self._places[j] for j in key]
         sharded = [i for i, pl in enumerate(places)
                    if any(p.is_shard() for p in pl)]

@@ -24,8 +24,14 @@ slices, and one gathered unit. Where the rules put the batch on the
 data axes and each data rank then holds whole MoE dispatch groups, the
 rows are split over the data ranks (the load-balance loss taking its
 means over the whole batch, ``launch/shardctx.py``); otherwise every
-rank computes the whole batch. Ranks along ``"model"`` compute the same rows. The loss is
-the reference's global loss either way.
+rank computes the whole batch. Ranks along ``"model"`` take the same
+rows and compute along ``"model"`` where the reference's step does: a
+MoE layer's routed experts expert-parallel (E/n a rank) and an MLA
+layer's heads head-parallel (H/n a rank), each rank gathering only its
+``"model"`` shard of those weights (``launch/sharding.model_computed``)
+and the partial outputs all-reduced over ``"model"``; every other weight
+is gathered whole and computed alike on each ``"model"`` rank. The loss
+is the reference's global loss either way.
 
 Usage::
 
@@ -50,6 +56,7 @@ from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch import shardctx
 from repro_torch.launch.mesh import axis_sizes, data_axes, make_production_mesh
 from repro_torch.launch.sharding import (Gatherer, batch_leaf_spec,
+                                         model_computed, param_spec,
                                          shard_params)
 from repro_torch.models.model import build_model
 from repro_torch.models.moe import dispatch_group
@@ -143,9 +150,10 @@ def mesh_train_step(model, params, opt_update, opt_state, tokens,
     slices. Returns (opt_state, loss, metrics, grad_norm), the global
     values, detached. With ``stats``, adds the bytes this rank received
     in gathers (``stats["gathered_bytes"]``), gave to reduce-scatters
-    (``"reduce_scattered_bytes"``) and to all-reduces
-    (``"reduced_bytes"``), and sets ``"gathered_peak_bytes"``, the most
-    gathered bytes alive at once."""
+    (``"reduce_scattered_bytes"``), to all-reduces over the data axes
+    (``"reduced_bytes"``) and over ``"model"``
+    (``"model_reduced_bytes"``), and sets ``"gathered_peak_bytes"``, the
+    most gathered bytes alive at once."""
     stats = {} if stats is None else stats
     mesh = named_leaves(params)[0][1].device_mesh
     groups = ()
@@ -174,7 +182,23 @@ def mesh_train_step(model, params, opt_update, opt_state, tokens,
     return opt_state, loss, mets, st["grad_norm"]
 
 
-EXCHANGED = ("gathered_bytes", "reduce_scattered_bytes", "reduced_bytes")
+EXCHANGED = ("gathered_bytes", "reduce_scattered_bytes", "reduced_bytes",
+             "model_reduced_bytes")
+
+
+def unit_gathered_bytes(model, params, mesh) -> list:
+    """The bytes of each of ``model.units(params)`` (a whole tree) as a
+    rank of ``mesh`` gathers it: each leaf whole, but a leaf that
+    computes along ``"model"`` (``sharding.model_computed``) as its
+    ``"model"`` shard."""
+    n = axis_sizes(mesh).get("model", 1)
+    named = named_leaves(params)
+    along = model_computed({path: param_spec(path, t.shape, model.cfg,
+                                             mesh) for path, t in named})
+    size = {id(t): t.numel() * t.element_size()
+            // (n if n > 1 and path in along else 1) for path, t in named}
+    return [sum(size[id(t)] for _, t in named_leaves(u))
+            for u in model.units(params)]
 
 
 def _whole_bytes(tree) -> int:
@@ -221,14 +245,14 @@ def train(cfg, steps: int = 100, batch_size: int = 8, seq_len: int = 128,
                  f"rows a data rank")
         log(f"{head} mesh={axis_sizes(mesh)} batch={split}")
         whole_bytes = _whole_bytes(params)
-        largest = max(_whole_bytes(u) for u in model.units(params))
+        largest = max(unit_gathered_bytes(model, params, mesh))
         params = shard_params(cfg, params, mesh)
         opt_init, opt_update = make_sharded_adamw(**sched)
         opt_state = opt_init(params)
         moments = _local_bytes(opt_state["mu"]) + _local_bytes(opt_state["nu"])
         log(f"rank {dist.get_rank()} holds params {_local_bytes(params)} B "
             f"of {whole_bytes} B, moments {moments} B, gathers at most "
-            f"{largest} B (the largest unit)")
+            f"{largest} B (the largest unit as gathered)")
     corpus = make_topic_corpus(cfg.vocab_size, n_topics=8, seed=seed)
     losses = []
     t0 = time.time()
@@ -251,9 +275,11 @@ def train(cfg, steps: int = 100, batch_size: int = 8, seq_len: int = 128,
                 rows, stats)
         losses.append(loss.item())
         if i % max(1, steps // 10) == 0:
-            moved = ("" if mesh is None else
-                     f" exchanged={sum(stats.get(k, 0) for k in EXCHANGED)}B"
-                     f" gathered_peak={stats['gathered_peak_bytes']}B")
+            moved = "" if mesh is None else (
+                f" exchanged={sum(stats.get(k, 0) for k in EXCHANGED)}B ("
+                + " ".join(f"{k.removesuffix('_bytes')}={stats.get(k, 0)}B"
+                           for k in EXCHANGED)
+                + f") gathered_peak={stats['gathered_peak_bytes']}B")
             log(f"step {i:5d} loss={losses[-1]:.4f} "
                 f"xent={mets['xent'].item():.4f} gnorm={gnorm.item():.2f} "
                 f"({(time.time() - t0) / (i + 1):.2f}s/step){moved}")

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.paged_attention import paged_flash_decode
+from repro_torch.launch import shardctx
 from repro_torch.models.attention import chunk_slots, sdpa_any
 from repro_torch.models.common import (apply_rope, decode_lanes,
                                        dense_init, rms_norm, rms_norm_init)
@@ -64,7 +65,10 @@ def mla_init(gen, cfg, dtype, device):
     return p
 
 
-def _project_q(p, cfg, x, positions):
+def _project_q(p, cfg, x, positions, region: bool = False):
+    """(q_nope, q_rope) over the heads of ``w_q`` (``w_uq``); with
+    ``region``, the input of the head projection enters the ``"model"``
+    region (``w_dq`` and ``q_ln`` stay outside it)."""
     m = cfg.mla
     b, t, _ = x.shape
     if m.q_lora_rank:
@@ -72,6 +76,8 @@ def _project_q(p, cfg, x, positions):
         w_q = p["w_uq"]
     else:
         w_q = p["w_q"]
+    if region:
+        x = shardctx.enter_model(x)
     q = (x @ w_q.reshape(w_q.shape[0], -1)).reshape(b, t, w_q.shape[1],
                                                      w_q.shape[2])
     q_nope = q[..., : m.nope_head_dim]
@@ -121,20 +127,35 @@ def _mla_full(p, cfg, x, positions):
     """Causal attention over the whole sequence: per-head k/v from the
     normed latent, the rope key shared by every head, scale
     ``(nope + rope)^-0.5``. x (B,T,D), positions (B,T) -> (y (B,T,D),
-    the normed latent ckv (B,T,rank), the roped key k_rope (B,T,rr))."""
+    the normed latent ckv (B,T,rank), the roped key k_rope (B,T,rr)).
+
+    Head-parallel along ``"model"`` (a sharded step whose gatherer hands
+    out this rank's H/n heads of ``w_q``/``w_uq``, ``w_uk``, ``w_uv`` and
+    ``wo``, ``launch/sharding.model_computed``): the latent and the rope
+    key come replicated from ``w_dkv`` and enter the ``"model"`` region
+    with the queries' input; the local heads attend, and the partial
+    ``wo`` product leaves it (``launch/shardctx``)."""
     m = cfg.mla
     b, t, _ = x.shape
-    h = cfg.num_heads
-    q_nope, q_rope = _project_q(p, cfg, x, positions)
+    h = p["wo"].shape[0]                # the heads this rank computes
+    region = h != cfg.num_heads
+    q_nope, q_rope = _project_q(p, cfg, x, positions, region)
     ckv, k_rope = _project_ckv(p, cfg, x, positions)
-    k_nope = torch.einsum("btc,chn->bthn", ckv, p["w_uk"])
-    v = torch.einsum("btc,chn->bthn", ckv, p["w_uv"])
+    ckv_r, k_rope_r = ckv, k_rope
+    if region:
+        ckv_r = shardctx.enter_model(ckv)
+        k_rope_r = shardctx.enter_model(k_rope)
+    k_nope = torch.einsum("btc,chn->bthn", ckv_r, p["w_uk"])
+    v = torch.einsum("btc,chn->bthn", ckv_r, p["w_uv"])
     q = torch.cat([q_nope, q_rope], -1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+    k = torch.cat([k_nope, k_rope_r[:, :, None, :].expand(
         b, t, h, m.rope_head_dim)], -1)
     qpos = positions[0] if positions.dim() == 2 else positions
     out = sdpa_any(q, k, v, qpos, qpos, "global", cfg, causal=True)
-    return torch.einsum("bthv,hvd->btd", out, p["wo"]), ckv, k_rope
+    y = torch.einsum("bthv,hvd->btd", out, p["wo"])
+    if region:
+        y = shardctx.leave_model(y)
+    return y, ckv, k_rope
 
 
 def mla_apply(p, cfg, x, positions, mode, cache=None, pos=None, rows=None,

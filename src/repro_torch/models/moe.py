@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.expert_ffn import MAX_PAIRS, expert_ffn
 from repro_torch.kernels.topk_gating import topk_gating
+from repro_torch.launch import shardctx
 from repro_torch.launch.shardctx import data_mean
 from repro_torch.models.common import dense_init, ffn_apply, ffn_init
 
@@ -153,17 +154,36 @@ def moe_decode(p, cfg, x):
     return y, idx
 
 
+def grouped_swiglu(p, x_e):
+    """The grouped SwiGLU products of the capacity buffer: x_e (E', G*C,
+    D) against the experts ``p["w_gate"]``/``p["w_up"]`` (E', D, F) and
+    ``p["w_down"]`` (E', F, D) -> (E', G*C, D)."""
+    h = F.silu(torch.bmm(x_e, p["w_gate"])) * torch.bmm(x_e, p["w_up"])
+    return torch.bmm(h, p["w_down"])
+
+
 def moe_apply(p, cfg, x):
     """The training forward of the reference's ``moe_apply``: route, then
     dispatch every kept (token, k) pair into its expert's capacity buffer
-    ``(E, G*C, D)``, run the grouped SwiGLU products, and combine each
-    token's kept pairs by their router weights.
+    ``(E, G*C, D)``, run the grouped SwiGLU products
+    (:func:`grouped_swiglu`), and combine each token's kept pairs by
+    their router weights.
 
     Dispatch and combine go by index, one gather each way, where the
     reference multiplies by a ``(G, S*k, E, C)`` one-hot: in exact
     arithmetic both give each output as one product, and at
     DeepSeek-V2-Lite's widths the one-hot would cost ~4x the layer's
     expert work and 1.5 GB a layer kept for the backward pass.
+
+    Expert-parallel along ``"model"`` (a sharded step whose gatherer hands
+    out this rank's E/n experts, ``launch/sharding.model_computed``): the
+    routing stays replicated (the router whole, global ids, capacity and
+    queue ranks of all E experts), this rank keeps the pairs of its
+    experts ``[r E/n, (r+1) E/n)`` in an ``(E/n, G*C, D)`` buffer (another
+    rank's pair points at the zero row, as a dropped pair does), the
+    normed input and the combine weights enter a ``"model"`` region and
+    the partial combine, summed in float32, leaves it
+    (``launch/shardctx``). The shared experts stay outside it.
 
     x (B, T, D) -> (out (B, T, D), aux loss, routed ids (B, T, k))."""
     m = cfg.moe
@@ -175,21 +195,34 @@ def moe_apply(p, cfg, x):
     g, c = n // sg, capacity(cfg, sg)
     ids = idx.reshape(n, k).long()
     rank = dispatch_rank(cfg, ids, sg)
+    # this rank's experts: all E, or its E/n along "model"
+    e_loc = p["w_gate"].shape[0]
+    region = e_loc != e
+    xr, wr = x, w
+    if region:
+        ids = ids - shardctx.model_shard()[0] * e_loc
+        xr, wr = shardctx.enter_model(x), shardctx.enter_model(w)
+    keep = (rank < c) & (ids >= 0) & (ids < e_loc)
     # buffer row of each pair, expert-major: (expert, group, rank); a
-    # dropped pair points one past the end, at a zero row
+    # dropped pair, or another rank's, points one past the end, at a
+    # zero row
     group = (torch.arange(n, device=x.device) // sg)[:, None]
-    rows = e * g * c
-    slot = torch.where(rank < c, (ids * g + group) * c + rank, rows)
+    rows = e_loc * g * c
+    slot = torch.where(keep, (ids * g + group) * c + rank, rows)
     token = torch.full((rows + 1,), n, dtype=torch.long, device=x.device)
     token.scatter_(0, slot.reshape(-1),
                    torch.arange(n * k, device=x.device) // k)
-    xf = torch.cat([x.reshape(n, d), x.new_zeros(1, d)])
-    x_e = xf[token[:rows]].reshape(e, g * c, d)               # (E, G*C, D)
-    h = F.silu(torch.bmm(x_e, p["w_gate"])) * torch.bmm(x_e, p["w_up"])
-    y_e = torch.bmm(h, p["w_down"]).reshape(rows, d)
+    xf = torch.cat([xr.reshape(n, d), xr.new_zeros(1, d)])
+    x_e = xf[token[:rows]].reshape(e_loc, g * c, d)         # (E', G*C, D)
+    y_e = grouped_swiglu(p, x_e).reshape(rows, d)
     y_e = torch.cat([y_e, y_e.new_zeros(1, d)])
     y = (y_e[slot.reshape(-1)].reshape(n, k, d)
-         * w.reshape(n, k, 1).to(x.dtype)).sum(1).reshape(b, t, d)
+         * wr.reshape(n, k, 1).to(x.dtype))
+    if region:
+        y = shardctx.leave_model(y.sum(1, dtype=torch.float32)).to(x.dtype)
+    else:
+        y = y.sum(1)
+    y = y.reshape(b, t, d)
     if "shared" in p:
         y = y + ffn_apply(p["shared"], x, "swiglu")
     return y, aux, idx

@@ -6,7 +6,9 @@ CPU.
 
 4 spawned processes joined by ``gloo`` over ``file://`` rendezvous in a
 temporary directory (no port is opened) form a 2x2 ``("data", "model")``
-``DeviceMesh`` (and a 2x2x1 ``("pod", "data", "model")`` one) and run the
+``DeviceMesh`` (and a 2x2x1 ``("pod", "data", "model")`` one, and a 1x4
+``("data", "model")`` one whose ``"model"`` ranks hold 4 of the reduced
+config's 16 experts and 1 of its 4 heads each) and run the
 reduced DeepSeek-V2-Lite in float32 from weights bridged from the
 reference's ``model.init``, 2 AdamW steps (lr 3e-3, clip 1.0) at B 4 x
 T 16. With ``dispatch_group`` 16 (in both packages' configs) each data
@@ -27,8 +29,15 @@ summation order only, as
 them). The step gathers one unit at a time and hands each rank only its
 gradient slices: each rank's slices must equal the single-device
 averaged gradient's, its clip norm the whole gradient's, and no rank may
-hold more gathered bytes at once than the largest unit (at 4 layers and
-at 8 with the loss sequence-chunked) or any once the step returns. The
+hold more gathered bytes at once than the largest unit as gathered (its
+expert and MLA head leaves as the rank's ``"model"`` shard; at 4 layers
+and at 8 with the loss sequence-chunked) or any once the step returns.
+Where ``"model"`` has more than one rank, the MoE layers compute
+expert-parallel and the MLA layers head-parallel: the routed ids must be
+the same on every ``"model"`` rank and equal to one device's, a rank's
+expert buffer and attention must have E/n experts and H/n heads, and
+the only ``"model"`` exchanges of a step must be the regions' all-reduces
+(``model_reduced_bytes``, held to its formula). The
 same spawn runs the reduce-scatter helper against ``all_reduce`` and
 ``local_slice`` and one step of four other layer kinds; in-process, a
 recording gatherer checks that every architecture's ``loss_fn`` reaches
@@ -38,6 +47,7 @@ its top: the ranks import it."""
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import os
 import time
@@ -53,8 +63,11 @@ from repro_torch.configs import _ARCH_MODULES, get_reduced
 from repro_torch.data import lm_batches, make_topic_corpus
 from repro_torch.launch import sharding, shardctx
 from repro_torch.launch.train import (data_rows, mesh_train_step, train,
-                                      train_step, trainable)
+                                      train_step, trainable,
+                                      unit_gathered_bytes)
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import model as model_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.model import build_model
 from repro_torch.training import checkpoint
 from repro_torch.training.optimizer import (global_norm, make_adamw,
@@ -70,7 +83,8 @@ JOIN_TIMEOUT_S = 180.0
 # case: (mesh shape, mesh axes, dispatch group)
 CASES = {"data-parallel": ((2, 2), ("data", "model"), 16),
          "whole-batch": ((2, 2), ("data", "model"), 4096),
-         "pod-data": ((2, 2, 1), ("pod", "data", "model"), 16)}
+         "pod-data": ((2, 2, 1), ("pod", "data", "model"), 16),
+         "model-parallel": ((1, 4), ("data", "model"), 16)}
 # the depth run: one data-parallel step of the reduced config at DEEP
 # layers from seeded weights, its loss sequence-chunked (the head asked
 # for by each chunk and again by checkpoint's recomputation)
@@ -114,19 +128,95 @@ def _chunked_loss(chunk: int):
         model_mod._XENT_CHUNK_BUDGET, model_mod._XENT_CHUNK = budget, size
 
 
-def _largest_unit(model, params) -> int:
+def _largest_unit(model, params, mesh=None) -> int:
+    """The largest unit's bytes: whole, or as a rank of ``mesh`` gathers
+    it."""
+    if mesh is not None:
+        return max(unit_gathered_bytes(model, params, mesh))
     return max(sum(t.numel() * t.element_size() for _, t in named_leaves(u))
                for u in model.units(params))
+
+
+@contextlib.contextmanager
+def _recording(routed: list, buffers: list, heads: list):
+    """Append each MoE layer's routed ids to ``routed``, the expert count
+    of each capacity buffer and its weights to ``buffers`` and the head
+    count each MLA attention computes to ``heads``."""
+    route, swiglu, sdpa = (moe_mod.route_train, moe_mod.grouped_swiglu,
+                           mla_mod.sdpa_any)
+
+    def route_rec(p, cfg, x):
+        out = route(p, cfg, x)
+        routed.append(out[1].detach().clone())
+        return out
+
+    def swiglu_rec(p, x_e):
+        buffers.append([x_e.shape[0], p["w_gate"].shape[0],
+                        p["w_down"].shape[0]])
+        return swiglu(p, x_e)
+
+    def sdpa_rec(q, *args, **kw):
+        heads.append(q.shape[2])
+        return sdpa(q, *args, **kw)
+
+    moe_mod.route_train, moe_mod.grouped_swiglu = route_rec, swiglu_rec
+    mla_mod.sdpa_any = sdpa_rec
+    try:
+        yield
+    finally:
+        moe_mod.route_train, moe_mod.grouped_swiglu = route, swiglu
+        mla_mod.sdpa_any = sdpa
+
+
+@contextlib.contextmanager
+def _collectives(out: list):
+    """Append (kind, the group's ranks (None for the default group, the
+    clip norm's), shape, bytes) of every ``all_reduce``,
+    ``reduce_scatter`` and ``all_gather_into_tensor`` to ``out``."""
+    real = {k: getattr(dist, k) for k in ("all_reduce", "reduce_scatter",
+                                          "all_gather_into_tensor")}
+
+    def wrap(kind):
+        def call(*args, group=None, **kw):
+            ts = (args[1] if kind == "reduce_scatter" else
+                  [args[kind == "all_gather_into_tensor"]])
+            out.append([kind, None if group is None else
+                        dist.get_process_group_ranks(group),
+                        list(ts[0].shape),
+                        sum(t.numel() * t.element_size() for t in ts)])
+            return real[kind](*args, group=group, **kw)
+        return call
+    for k in real:
+        setattr(dist, k, wrap(k))
+    try:
+        yield
+    finally:
+        for k, f in real.items():
+            setattr(dist, k, f)
+
+
+def model_reduced_formula(cfg, rows: int, t: int) -> int:
+    """The bytes a rank all-reduces over ``"model"`` in one step of
+    ``rows`` x ``t`` tokens when every MoE and MLA layer computes along
+    it: an MLA layer's input, latent and rope key (their gradients) and
+    its output in float32; a MoE layer's input and float32 combine
+    weights (their gradients) and its float32 output."""
+    es = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    n, d, m = rows * t, cfg.d_model, cfg.mla
+    mla = n * (d + m.kv_lora_rank + m.rope_head_dim) * es + n * d * 4
+    moe = n * d * es + n * cfg.moe.top_k * 4 + n * d * 4
+    n_moe = cfg.num_layers - cfg.moe.first_dense_layers
+    return cfg.num_layers * mla + n_moe * moe
 
 
 def _deep_step(mesh=None):
     """One step of the depth run (sharded on ``mesh``, else on one
     device): (loss, grad_norm, stats, gathered bytes alive after it,
-    the largest unit's bytes)."""
+    the largest unit's bytes as gathered)."""
     cfg = _cfg(get_reduced, 16).replace(num_layers=DEEP)
     model = build_model(cfg)
     whole = model.init(torch.Generator().manual_seed(0), device="cpu")
-    largest = _largest_unit(model, whole)
+    largest = _largest_unit(model, whole, mesh)
     tokens = torch.from_numpy(_batches(cfg.vocab_size)[0])
     stats = {}
     with _chunked_loss(DEEP_CHUNK):
@@ -147,9 +237,12 @@ def _deep_step(mesh=None):
 
 # other layer kinds through train(production_mesh=), one step each on
 # the ("data", "model") mesh: the encoder-decoder (its cross-attention a
-# unit of its own for the memory), a vision prefix, SSD and RG-LRU stacks
+# unit of its own for the memory), a vision prefix, SSD and RG-LRU stacks,
+# expert-parallel MoE beside gathered GQA attention (Scout) and the
+# q_lora_rank MLA path (236B)
 OTHER_ARCHS = ("seamless-m4t-large-v2", "pixtral-12b", "mamba2-130m",
-               "recurrentgemma-9b")
+               "recurrentgemma-9b", "llama4-scout-17b-a16e",
+               "deepseek-v2-236b")
 
 
 # (name, mesh, spec) of the reduce-scatter helper's checks: a 2-rank data
@@ -235,14 +328,20 @@ def _rank(rank, world, rendezvous, out_dir, ref_tree):
                     "equal": bool(torch.equal(p.to_local(), want))})
             rows = data_rows(cfg, mesh, B, T)
             losses, grads, norms, steps = [], [], [], []
-            for tokens in _batches(cfg.vocab_size):
+            routed, buffers, heads, exchanges = [], [], [], []
+            for i, tokens in enumerate(_batches(cfg.vocab_size)):
                 stats = {}
-                state, loss, mets, gnorm = mesh_train_step(
-                    model, params, _capturing(update_fn, grads, norms),
-                    state, torch.from_numpy(tokens), rows=rows, stats=stats)
+                with _recording(routed, buffers, heads), _collectives(
+                        exchanges if i == 0 else []):
+                    state, loss, mets, gnorm = mesh_train_step(
+                        model, params, _capturing(update_fn, grads, norms),
+                        state, torch.from_numpy(tokens), rows=rows,
+                        stats=stats)
                 losses.append(loss.item())
                 steps.append({"stats": stats, "grad_norm": gnorm.item(),
                               "alive": sharding.gathered_alive_bytes()})
+            np.savez(os.path.join(out_dir, f"routed_{name}_{rank}.npz"),
+                     *[r.numpy() for r in routed])
             after = [(path, list(p.to_local().shape))
                      for path, p in named_leaves(params)]
             full = {k: sharding.full_tensor(t) for k, t in
@@ -252,7 +351,12 @@ def _rank(rank, world, rendezvous, out_dir, ref_tree):
                 "rows": None if rows is None else [rows.start, rows.stop],
                 "coordinate": mesh.get_coordinate(), "steps": steps,
                 "update_norms": norms,
-                "largest_unit": _largest_unit(model, whole),
+                "largest_unit": _largest_unit(model, whole, mesh),
+                "whole_largest_unit": _largest_unit(model, whole),
+                "buffers": buffers, "heads": heads,
+                "exchanges": exchanges,
+                "model_ranks": dist.get_process_group_ranks(
+                    mesh.get_group("model")),
                 "slice_shapes": [[list(g.shape) for g in step]
                                  for step in grads],
                 "dtensor_full_equal": all(
@@ -362,7 +466,15 @@ def _spawn(out_dir, ref_tree):
     slices = {name: [dict(np.load(os.path.join(out_dir,
                                                f"slices_{name}_{r}.npz")))
                      for r in range(WORLD)] for name in CASES}
-    return ranks, gathered, slices
+    routed = {}
+    for name in CASES:
+        routed[name] = []
+        for r in range(WORLD):
+            with np.load(os.path.join(out_dir,
+                                      f"routed_{name}_{r}.npz")) as f:
+                routed[name].append([f[f"arr_{i}"]
+                                     for i in range(len(f.files))])
+    return ranks, gathered, slices, routed
 
 
 @pytest.fixture(scope="module")
@@ -383,8 +495,8 @@ def run(tmp_path_factory):
         ref_tree = jax.tree.map(np.asarray, r_build_model(rcfg0).init(
             jax.random.PRNGKey(0)))
         out = tmp_path_factory.mktemp("mesh_train")
-        ranks, gathered, slices = _spawn(str(out), ref_tree)
-        single, reference, replayed = {}, {}, {}
+        ranks, gathered, slices, routed = _spawn(str(out), ref_tree)
+        single, reference, replayed, single_routed = {}, {}, {}, {}
         for group in sorted({g for _, _, g in CASES.values()}):
             cfg = _cfg(get_reduced, group)
             model = build_model(cfg)
@@ -392,10 +504,12 @@ def run(tmp_path_factory):
                 cfg, ref_tree, device="cpu"))
             init_fn, update_fn = make_adamw(lr=LR, clip=1.0)
             state, losses, grads, norms = init_fn(params), [], [], []
+            ids = single_routed[group] = []
             for tokens in _batches(cfg.vocab_size):
-                state, loss, _, gnorm = train_step(
-                    model, params, leaves, _capturing(update_fn, grads),
-                    state, torch.from_numpy(tokens))
+                with _recording(ids, [], []):
+                    state, loss, _, gnorm = train_step(
+                        model, params, leaves, _capturing(update_fn, grads),
+                        state, torch.from_numpy(tokens))
                 losses.append(loss.item())
                 norms.append(gnorm.item())
             single[group] = (losses, [g.numpy() for g in grads[0]], norms)
@@ -440,6 +554,7 @@ def run(tmp_path_factory):
             for k, v in gathered["data-parallel"].items()
             if not k.startswith("grad")})
         yield dict(ranks=ranks, gathered=gathered, single=single,
+                   routed=routed, single_routed=single_routed,
                    replayed=replayed, reference=reference, seeded=seeded,
                    seeded_lines=seeded_lines, out=out,
                    single_save=single_save, deep=deep, slices=slices,
@@ -499,6 +614,7 @@ def test_rows_go_to_data_ranks_only_as_whole_groups(run):
         assert cases["whole-batch"]["rows"] is None
         p, d, _ = cases["pod-data"]["coordinate"]
         assert cases["pod-data"]["rows"] == [2 * p + d, 2 * p + d + 1]
+        assert cases["model-parallel"]["rows"] == [0, 4]
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -626,17 +742,22 @@ def test_grad_norm_matches_single_device(run, case):
 
 def test_gathered_peak_is_one_unit_at_any_depth(run):
     """A rank never holds more gathered bytes at once than the largest
-    unit (one MoE layer): in every case and step at the reduced config's
-    4 layers, and at 8 with the loss sequence-chunked (the head asked for
+    unit as gathered (one MoE layer, its routed experts and MLA head
+    leaves as the rank's ``"model"`` shard where ``"model"`` has more
+    than one rank): in every case and step at the reduced config's 4
+    layers, and at 8 with the loss sequence-chunked (the head asked for
     by each chunk and by checkpoint's recomputation), whose loss and norm
     stay the single-device ones. ``train``'s log prints the peak and its
     bound."""
     largest = run["ranks"][0]["cases"]["data-parallel"]["largest_unit"]
+    whole = run["ranks"][0]["cases"]["data-parallel"]["whole_largest_unit"]
     for rep in run["ranks"]:
-        for c in rep["cases"].values():
-            assert c["largest_unit"] == largest
+        for name, c in rep["cases"].items():
+            n_model = CASES[name][0][-1]
+            assert c["whole_largest_unit"] == whole
+            assert (c["largest_unit"] < whole) == (n_model > 1)
             assert [s["stats"]["gathered_peak_bytes"] for s in c["steps"]] \
-                == [largest] * STEPS
+                == [c["largest_unit"]] * STEPS
         deep = rep["deep"]
         assert deep["largest_unit"] == largest
         assert deep["stats"]["gathered_peak_bytes"] == largest
@@ -764,3 +885,131 @@ def test_every_leaf_is_gathered_through_a_unit(arch):
     assert torch.equal(loss, want_loss)
     for a, b in zip(got, want):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+def _model_peers(rep, case):
+    """The ranks of ``rep``'s ``"model"`` group in ``case``."""
+    return rep["cases"][case]["model_ranks"]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_model_ranks_route_alike_and_as_one_device(run, case):
+    """Every MoE layer's routed ids, at every step, are the same on each
+    ``"model"`` rank of a data rank, and at the first step (the same
+    weights) equal to one device's on the rank's rows."""
+    routed = run["routed"][case]
+    want = run["single_routed"][CASES[case][2]]
+    n_moe = len(want) // STEPS
+    for r, rep in enumerate(run["ranks"]):
+        assert len(routed[r]) == len(want)
+        for peer in _model_peers(rep, case):
+            for a, b in zip(routed[r], routed[peer]):
+                np.testing.assert_array_equal(a, b)
+        rows = rep["cases"][case]["rows"]
+        sel = slice(None) if rows is None else slice(*rows)
+        for a, b in zip(routed[r][:n_moe], want[:n_moe]):
+            np.testing.assert_array_equal(a, b.numpy()[sel])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_each_rank_computes_its_experts_and_heads(run, case):
+    """A rank's capacity buffer and expert weights hold E/n of the
+    reduced config's 16 experts and its MLA attention H/n of 4 heads,
+    n the ``"model"`` axis' size (16 and 4 where it is 1)."""
+    cfg = get_reduced(ARCH)
+    n = CASES[case][0][-1]
+    e, h = cfg.moe.num_experts // n, cfg.num_heads // n
+    for rep in run["ranks"]:
+        c = rep["cases"][case]
+        assert c["buffers"] and all(b == [e, e, e] for b in c["buffers"])
+        assert c["heads"] and set(c["heads"]) == {h}
+
+
+def test_model_leaf_gradients_need_no_model_exchange(run):
+    """At ``"model"`` 4, the only exchanges of a step on the ``"model"``
+    group are the gathers of the leaves gathered whole and the regions'
+    all-reduces of activations and their gradients; no reduce-scatter or
+    gradient-sized all-reduce runs there, so each expert and MLA head
+    leaf's gradient comes back from the rank's own compute as its shard
+    (equal to the single-device slice:
+    ``test_gradient_slices_equal_single_device_slices``)."""
+    cfg = get_reduced(ARCH)
+    for rep in run["ranks"]:
+        c = rep["cases"]["model-parallel"]
+        peers = c["model_ranks"]
+        on_model = [x for x in c["exchanges"] if x[1] == peers]
+        kinds = {x[0] for x in on_model}
+        assert kinds == {"all_gather_into_tensor", "all_reduce"}
+        reduced = [x for x in on_model if x[0] == "all_reduce"]
+        assert all(x[2][-1] in (cfg.d_model, cfg.mla.kv_lora_rank,
+                                cfg.mla.rope_head_dim, cfg.moe.top_k)
+                   and math.prod(x[2][:-1]) == B * T for x in reduced)
+        n_moe = cfg.num_layers - cfg.moe.first_dense_layers
+        assert len(reduced) == 4 * cfg.num_layers + 3 * n_moe
+        assert sum(x[3] for x in reduced) == \
+            c["steps"][0]["stats"]["model_reduced_bytes"]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_model_reduced_bytes_match_formula(run, case):
+    """``model_reduced_bytes`` is, at every step, the formula's count for
+    the rank's rows (absent at one ``"model"`` rank), and ``train``'s
+    step lines count it in ``exchanged``."""
+    cfg = get_reduced(ARCH)
+    for rep in run["ranks"]:
+        c = rep["cases"][case]
+        rows = B if c["rows"] is None else c["rows"][1] - c["rows"][0]
+        want = (model_reduced_formula(cfg, rows, T)
+                if CASES[case][0][-1] > 1 else None)
+        assert [s["stats"].get("model_reduced_bytes") for s in c["steps"]] \
+            == [want] * STEPS
+
+
+class _StandIn:
+    """A mesh the rules read: axis names and sizes."""
+
+    def __init__(self, **shape):
+        self.axis_names, self.shape = tuple(shape), shape
+
+
+@pytest.mark.parametrize("n_model", [1, 2, 3, 4])
+def test_rule_computes_along_model_only_where_it_divides(n_model):
+    """``sharding.model_computed`` names every expert and MLA head leaf of
+    the reduced config (16 experts, 4 heads) where ``"model"`` divides
+    both counts, and none where it divides neither (3: the halves are
+    gathered whole); never the router, the latent, the shared experts,
+    the dense FFN, the norms, the embedding or the head. 236B's
+    ``q_lora_rank`` path takes ``w_uq``, not ``w_dq``."""
+    for arch, heads in ((ARCH, "w_q"), ("deepseek-v2-236b", "w_uq")):
+        cfg = get_reduced(arch)
+        mesh = _StandIn(data=2, model=n_model)
+        tree = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                     device="meta")
+        specs = {path: sharding.param_spec(path, t.shape, cfg, mesh)
+                 for path, t in named_leaves(tree)}
+        got = sharding.model_computed(specs)
+        divides = (cfg.moe.num_experts % n_model == 0
+                   and cfg.num_heads % n_model == 0)
+        want = set()
+        if divides:
+            for i in range(cfg.num_layers):
+                want |= {f"layers/{i}/attn/{k}"
+                         for k in (heads, "w_uk", "w_uv", "wo")}
+                if i >= cfg.moe.first_dense_layers:
+                    want |= {f"layers/{i}/moe/{k}"
+                             for k in ("w_gate", "w_up", "w_down")}
+        assert got == want, (arch, n_model)
+
+
+def test_regions_are_identities_outside_gathering():
+    """Outside ``shardctx.gathering`` (serving, one device) the region
+    boundaries hand back their argument and its gradient unchanged, and
+    this rank is ``"model"`` index 0 of 1."""
+    x = torch.randn(3, 4, requires_grad=True)
+    assert shardctx.enter_model(x) is x
+    assert shardctx.leave_model(x) is x
+    assert shardctx.model_shard() == (0, 1)
+    g = torch.randn(3, 4)
+    (got,) = torch.autograd.grad(shardctx.leave_model(
+        shardctx.enter_model(x)), x, g)
+    assert torch.equal(got, g)

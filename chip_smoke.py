@@ -75,8 +75,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``PrefixStats``, and, with telemetry on at both sides, its
    deterministic content (``telemetry_content``);
 3b. serve workload: main run 1's backbone (full width, bfloat16, its
-   routed experts pinned once in place) cut to its first 14 of 27 layers
-   (1 dense, 13 MoE, 83 slots: a 10% cache) serving 8
+   routed experts pinned once in place) cut to its first 4 of 27 layers
+   (1 dense, 3 MoE, 24 slots: a 10% cache, floored at 4 x top-k) serving 8
    priority-1 requests that share a 64-token system prompt (32 new tokens
    each) and 2 priority-0 ones (8 new) arriving at 0.25 and 0.5 of a
    closed-loop run of the same requests, through ``run_workload`` with
@@ -188,27 +188,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``("data", "model")`` ``DeviceMesh``: every parameter and both AdamW
    moments sharded by the reference's rules, one unit (the embedding, a
    layer, the head) gathered at a time where the loss uses it and again
-   for its backward pass, the routed experts expert-parallel and the MLA
-   heads head-parallel along ``"model"`` (each rank gathering only its
+   for its backward pass, the routed experts expert-parallel, the MLA
+   and GQA heads head-parallel and the embedding, head and loss
+   vocabulary-parallel along ``"model"`` (each rank gathering only its
    ``"model"`` shard of them, partial outputs all-reduced over
    ``"model"``), 4 rows a data rank, each gradient reduce-scattered over
    ``"data"`` into the rank's slice;
    the reduced DeepSeek-V2-Lite in float32, then the checkpoint phase's
-   model (full width, 2 layers, bfloat16) 2 steps at B 8 x S 1024,
-   against the same runs on one device, run first; fails if a rank
-   raises, dies or outlasts its timeout, unless the float32 losses and
+   model (full width, 2 layers, bfloat16) 2 steps at B 8 x S 1024, then
+   the same two runs of internlm2-1.8b (GQA, untied head), against the
+   same runs on one device, run first; fails if a rank raises, dies or
+   outlasts its timeout, unless, for each model, the float32 losses and
    gathered parameters are within 1e-5 and the bfloat16 losses within
    2^-8 relative of the single-device ones, each rank holds the bytes
    its placements give, ``topk_gating`` launched once a MoE layer and
-   step on each rank, the routed ids of every MoE layer and step are the
-   same on the two ``"model"`` ranks of each data rank, every step's
-   gathered peak equals the largest unit as gathered (counted from the
-   specs here), no gathered bytes are alive once ``train`` returned,
-   ``model_reduced_bytes`` equals the count the shapes give, and each
-   rank's peak device memory is below the per-layer-gathering step's;
-   reports rank start, s a step, the bytes gathered, reduce-scattered
-   and all-reduced over the data axes and over ``"model"`` a step, the
-   gathered peak, peak memory a rank;
+   step on each rank (none for internlm2), the routed ids of every MoE
+   layer and step are the same on the two ``"model"`` ranks of each data
+   rank, every step's gathered peak equals the largest unit as gathered
+   (counted from the specs here), no gathered bytes are alive once
+   ``train`` returned, ``model_reduced_bytes`` equals the count the
+   shapes give, each rank computed with its vocabulary shard (and
+   internlm2 with its query and KV head shards), and each rank's peak
+   device memory is below the per-layer-gathering step's
+   (DeepSeek-V2-Lite's below the step's that gathered the embedding and
+   head whole); reports rank start, s a step, the bytes gathered,
+   reduce-scattered and all-reduced over the data axes and over
+   ``"model"`` a step, the gathered peak, peak memory a rank, for both
+   models on one line;
 4e. pipeline trained: the ~100M config of ``examples/train_backbone.py``
    trained 200 steps at B 8 x S 256, then 4a's steps 2-4 on it at 10% and
    20% caches, beside 4a's random-backbone table;
@@ -1605,13 +1611,14 @@ def parity_run_236b(torch, np, dev):
 # step or prefill chunk); ``serve_workload`` serves a shared system prompt
 # to two priority classes through ``run_workload`` on the real clock
 WORKLOAD_DT = 1.0
-# serve_workload serves the first 14 of main run 1's 27 layers (1 dense,
-# 13 MoE; all 27 until the examples_cli phase needed the time): every
-# check it makes is structural, and its time scales with the MoE layers
+# serve_workload serves the first 4 of main run 1's 27 layers (1 dense,
+# 3 MoE; all 27 until the examples_cli phase needed the time, 14 until
+# mesh_train's second model did): every check it makes is structural,
+# and its time scales with the MoE layers
 WORKLOAD = dict(background=8, urgent=2, system=64, suffix=12, max_new=32,
                 urgent_max_new=8, arrivals=(0.25, 0.5), max_batch=4,
                 block_size=8, prefill_chunk=8, cache_len=128,
-                urgent_ttft_share=0.1, layers=14)
+                urgent_ttft_share=0.1, layers=4)
 
 
 def parity_run_workload(torch, np, dev):
@@ -3178,9 +3185,12 @@ def dispatch_run(torch, np, dev):
 # the mesh_train phase: 4 ranks sharing the card as a 2x2 ("data",
 # "model") mesh train the checkpoint phase's model (full-width
 # DeepSeek-V2-Lite, 2 layers, its seed and lr) 2 steps at B 8 x S 1024:
-# 4 rows a data rank, one whole dispatch group of 4,096 tokens
+# 4 rows a data rank, one whole dispatch group of 4,096 tokens; then, in
+# the same spawn, full-width internlm2-1.8b (GQA, an untied head) at the
+# same depth, steps, batch and seed
 MESH_TRAIN = dict(ranks=4, mesh=(2, 2), batch=8, seq=1024, steps=2,
-                  timeout_s=300.0, f32_tol=1e-5)
+                  timeout_s=300.0, f32_tol=1e-5,
+                  archs=("deepseek-v2-lite", "internlm2-1.8b"))
 # each rank's peak device memory in the mesh_train phase must stay below
 # the highest rank's peak when every rank gathered the whole tree and
 # all-reduced whole gradients (10,385,082,368 B on an NVIDIA H100 80GB
@@ -3192,6 +3202,11 @@ WHOLE_TREE_MESH_PEAK_BYTES = 10_385_082_368
 # B on an NVIDIA H100 80GB HBM3 at 700.00 W, torch 2.11): computing the
 # experts and MLA heads along "model" holds half of their buffers
 PER_LAYER_MESH_PEAK_BYTES = 8_630_632_448
+# ... and DeepSeek-V2-Lite's below the highest rank's peak when the
+# experts and MLA heads computed along "model" but every rank formed the
+# whole vocabulary's logits (7,907,950,592 B on an NVIDIA H100 80GB HBM3
+# at 700.00 W, torch 2.11): a vocabulary shard halves the logits chunk
+MODEL_PARALLEL_MESH_PEAK_BYTES = 7_907_950_592
 # the bf16 losses' tolerance, relative: the f32 run holds the sharded step
 # to the single-device one within f32_tol, so what is left between the
 # bf16 runs is bfloat16 rounding of products whose row counts differ (4
@@ -3211,18 +3226,49 @@ def shard_shape(shape, places, mesh_shape):
 
 def model_reduced_want(cfg, rows: int, seq: int) -> int:
     """The bytes a rank all-reduces over ``"model"`` in one step of
-    ``rows`` x ``seq`` tokens when every MLA and MoE layer computes along
-    it (``launch/shardctx.enter_model``/``leave_model``): an MLA layer's
-    input, latent and rope key (their gradients, in the model's dtype) and
-    its output (float32); a MoE layer's input (its gradient), float32
-    combine weights (their gradient) and float32 output."""
+    ``rows`` x ``seq`` tokens when every attention and MoE layer and the
+    vocabulary compute along it (``launch/shardctx.enter_model``,
+    ``leave_model``, ``model_max``; the mesh's ``"model"`` 2 divides the
+    heads, KV heads, experts and vocabulary of both models, reduced and
+    full): an MLA layer's input, latent and rope key (their gradients, in
+    the model's dtype) and its output (float32); a GQA layer's input (its
+    gradient) and output (float32); a MoE layer's input (its gradient),
+    float32 combine weights (their gradient) and float32 output; the
+    embedding's float32 sum; over the ``rows`` x (``seq`` - 1) scored
+    tokens, the head input's gradient and the loss's three float32
+    statistics (the maximum logit, the sum of exponentials, the target's
+    logit), twice where the loss is sequence-chunked (checkpoint's
+    recomputation runs them again)."""
     import torch
+    from repro_torch.models.model import _XENT_CHUNK_BUDGET
+    from repro_torch.models.transformer import GQA_KINDS, moe_layer_ids
     es = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
-    n, d, m = rows * seq, cfg.d_model, cfg.mla
-    mla = n * (d + m.kv_lora_rank + m.rope_head_dim) * es + n * d * 4
-    moe = n * d * es + n * cfg.moe.top_k * 4 + n * d * 4
-    return (cfg.num_layers * mla
-            + (cfg.num_layers - cfg.moe.first_dense_layers) * moe)
+    n, d, m = rows * seq, cfg.d_model, rows * (seq - 1)
+    total = 0
+    for kind in cfg.layer_kinds():
+        if kind == "mla":
+            total += n * (d + cfg.mla.kv_lora_rank
+                          + cfg.mla.rope_head_dim) * es + n * d * 4
+        elif kind in GQA_KINDS:
+            total += n * d * es + n * d * 4
+    if cfg.moe is not None:
+        total += len(moe_layer_ids(cfg)) * (
+            n * d * es + n * cfg.moe.top_k * 4 + n * d * 4)
+    chunked = m * cfg.vocab_size > _XENT_CHUNK_BUDGET
+    return total + n * d * 4 + m * d * es + 3 * 4 * m * (2 if chunked else 1)
+
+
+def mesh_unit_shapes(cfg, n_model: int) -> dict:
+    """The shapes a ``"model"`` rank computes with, gathered: this rank's
+    vocabulary shard of ``tok_emb`` and of the head (``w`` of the head
+    unit), and of a GQA model's query, KV and output head leaves."""
+    d, v = cfg.d_model, cfg.vocab_size // n_model
+    want = {"tok_emb": [v, d], "w": [d, v]}
+    if cfg.mla is None:
+        h, kvh = cfg.num_heads // n_model, cfg.num_kv_heads // n_model
+        want.update({"attn/wq": [d, h, cfg.hd], "attn/wk": [d, kvh, cfg.hd],
+                     "attn/wv": [d, kvh, cfg.hd], "attn/wo": [h, cfg.hd, d]})
+    return want
 
 
 def step_bytes(line: str) -> dict:
@@ -3237,19 +3283,22 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
     """One rank of the mesh_train phase, in a process of its own: a
     ``gloo`` group over ``file://`` rendezvous (NCCL refuses two ranks on
     one card), a 2x2 ``("data", "model")`` ``DeviceMesh`` on the card,
-    then ``launch.train.train(production_mesh=mesh)``: first the reduced
-    DeepSeek-V2-Lite in float32 (its gathered parameters written by rank
-    0), then full-width DeepSeek-V2-Lite at 2 layers in bfloat16 with the
-    launches counted; a digest of every MoE layer's routed ids a step in
-    each. ``device`` is ``"cuda"`` (``"cpu"`` rehearses the phase on the
-    plain path). Writes its report to ``out_dir``."""
+    then for each model of ``c["archs"]``
+    ``launch.train.train(production_mesh=mesh)``: first its reduced
+    config in float32 (its gathered parameters written by rank 0), then
+    full width at 2 layers in bfloat16 with the launches, peak memory and
+    the shapes of every gathered unit's leaves counted; a digest of every
+    MoE layer's routed ids a step in each. ``device`` is ``"cuda"``
+    (``"cpu"`` rehearses the phase on the plain path). Writes its report
+    to ``out_dir``: the first model's figures at its top, the others'
+    under their names."""
     import numpy as np
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.kernels import build, launch_counts, reset_launch_counts
-    from repro_torch.launch import sharding
+    from repro_torch.launch import sharding, shardctx
     from repro_torch.launch.train import train
     from repro_torch.models import moe
     from repro_torch.models.model import build_model
@@ -3263,6 +3312,13 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
             out[1].cpu().numpy().tobytes()).hexdigest())
         return out
     moe.route_train = route_digest
+    shapes, unit = set(), shardctx.unit
+
+    def unit_shapes(p):                     # the shapes the model computes with
+        out = unit(p)
+        shapes.update((k, tuple(t.shape)) for k, t in named_leaves(out))
+        return out
+    shardctx.unit = unit_shapes
     # seconds since the spawn at each step of the rank's start
     start = {"imported": time.time() - spawned_at}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3284,113 +3340,208 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
         run = dict(steps=c["steps"], batch_size=c["batch"],
                    seq_len=c["seq"], lr=CHECKPOINT["lr"], seed=SEED,
                    device=dev, production_mesh=mesh)
-        rlines = []
-        small, small_losses = train(get_reduced("deepseek-v2-lite"),
-                                    log=rlines.append, **run)
-        small_peak = [int(re.search(r"gathered_peak=(\d+)B", ln).group(1))
-                      for ln in rlines if ln.startswith("step ")]
-        small_bound = int(re.search(r"gathers at most (\d+) B",
-                                    rlines[1]).group(1))
-        small_routed, routed[:] = list(routed), []
-        small = {k: sharding.full_tensor(t).cpu().numpy()
-                 for k, t in named_leaves(small)}
-        if rank == 0:
-            np.savez(os.path.join(out_dir, "small.npz"), **small)
-        del small
-        small_s = time.time() - spawned_at - ready_s
-        cfg = get_config("deepseek-v2-lite").replace(
-            num_layers=CHECKPOINT["layers"])
-        want_params = want_moments = 0
-        for path, t in named_leaves(build_model(cfg).init(
-                torch.Generator(dev).manual_seed(SEED), device="meta")):
-            places = sharding.placements(
-                sharding.param_spec(path, t.shape, cfg, mesh), mesh)
-            n = int(np.prod(shard_shape(t.shape, places, c["mesh"])))
-            want_params += t.element_size() * n
-            want_moments += 2 * 4 * n      # both moments, float32
-        stamps = []
 
-        def note(line):
-            stamps.append((time.perf_counter(), line))
+        def model_run(arch):
+            t_small = time.perf_counter()
+            rlines = []
+            routed[:] = []
+            small, small_losses = train(get_reduced(arch),
+                                        log=rlines.append, **run)
+            small_peak = [int(re.search(r"gathered_peak=(\d+)B",
+                                        ln).group(1))
+                          for ln in rlines if ln.startswith("step ")]
+            small_bound = int(re.search(r"gathers at most (\d+) B",
+                                        rlines[1]).group(1))
+            small_routed, routed[:] = list(routed), []
+            small = {k: sharding.full_tensor(t).cpu().numpy()
+                     for k, t in named_leaves(small)}
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"small_{arch}.npz"),
+                         **small)
+            del small
+            small_s = time.perf_counter() - t_small
+            cfg = get_config(arch).replace(num_layers=CHECKPOINT["layers"])
+            want_params = want_moments = 0
+            for path, t in named_leaves(build_model(cfg).init(
+                    torch.Generator(dev).manual_seed(SEED), device="meta")):
+                places = sharding.placements(
+                    sharding.param_spec(path, t.shape, cfg, mesh), mesh)
+                n = int(np.prod(shard_shape(t.shape, places, c["mesh"])))
+                want_params += t.element_size() * n
+                want_moments += 2 * 4 * n      # both moments, float32
+            stamps = []
 
-        if on_card:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        dist.barrier()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        with RssPeak() as rss:
-            params, losses = train(cfg, log=note, **run)
+            def note(line):
+                stamps.append((time.perf_counter(), line))
+
             if on_card:
                 torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = launch_counts()
-        lines = [ln for _, ln in stamps]
-        held = re.search(r"holds params (\d+) B of (\d+) B, moments (\d+) B"
-                         r", gathers at most (\d+) B", lines[1])
-        step_at = [t for t, ln in stamps if ln.startswith("step ")]
-        report = {
-            "rank": rank, "coordinate": mesh.get_coordinate(),
-            "ready_s": ready_s, "start_s": start, "small_s": small_s,
-            "small_losses": small_losses,
-            "small_first_line": rlines[0], "losses": losses,
-            "first_line": lines[0],
-            "data_parallel": "batch=data-parallel" in lines[0],
-            "param_bytes": int(held.group(1)),
-            "whole_param_bytes": int(held.group(2)),
-            "moment_bytes": int(held.group(3)),
-            "want_param_bytes": want_params,
-            "want_moment_bytes": want_moments,
-            "exchanged_bytes_per_step": [
-                int(re.search(r"exchanged=(\d+)B", ln).group(1))
-                for ln in lines if ln.startswith("step ")],
-            "gathered_peak_bytes_per_step": [
-                int(re.search(r"gathered_peak=(\d+)B", ln).group(1))
-                for ln in lines if ln.startswith("step ")],
-            "bytes_per_step": [step_bytes(ln) for ln in lines
-                               if ln.startswith("step ")],
-            "small_model_reduced_per_step": [
-                step_bytes(ln)["model_reduced"] for ln in rlines
-                if ln.startswith("step ")],
-            "routed": routed, "small_routed": small_routed,
-            "largest_unit_bytes": int(held.group(4)),
-            "small_gathered_peak_bytes_per_step": small_peak,
-            "small_largest_unit_bytes": small_bound,
-            "gathered_alive_after_bytes": sharding.gathered_alive_bytes(),
-            "s_per_step": [b - a for a, b in zip(
-                [stamps[1][0]] + step_at[:-1], step_at)],
-            "train_s": train_s, "launches": launches,
-            "max_memory_allocated_bytes":
-                torch.cuda.max_memory_allocated() if on_card else None,
-            "peak_rss_bytes": rss.peak,
-            "wall_s": time.time() - spawned_at}
-        del params
+                torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            reset_launch_counts()
+            shapes.clear()
+            t0 = time.perf_counter()
+            with RssPeak() as rss:
+                params, losses = train(cfg, log=note, **run)
+                if on_card:
+                    torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = launch_counts()
+            lines = [ln for _, ln in stamps]
+            held = re.search(r"holds params (\d+) B of (\d+) B, moments "
+                             r"(\d+) B, gathers at most (\d+) B", lines[1])
+            step_at = [t for t, ln in stamps if ln.startswith("step ")]
+            del params
+            return {
+                "small_s": small_s, "small_losses": small_losses,
+                "small_first_line": rlines[0], "losses": losses,
+                "first_line": lines[0],
+                "data_parallel": "batch=data-parallel" in lines[0],
+                "param_bytes": int(held.group(1)),
+                "whole_param_bytes": int(held.group(2)),
+                "moment_bytes": int(held.group(3)),
+                "want_param_bytes": want_params,
+                "want_moment_bytes": want_moments,
+                "exchanged_bytes_per_step": [
+                    int(re.search(r"exchanged=(\d+)B", ln).group(1))
+                    for ln in lines if ln.startswith("step ")],
+                "gathered_peak_bytes_per_step": [
+                    int(re.search(r"gathered_peak=(\d+)B", ln).group(1))
+                    for ln in lines if ln.startswith("step ")],
+                "bytes_per_step": [step_bytes(ln) for ln in lines
+                                   if ln.startswith("step ")],
+                "small_model_reduced_per_step": [
+                    step_bytes(ln)["model_reduced"] for ln in rlines
+                    if ln.startswith("step ")],
+                "routed": list(routed), "small_routed": small_routed,
+                "largest_unit_bytes": int(held.group(4)),
+                "small_gathered_peak_bytes_per_step": small_peak,
+                "small_largest_unit_bytes": small_bound,
+                "gathered_alive_after_bytes":
+                    sharding.gathered_alive_bytes(),
+                "unit_shapes": sorted([k, list(s)] for k, s in shapes),
+                "s_per_step": [b - a for a, b in zip(
+                    [stamps[1][0]] + step_at[:-1], step_at)],
+                "train_s": train_s, "launches": launches,
+                "max_memory_allocated_bytes":
+                    torch.cuda.max_memory_allocated() if on_card else None,
+                "peak_rss_bytes": rss.peak}
+
+        first, *rest = c["archs"]
+        report = {"rank": rank, "coordinate": mesh.get_coordinate(),
+                  "ready_s": ready_s, "start_s": start,
+                  **model_run(first)}
+        for arch in rest:
+            report[arch] = model_run(arch)
+        report["wall_s"] = time.time() - spawned_at
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
     finally:
         dist.destroy_process_group()
 
 
+def mesh_train_check(arch: str, reps: list, single: dict, c: dict,
+                     want: dict) -> None:
+    """Fail unless every rank's report ``reps`` of ``arch`` holds: the
+    reduced float32 losses within ``f32_tol`` of one device's and the
+    full-width bfloat16 ones within ``BF16_LOSS_REL``; data-parallel rows;
+    the parameter and moment bytes its placements give; the launches of
+    ``want["launches"]``; every step's gathered peak equal to the largest
+    unit as gathered (the log's bound and the specs' count), none alive
+    after ``train``; ``model_reduced_bytes`` the shapes' count; the
+    vocabulary (and a GQA model's head) shards of
+    :func:`mesh_unit_shapes` as the only shapes of those leaves; and,
+    where the model routes, the two ``"model"`` ranks of each data rank
+    routing alike. ``single``: one device's losses; ``want``: the
+    spec-derived counts."""
+    tol = [BF16_LOSS_REL * abs(x) for x in single["losses"]]
+    for rep in reps:
+        label = f"mesh_train: {arch} rank {rep['rank']}"
+        err = max(abs(a - b) for a, b in zip(rep["small_losses"],
+                                             single["small_losses"]))
+        if not err <= c["f32_tol"]:
+            fail(f"{label}: reduced f32 losses {rep['small_losses']} "
+                 f"against {single['small_losses']}")
+        if not all(abs(a - b) <= t for a, b, t in zip(
+                rep["losses"], single["losses"], tol)):
+            fail(f"{label}: losses {rep['losses']} against "
+                 f"{single['losses']}")
+        if not (rep["data_parallel"]
+                and "batch=data-parallel" in rep["small_first_line"]):
+            fail(f"{label}: did not run data-parallel: {rep['first_line']}")
+        if rep["param_bytes"] != rep["want_param_bytes"] \
+                or rep["moment_bytes"] != rep["want_moment_bytes"]:
+            fail(f"{label}: holds {rep['param_bytes']} B of parameters and "
+                 f"{rep['moment_bytes']} B of moments, its placements give "
+                 f"{rep['want_param_bytes']} and {rep['want_moment_bytes']}")
+        launches = {k: want["launches"].get(k, 0) for k in rep["launches"]}
+        if rep["launches"] != launches:
+            fail(f"{label}: launches {rep['launches']}, want {launches}")
+        for run, run_peak, bound in (
+                ("full", rep["gathered_peak_bytes_per_step"],
+                 rep["largest_unit_bytes"]),
+                ("small", rep["small_gathered_peak_bytes_per_step"],
+                 rep["small_largest_unit_bytes"])):
+            if not bound == want["unit"][run] \
+                    or run_peak != [bound] * c["steps"]:
+                fail(f"{label}: held {run_peak} B gathered at once, the "
+                     f"largest unit as gathered is {bound} B in the log, "
+                     f"{want['unit'][run]} B by the specs")
+        for run, got in (("full", [b["model_reduced"]
+                                   for b in rep["bytes_per_step"]]),
+                         ("small", rep["small_model_reduced_per_step"])):
+            if got != [want["reduced"][run]] * c["steps"]:
+                fail(f"{label}: all-reduced {got} B over \"model\" in the "
+                     f"{run} run, the shapes give {want['reduced'][run]} B")
+        if rep["gathered_alive_after_bytes"] != 0:
+            fail(f"{label}: {rep['gathered_alive_after_bytes']} B of "
+                 "gathered weights alive after train returned")
+        for path, shape in want["shapes"].items():
+            got = [s for p, s in rep["unit_shapes"] if p == path]
+            if got != [shape]:
+                fail(f"{label}: computed with {path} of shapes {got}, this "
+                     f"rank's shard is {shape}")
+    if not want["launches"]:                # no router: no ids to compare
+        return
+    for rep in reps:           # the "model" ranks of a data rank route alike
+        for other in reps:
+            if other["coordinate"][0] != rep["coordinate"][0]:
+                continue
+            for key in ("routed", "small_routed"):
+                if not rep[key] or rep[key] != other[key]:
+                    fail(f"mesh_train: {arch} ranks {rep['rank']} and "
+                         f"{other['rank']} of one data rank routed apart "
+                         f"({key}: {len(rep[key])} and {len(other[key])} "
+                         "digests)")
+
+
 def mesh_train_run(torch, np, dev):
     """``launch.train.train(production_mesh=)`` on ``MESH_TRAIN["ranks"]``
-    spawned ranks sharing the card (``mesh_train_rank``), against the same
-    2 steps on one device from the same seed and batches (``train``
-    without a mesh, i.e. ``train_step``), run first by this process and
-    freed before the spawn. Fails if a rank raises, dies or outlasts
-    ``timeout_s`` (every rank is stopped then), unless: the reduced
+    spawned ranks sharing the card (``mesh_train_rank``), for
+    DeepSeek-V2-Lite (MoE experts expert-parallel, MLA heads
+    head-parallel) and internlm2-1.8b (GQA heads head-parallel), both
+    with the embedding, head and loss vocabulary-parallel along
+    ``"model"``, against the same 2 steps on one device from the same
+    seed and batches (``train`` without a mesh, i.e. ``train_step``), run
+    first by this process and freed before the spawn. Fails if a rank
+    raises, dies or outlasts ``timeout_s`` (every rank is stopped then),
+    unless, for each model (:func:`mesh_train_check`): the reduced
     float32 run's losses and gathered parameters are within ``f32_tol``
     of the single-device run's; the full-width bfloat16 losses of every
     rank are within ``BF16_LOSS_REL`` of the single-device ones and ran
     data-parallel; each rank holds the parameter and float32 moment
     bytes its placements give; the sum over ranks is the whole tree's
-    bytes times each leaf's replication;
-    ``topk_gating`` launched exactly once per MoE layer and step on each
-    rank, no other kernel; the two ``"model"`` ranks of each data rank
+    bytes times each leaf's replication; ``topk_gating`` launched exactly
+    once per MoE layer and step on each rank (DeepSeek-V2-Lite; internlm2
+    launches no kernel); the two ``"model"`` ranks of each data rank
     routed alike (every MoE layer and step, both runs); every step's
     gathered peak equals the largest unit as gathered (``train``'s log,
     and ``unit_gathered_bytes`` of the specs here), none alive once
     ``train`` returned; ``model_reduced_bytes`` is
-    :func:`model_reduced_want` at every step; and each rank's peak device
-    memory is below ``PER_LAYER_MESH_PEAK_BYTES``."""
+    :func:`model_reduced_want` at every step; each rank computed with its
+    vocabulary shard of ``tok_emb`` and the head and internlm2 with its
+    query and KV head shards (:func:`mesh_unit_shapes`); and each rank's
+    peak device memory is below ``PER_LAYER_MESH_PEAK_BYTES``,
+    DeepSeek-V2-Lite's below ``MODEL_PARALLEL_MESH_PEAK_BYTES``."""
     import tempfile
     import torch.multiprocessing as mp
     from torch.multiprocessing.spawn import ProcessException
@@ -3405,40 +3556,50 @@ def mesh_train_run(torch, np, dev):
     world = c["ranks"]
     run = dict(steps=c["steps"], batch_size=c["batch"], seq_len=c["seq"],
                lr=CHECKPOINT["lr"], seed=SEED, device=dev, log=lambda s: None)
-    t0 = time.perf_counter()
-    small, small_losses = train(get_reduced("deepseek-v2-lite"), **run)
-    cfg = get_config("deepseek-v2-lite").replace(
-        num_layers=CHECKPOINT["layers"])
-    torch.cuda.reset_peak_memory_stats()
-    params, losses = train(cfg, **run)
-    single_peak = torch.cuda.max_memory_allocated()
-    single_s = time.perf_counter() - t0
-    del params
-    release_host_memory(torch)
 
     class Mesh:                 # the rules' stand-in: names and sizes
         axis_names = ("data", "model")
         shape = dict(zip(axis_names, c["mesh"]))
-    replicated = 0              # sum over ranks: bytes x replication
-    meta = build_model(cfg).init(torch.Generator(dev).manual_seed(SEED),
-                                 device="meta")
-    small_cfg = get_reduced("deepseek-v2-lite")
-    unit_want = {
-        "full": max(unit_gathered_bytes(build_model(cfg), meta, Mesh)),
-        "small": max(unit_gathered_bytes(
-            build_model(small_cfg), build_model(small_cfg).init(
-                torch.Generator(dev).manual_seed(SEED), device="meta"),
-            Mesh))}
     rows = c["batch"] // c["mesh"][0]
-    reduced_want = {"full": model_reduced_want(cfg, rows, c["seq"]),
-                    "small": model_reduced_want(small_cfg, rows, c["seq"])}
-    for path, t in named_leaves(meta):
-        spec = sharding.param_spec(path, t.shape, cfg, Mesh)
-        used = {a for ax in spec if ax is not None
-                for a in (ax if isinstance(ax, tuple) else (ax,))}
-        rep = int(np.prod([n for a, n in Mesh.shape.items()
-                           if a not in used]))
-        replicated += rep * t.numel() * t.element_size()
+    single, want, replicated = {}, {}, {}
+    t0 = time.perf_counter()
+    for arch in c["archs"]:
+        small_cfg = get_reduced(arch)
+        small, small_losses = train(small_cfg, **run)
+        cfg = get_config(arch).replace(num_layers=CHECKPOINT["layers"])
+        torch.cuda.reset_peak_memory_stats()
+        params, losses = train(cfg, **run)
+        single[arch] = {
+            "cfg": cfg, "losses": losses, "small_losses": small_losses,
+            "small": {k: t.detach().cpu().numpy()
+                      for k, t in named_leaves(small)},
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del small, params
+        release_host_memory(torch)
+        meta = build_model(cfg).init(torch.Generator(dev).manual_seed(SEED),
+                                     device="meta")
+        n_moe = len(moe_layer_ids(cfg))
+        want[arch] = {
+            "unit": {"full": max(unit_gathered_bytes(build_model(cfg), meta,
+                                                     Mesh)),
+                     "small": max(unit_gathered_bytes(
+                         build_model(small_cfg), build_model(small_cfg).init(
+                             torch.Generator(dev).manual_seed(SEED),
+                             device="meta"), Mesh))},
+            "reduced": {"full": model_reduced_want(cfg, rows, c["seq"]),
+                        "small": model_reduced_want(small_cfg, rows,
+                                                    c["seq"])},
+            "launches": {"topk_gating": n_moe * c["steps"]} if n_moe else {},
+            "shapes": mesh_unit_shapes(cfg, Mesh.shape["model"])}
+        replicated[arch] = 0    # sum over ranks: bytes x replication
+        for path, t in named_leaves(meta):
+            spec = sharding.param_spec(path, t.shape, cfg, Mesh)
+            used = {a for ax in spec if ax is not None
+                    for a in (ax if isinstance(ax, tuple) else (ax,))}
+            rep = int(np.prod([n for a, n in Mesh.shape.items()
+                               if a not in used]))
+            replicated[arch] += rep * t.numel() * t.element_size()
+    single_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         ctx = mp.start_processes(
@@ -3461,125 +3622,103 @@ def mesh_train_run(torch, np, dev):
         spawn_to_done_s = time.perf_counter() - t0
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
                  for r in range(world)]
-        gathered = dict(np.load(os.path.join(tmp, "small.npz")))
-    small_err = max(float(np.abs(gathered[k] - t.cpu().numpy()).max())
-                    for k, t in named_leaves(small))
-    if sorted(gathered) != sorted(k for k, _ in named_leaves(small)):
-        fail("mesh_train: the gathered reduced tree's keys differ")
-    if not small_err <= c["f32_tol"]:
-        fail(f"mesh_train: reduced f32 parameters differ by {small_err}")
-    n_moe = len(moe_layer_ids(cfg))
-    tol = [BF16_LOSS_REL * abs(x) for x in losses]
-    for rep in ranks:
-        label = f"mesh_train: rank {rep['rank']}"
-        err = max(abs(a - b) for a, b in zip(rep["small_losses"],
-                                             small_losses))
-        if not err <= c["f32_tol"]:
-            fail(f"{label}: reduced f32 losses {rep['small_losses']} "
-                 f"against {small_losses}")
-        if not all(abs(a - b) <= t for a, b, t in zip(rep["losses"], losses,
-                                                      tol)):
-            fail(f"{label}: losses {rep['losses']} against {losses}")
-        if not (rep["data_parallel"]
-                and "batch=data-parallel" in rep["small_first_line"]):
-            fail(f"{label}: did not run data-parallel: {rep['first_line']}")
-        if rep["param_bytes"] != rep["want_param_bytes"] \
-                or rep["moment_bytes"] != rep["want_moment_bytes"]:
-            fail(f"{label}: holds {rep['param_bytes']} B of parameters and "
-                 f"{rep['moment_bytes']} B of moments, its placements give "
-                 f"{rep['want_param_bytes']} and {rep['want_moment_bytes']}")
-        want = {k: 0 for k in rep["launches"]}
-        want["topk_gating"] = n_moe * c["steps"]
-        if rep["launches"] != want:
-            fail(f"{label}: launches {rep['launches']}, want {want}")
-        for run, run_peak, bound in (
-                ("full", rep["gathered_peak_bytes_per_step"],
-                 rep["largest_unit_bytes"]),
-                ("small", rep["small_gathered_peak_bytes_per_step"],
-                 rep["small_largest_unit_bytes"])):
-            if not bound == unit_want[run] \
-                    or run_peak != [bound] * c["steps"]:
-                fail(f"{label}: held {run_peak} B gathered at once, the "
-                     f"largest unit as gathered is {bound} B in the log, "
-                     f"{unit_want[run]} B by the specs")
-        for run, got in (("full", [b["model_reduced"]
-                                   for b in rep["bytes_per_step"]]),
-                         ("small", rep["small_model_reduced_per_step"])):
-            if got != [reduced_want[run]] * c["steps"]:
-                fail(f"{label}: all-reduced {got} B over \"model\" in the "
-                     f"{run} run, the shapes give {reduced_want[run]} B")
-        if rep["gathered_alive_after_bytes"] != 0:
-            fail(f"{label}: {rep['gathered_alive_after_bytes']} B of "
-                 "gathered weights alive after train returned")
-        peak = rep["max_memory_allocated_bytes"]
-        if peak is not None and not peak < PER_LAYER_MESH_PEAK_BYTES:
-            fail(f"{label}: peak device memory {peak} B, not below the "
-                 f"per-layer-gathering step's {PER_LAYER_MESH_PEAK_BYTES} B")
-    for rep in ranks:           # the "model" ranks of a data rank route alike
-        for other in ranks:
-            if other["coordinate"][0] != rep["coordinate"][0]:
-                continue
-            for key in ("routed", "small_routed"):
-                if not rep[key] or rep[key] != other[key]:
-                    fail(f"mesh_train: ranks {rep['rank']} and "
-                         f"{other['rank']} of one data rank routed apart "
-                         f"({key}: {len(rep[key])} and {len(other[key])} "
-                         "digests)")
-    held = sum(rep["param_bytes"] for rep in ranks)
-    if held != replicated:
-        fail(f"mesh_train: the ranks hold {held} B of parameters, the whole "
-             f"tree times each leaf's replication is {replicated} B")
-    launches = {k: sum(rep["launches"][k] for rep in ranks)
-                for k in ranks[0]["launches"]}
-    whole = ranks[0]["whole_param_bytes"]
+        gathered = {arch: dict(np.load(os.path.join(tmp,
+                                                    f"small_{arch}.npz")))
+                    for arch in c["archs"]}
+    first = c["archs"][0]
+    by_arch = {arch: [rep if arch == first else rep[arch] | {
+        "rank": rep["rank"], "coordinate": rep["coordinate"]}
+        for rep in ranks] for arch in c["archs"]}
+    small_err = {}
+    for arch in c["archs"]:
+        small = single[arch]["small"]
+        if sorted(gathered[arch]) != sorted(small):
+            fail(f"mesh_train: the gathered reduced {arch} tree's keys "
+                 "differ")
+        small_err[arch] = max(float(np.abs(gathered[arch][k] - v).max())
+                              for k, v in small.items())
+        if not small_err[arch] <= c["f32_tol"]:
+            fail(f"mesh_train: reduced f32 {arch} parameters differ by "
+                 f"{small_err[arch]}")
+        mesh_train_check(arch, by_arch[arch], single[arch], c, want[arch])
+        held = sum(rep["param_bytes"] for rep in by_arch[arch])
+        if held != replicated[arch]:
+            fail(f"mesh_train: the ranks hold {held} B of {arch}'s "
+                 "parameters, the whole tree times each leaf's replication "
+                 f"is {replicated[arch]} B")
+        for rep in by_arch[arch]:
+            peak = rep["max_memory_allocated_bytes"]
+            bound = (MODEL_PARALLEL_MESH_PEAK_BYTES if arch == first
+                     else PER_LAYER_MESH_PEAK_BYTES)
+            if peak is not None and not peak < bound:
+                fail(f"mesh_train: {arch} rank {rep['rank']}: peak device "
+                     f"memory {peak} B, not below {bound} B")
+    launches = {k: sum(rep["launches"][k] + sum(
+        rep[arch]["launches"][k] for arch in c["archs"][1:])
+        for rep in ranks) for k in ranks[0]["launches"]}
+
+    def figures(arch):
+        reps, s = by_arch[arch], single[arch]
+        return {
+            "config": s["cfg"].name, "dtype": s["cfg"].dtype,
+            "layers": s["cfg"].num_layers,
+            "data_parallel": all(rep["data_parallel"] for rep in reps),
+            "single_losses": s["losses"],
+            "rank_losses": [rep["losses"] for rep in reps],
+            "max_loss_diff": max(abs(a - b) for rep in reps
+                                 for a, b in zip(rep["losses"],
+                                                 s["losses"])),
+            "small_single_losses": s["small_losses"],
+            "small_max_loss_diff": max(
+                abs(a - b) for rep in reps
+                for a, b in zip(rep["small_losses"], s["small_losses"])),
+            "small_max_param_diff": small_err[arch],
+            "single_max_memory_allocated_bytes":
+                s["max_memory_allocated_bytes"],
+            "rank_small_s": [rep["small_s"] for rep in reps],
+            "rank_train_s": [rep["train_s"] for rep in reps],
+            "s_per_step": [rep["s_per_step"] for rep in reps],
+            "exchanged_bytes_per_step": [rep["exchanged_bytes_per_step"]
+                                         for rep in reps],
+            "gathered_peak_bytes_per_step": [
+                rep["gathered_peak_bytes_per_step"] for rep in reps],
+            "bytes_per_step": [rep["bytes_per_step"] for rep in reps],
+            "model_reduced_want": want[arch]["reduced"]["full"],
+            "small_model_reduced_want": want[arch]["reduced"]["small"],
+            "routed_digests_per_rank": len(reps[0]["routed"]),
+            "largest_unit_bytes": reps[0]["largest_unit_bytes"],
+            "largest_unit_want": want[arch]["unit"]["full"],
+            "unit_shapes_want": want[arch]["shapes"],
+            "gathered_alive_after_bytes": [
+                rep["gathered_alive_after_bytes"] for rep in reps],
+            "whole_param_bytes": reps[0]["whole_param_bytes"],
+            "rank_param_bytes": [rep["param_bytes"] for rep in reps],
+            "rank_moment_bytes": [rep["moment_bytes"] for rep in reps],
+            "sum_param_bytes": sum(rep["param_bytes"] for rep in reps),
+            "replicated_param_bytes": replicated[arch],
+            "max_memory_allocated_bytes": [
+                rep["max_memory_allocated_bytes"] for rep in reps],
+            "rank_peak_rss_bytes": [rep["peak_rss_bytes"] for rep in reps],
+            "launches_per_rank": [rep["launches"].get("topk_gating", 0)
+                                  for rep in reps]}
+
     result = {
-        "config": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
-        "moe_layers": n_moe, "ranks": world, "backend": "gloo",
+        **figures(first),
+        **{arch: figures(arch) for arch in c["archs"][1:]},
+        "moe_layers": len(moe_layer_ids(single[first]["cfg"])),
+        "ranks": world, "backend": "gloo",
         "mesh": dict(zip(Mesh.axis_names, c["mesh"])),
         **{k: c[k] for k in ("batch", "seq", "steps", "timeout_s",
                              "f32_tol")},
         "lr": CHECKPOINT["lr"], "bf16_loss_rel_tol": BF16_LOSS_REL,
-        "data_parallel": all(rep["data_parallel"] for rep in ranks),
-        "single_losses": losses, "rank_losses": [rep["losses"]
-                                                 for rep in ranks],
-        "max_loss_diff": max(abs(a - b) for rep in ranks
-                             for a, b in zip(rep["losses"], losses)),
-        "small_single_losses": small_losses,
-        "small_max_loss_diff": max(abs(a - b) for rep in ranks
-                                   for a, b in zip(rep["small_losses"],
-                                                   small_losses)),
-        "small_max_param_diff": small_err,
         "single_device_s": single_s,
-        "single_max_memory_allocated_bytes": single_peak,
         "spawn_to_done_s": spawn_to_done_s,
         "rank_ready_s": [rep["ready_s"] for rep in ranks],
         "rank_start_s": [rep["start_s"] for rep in ranks],
-        "rank_small_s": [rep["small_s"] for rep in ranks],
         "rank_wall_s": [rep["wall_s"] for rep in ranks],
-        "rank_train_s": [rep["train_s"] for rep in ranks],
-        "s_per_step": [rep["s_per_step"] for rep in ranks],
-        "exchanged_bytes_per_step": [rep["exchanged_bytes_per_step"]
-                                     for rep in ranks],
-        "gathered_peak_bytes_per_step": [rep["gathered_peak_bytes_per_step"]
-                                         for rep in ranks],
-        "bytes_per_step": [rep["bytes_per_step"] for rep in ranks],
-        "model_reduced_want": reduced_want["full"],
-        "routed_digests_per_rank": len(ranks[0]["routed"]),
-        "largest_unit_bytes": ranks[0]["largest_unit_bytes"],
-        "largest_unit_want": unit_want["full"],
-        "gathered_alive_after_bytes": [rep["gathered_alive_after_bytes"]
-                                       for rep in ranks],
         "whole_tree_mesh_peak_bytes": WHOLE_TREE_MESH_PEAK_BYTES,
         "per_layer_mesh_peak_bytes": PER_LAYER_MESH_PEAK_BYTES,
-        "whole_param_bytes": whole,
-        "rank_param_bytes": [rep["param_bytes"] for rep in ranks],
-        "rank_moment_bytes": [rep["moment_bytes"] for rep in ranks],
-        "sum_param_bytes": held, "replicated_param_bytes": replicated,
-        "max_memory_allocated_bytes": [rep["max_memory_allocated_bytes"]
-                                       for rep in ranks],
-        "rank_peak_rss_bytes": [rep["peak_rss_bytes"] for rep in ranks],
-        "launches_per_rank": [rep["launches"]["topk_gating"]
-                              for rep in ranks]}
+        "model_parallel_mesh_peak_bytes": MODEL_PARALLEL_MESH_PEAK_BYTES}
     return result, launches
 
 
@@ -3681,13 +3820,14 @@ def pipeline_trained_run(torch, np, dev, random_table, keep):
 # a 50 us layer-compute clock), batch 1 at both of pipeline_trained's
 # caches with every launcher policy at width top-k (the simulator table's)
 # and the untrained predictor as a control, then the batched engine at the
-# 10% cache. Batch 1 serves the first 3 of the 8 held-out prompts (4
-# until the phase took 175.8 s on a slow host): on an H100 80GB HBM3
+# 10% cache. Batch 1 serves the first 2 of the 8 held-out prompts (4
+# until the phase took 175.8 s on a slow host, 3 until the script took
+# 1,232 s there): on an H100 80GB HBM3
 # (700 W) the batch-1 engine runs ~55 positions/s on this backbone (~23
 # with the learned policy's 7 predictor forwards a step), so all 8 would
 # take ~250 s
 SERVE = dict(layer_compute_s=50e-6, max_batch=4, block_size=8,
-             prefill_chunk=8, batch1_prompts=3)
+             prefill_chunk=8, batch1_prompts=2)
 SERVE_POLICIES = ("none", "random", "next-layer-all", "global-frequency",
                   "moe-infinity", "moe-beyond", "moe-beyond-untrained")
 SERVE_BATCHED = ("none", "moe-beyond")
@@ -4910,8 +5050,19 @@ def run(torch, guard) -> None:
         "rank_param_bytes", "rank_moment_bytes", "sum_param_bytes",
         "replicated_param_bytes", "max_memory_allocated_bytes",
         "whole_tree_mesh_peak_bytes", "per_layer_mesh_peak_bytes",
+        "model_parallel_mesh_peak_bytes",
         "rank_peak_rss_bytes", "rank_start_s", "rank_small_s",
         "launches_per_rank", "single_device_s")},
+        **{arch: {k: mt[arch][k] for k in (
+            "layers", "single_losses", "rank_losses", "max_loss_diff",
+            "small_max_loss_diff", "small_max_param_diff", "s_per_step",
+            "exchanged_bytes_per_step", "bytes_per_step",
+            "model_reduced_want", "gathered_peak_bytes_per_step",
+            "largest_unit_bytes", "largest_unit_want", "unit_shapes_want",
+            "gathered_alive_after_bytes", "rank_param_bytes",
+            "max_memory_allocated_bytes", "single_max_memory_allocated_bytes",
+            "rank_small_s", "rank_train_s", "launches_per_rank")}
+           for arch in MESH_TRAIN["archs"][1:]},
         "phase_s": phase_s["mesh_train"]}), flush=True)
     pt = runs["pipeline_trained"]
     print(json.dumps({"pipeline_trained": {k: pt[k] for k in (

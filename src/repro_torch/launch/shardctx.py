@@ -19,19 +19,22 @@ the gatherer (``launch/sharding.Gatherer``) hands out the unit's weights
 and the saved-tensor hooks that keep the autograd graph from pinning
 them; outside it :func:`unit` returns its argument as it is.
 
-Where the reference's specs put a MoE layer's expert dim or an MLA
-layer's head dim on ``"model"``, XLA computes each expert and head on
-the shard that owns it. The gatherer then hands out this rank's
-``"model"`` shard of those weights (``sharding.model_computed``), and
+Where the reference's specs put a MoE layer's expert dim, an attention
+layer's head dim or the vocabulary on ``"model"``, XLA computes each
+expert, head and vocabulary row on the shard that owns it. The gatherer
+then hands out this rank's ``"model"`` shard of those weights
+(``sharding.model_computed``), and
 the model computes that half as a region over the ``"model"`` group, the
 counterpart of the reference's ``constrain_qkv``/``constrain_tokens``
 hints: what enters it (:func:`enter_model`) is the same on every
 ``"model"`` rank, so its gradient is the sum of the ranks' partial
 gradients (an all-reduce in the backward pass), and what leaves it
 (:func:`leave_model`) is each rank's partial sum, all-reduced in the
-forward pass. :func:`model_shard` gives this rank's index along
-``"model"`` and the axis' size. Outside :func:`gathering`, or at one
-``"model"`` rank, all three are no-ops. The sequence-sharded
+forward pass. :func:`model_max` is the one exchange of a region that is
+not a sum: the vocabulary-parallel loss's maximum logit, taken with no
+gradient. :func:`model_shard` gives this rank's index along ``"model"``
+and the axis' size. Outside :func:`gathering`, or at one ``"model"``
+rank, all four are no-ops. The sequence-sharded
 ``constrain_act``/``constrain_tokens`` of ``act_sharding`` have no
 counterpart yet (ROADMAP).
 """
@@ -126,9 +129,10 @@ def model_shard() -> tuple:
     return (0, 1) if m is None else (m[1], m[2])
 
 
-def _all_reduce(t: torch.Tensor, group, stats) -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, group, stats,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = t.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=op, group=group)
     if stats is not None:
         stats["model_reduced_bytes"] = stats.get("model_reduced_bytes", 0) \
             + out.numel() * out.element_size()
@@ -185,3 +189,13 @@ def leave_model(y: torch.Tensor) -> torch.Tensor:
     if m is None:
         return y
     return _LeaveModel.apply(y, m[0], _gatherer.stats)
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the ``"model"`` ranks, with no
+    gradient (all-reduced, ``stats["model_reduced_bytes"]``). ``x``
+    itself outside :func:`gathering` or at one ``"model"`` rank."""
+    m = getattr(_gatherer, "model", None)
+    if m is None:
+        return x
+    return _all_reduce(x, m[0], _gatherer.stats, dist.ReduceOp.MAX)

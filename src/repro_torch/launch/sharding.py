@@ -40,14 +40,16 @@ own functional collectives are not used (under ``gloo`` on the card,
 ``DTensor.full_tensor`` crashes the process).
 
 Compute along ``"model"``, as the reference's jitted step does where its
-specs put the expert dim or the head dim there: :func:`model_computed`
+specs put the expert, head or vocabulary dim there: :func:`model_computed`
 names the halves whose every weight ``"model"`` shards on that dim (a
-MoE layer's routed experts, an MLA layer's head leaves). The gatherer
-gathers their leaves over the data axes only, so a rank holds its
-``"model"`` shard of them (E/n experts, H/n heads), and their gradients
-come back as that shard; the model computes those halves as
-``"model"``-parallel regions (``launch/shardctx.enter_model`` and
-``leave_model``). Every other leaf is gathered whole over every mesh dim.
+MoE layer's routed experts, an MLA or GQA attention's head leaves) and
+the embedding and head whose vocabulary it shards. The gatherer gathers
+their leaves over the data axes only, so a rank holds its ``"model"``
+shard of them (E/n experts, H/n heads and KVH/n KV heads, V/n rows of
+the vocabulary), and their gradients come back as that shard; the model
+computes those halves as ``"model"``-parallel regions
+(``launch/shardctx.enter_model`` and ``leave_model``). Every other leaf
+is gathered whole over every mesh dim.
 
 Expert-parallel compute dispatch: the counterpart of the reference's
 ``expert_dispatch_ffn``, the real exchange behind the serving engines'
@@ -172,30 +174,45 @@ def spec_of(places, ndim: int, mesh) -> tuple:
 
 # the halves that compute along "model", by the last key of their path:
 # each leaf's dim that "model" must shard (the expert dim of the routed
-# experts; the head dim of MLA's head leaves, whose query leaf is w_q, or
-# w_uq on the q_lora_rank path)
+# experts; the head dim of the attention leaves: MLA's, whose query leaf
+# is w_q, or w_uq on the q_lora_rank path, and GQA's, the leaf names
+# keeping the two apart)
+_GQA = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
 _MODEL_HALVES = {"moe": ({"w_gate": 0, "w_up": 0, "w_down": 0},),
                  "attn": ({"w_q": 1, "w_uk": 1, "w_uv": 1, "wo": 0},
-                          {"w_uq": 1, "w_uk": 1, "w_uv": 1, "wo": 0})}
+                          {"w_uq": 1, "w_uk": 1, "w_uv": 1, "wo": 0}, _GQA),
+                 "self_attn": (_GQA,), "cross_attn": (_GQA,)}
+# the vocabulary leaves at the top of the tree, each decided on its own:
+# the dim that "model" must shard (tok_emb (V, D), the untied head (D, V))
+_VOCAB_LEAVES = {"tok_emb": 0, "head": 1}
 
 
 def model_computed(specs: dict) -> set:
     """The paths of the leaves that compute along ``"model"``, from
     ``specs`` (path -> spec of every leaf of a tree): those of a MoE
     layer's routed experts (``moe/w_gate``, ``w_up``, ``w_down``) when
-    the spec of each puts ``"model"`` on its expert dim, and those of an
-    MLA layer's head leaves (``attn/w_q`` or ``w_uq``, ``w_uk``, ``w_uv``,
-    ``wo``) when each has ``"model"`` on its head dim. Where the expert
-    or head count does not divide ``"model"``, :func:`param_spec` puts it
-    on another dim and the half is gathered whole; so is every other
-    leaf (norms, the router, ``w_dkv``, ``w_dq``, shared experts, dense
-    FFNs, the embedding, the head, every GQA attention)."""
+    the spec of each puts ``"model"`` on its expert dim; those of an
+    attention half when each of its leaves has ``"model"`` on its head
+    dim: MLA's (``attn/w_q`` or ``w_uq``, ``w_uk``, ``w_uv``, ``wo``) and
+    GQA's (``wq``, ``wk``, ``wv``, ``wo`` under ``attn``, ``self_attn``
+    or ``cross_attn``); and the top-level ``tok_emb`` and untied
+    ``head`` where ``"model"`` shards their vocabulary. Where a count
+    does not divide ``"model"`` (the experts, the query or KV heads, the
+    vocabulary), :func:`param_spec` puts it on another dim and the half
+    or leaf is gathered whole; so is every other leaf (norms, the router,
+    ``w_dkv``, ``w_dq``, shared experts, dense FFNs, ``frontend_proj``).
+    With the query and KV heads both divided, rank ``r``'s query heads
+    ``[r H/n, (r+1) H/n)`` are exactly those of its KV heads
+    ``[r KVH/n, (r+1) KVH/n)``."""
     halves = {}
     for path in specs:
         head, _, leaf = path.rpartition("/")
         halves.setdefault(head, {})[leaf] = path
-    out = set()
+    out = {path for path, dim in _VOCAB_LEAVES.items()
+           if path in specs and specs[path][dim] == "model"}
     for head, leaves in halves.items():
+        if not head:                        # the top level: vocabulary only
+            continue
         for want in _MODEL_HALVES.get(head.rpartition("/")[2], ()):
             if all(k in leaves and specs[leaves[k]][dim] == "model"
                    for k, dim in want.items()):

@@ -22,6 +22,13 @@ chunked prefill matches decoding the chunk token by token.
 Cross-attention (:func:`cross_attn_apply`) reads the encoder-decoder's
 static memory, at decode through the same ``flash_decode`` kernel.
 
+Head-parallel along ``"model"``: inside a sharded step whose gatherer
+hands out this rank's H/n query heads and KVH/n KV heads of a GQA half
+(``launch/sharding.model_computed``), the whole-sequence modes and the
+cross-attention run it as a ``"model"`` region (``launch/shardctx``):
+the input enters once before the projections, the local query heads
+attend their own KV heads, and the partial ``wo`` product leaves it.
+
 The reference returns new cache arrays from every write; here caches are
 updated in place (``index_put_``/``copy_``) and the same dict returned.
 """
@@ -31,6 +38,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_decode
 from repro_torch.kernels.paged_attention import paged_flash_decode
+from repro_torch.launch import shardctx
 from repro_torch.models.common import apply_rope, decode_lanes, dense_init
 
 Q_CHUNK = 1024
@@ -200,15 +208,24 @@ def attn_apply(p, cfg, kind, x, positions, mode, cache=None, pos=None,
     (default ``i``). The new K/V is written in place at ``pos % ring`` (or
     ``pos``) before the attend, as in the reference. ``kernel`` attends
     through ``flash_decode``; False keeps the gather + ``_gqa_attend``
-    route."""
+    route.
+
+    In the whole-sequence modes, ``wq`` holding fewer heads than
+    ``cfg.num_heads`` (this rank's head shard in a sharded step) makes
+    the sub-block a ``"model"`` region: x enters it, the partial output
+    leaves it summed over the ``"model"`` ranks."""
     if mode in ("full", "prefill"):
+        region = p["wq"].shape[1] != cfg.num_heads
+        if region:
+            x = shardctx.enter_model(x)
         q, k, v = _paged_qkv(p, cfg, x, positions)
         qpos = positions[0] if positions.dim() == 2 else positions
         out = sdpa_any(q, k, v, qpos, qpos, kind, cfg, causal)
         new_cache = None
         if mode == "prefill":
             new_cache = _fill_cache(cfg, kind, k, v, x.shape[1], cache_len)
-        return _project_out(p, out), new_cache
+        y = _project_out(p, out)
+        return (shardctx.leave_model(y) if region else y), new_cache
     if mode != "decode":
         raise ValueError(f"unknown mode {mode!r}")
     dev = x.device
@@ -349,9 +366,14 @@ def cross_attn_init(gen, cfg, dtype, device):
     return attn_init(gen, cfg, dtype, device)
 
 
-def cross_attn_memory(p, x_enc):
+def cross_attn_memory(p, cfg, x_enc):
     """The memory's k/v (B, S, KVH, hd) from the encoder's output x_enc
-    (B, S, D); no RoPE."""
+    (B, S, D); no RoPE. With ``wk`` holding fewer than
+    ``cfg.num_kv_heads`` heads (a head shard in a sharded step), x_enc
+    enters the ``"model"`` region and the memory holds this rank's KV
+    heads."""
+    if p["wk"].shape[1] != cfg.num_kv_heads:
+        x_enc = shardctx.enter_model(x_enc)
     b, s, d = x_enc.shape
     k = (x_enc @ p["wk"].reshape(d, -1)).reshape(b, s, *p["wk"].shape[1:])
     v = (x_enc @ p["wv"].reshape(d, -1)).reshape(b, s, *p["wv"].shape[1:])
@@ -364,8 +386,15 @@ def cross_attn_apply(p, cfg, x, memory_kv, kernel: bool = True):
     through ``flash_decode``, which computes the same function there (a
     lane per batch entry on its own memory row, all S keys live, scores
     scaled by hd^-0.5 in float32); T > 1, or ``kernel`` False, keeps the
-    reference's ``_sdpa``."""
+    reference's ``_sdpa``. The heads are ``wq``'s: with fewer than
+    ``cfg.num_heads`` (a head shard in a sharded step, the memory holding
+    the shard's KV heads), x enters the ``"model"`` region and the
+    partial output leaves it."""
     b, t, d = x.shape
+    h = p["wq"].shape[1]
+    region = h != cfg.num_heads
+    if region:
+        x = shardctx.enter_model(x)
     q = (x @ p["wq"].reshape(d, -1)).reshape(b, t, *p["wq"].shape[1:])
     k, v = memory_kv["k"], memory_kv["v"]
     if kernel and t == 1:
@@ -374,9 +403,10 @@ def cross_attn_apply(p, cfg, x, memory_kv, kernel: bool = True):
             q[:, 0].contiguous(), k.contiguous(), v.contiguous(),
             torch.arange(b, dtype=torch.int32, device=dev),
             torch.full((b,), k.shape[1], dtype=torch.int32, device=dev))
-        return _project_out(p, out[:, None])
-    kvh, hd = k.shape[2], k.shape[3]
-    qg = q.reshape(b, t, kvh, cfg.num_heads // kvh, hd)
-    mask = torch.ones((t, k.shape[1]), dtype=torch.bool, device=x.device)
-    out = _sdpa(qg, k, v, mask).reshape(b, t, cfg.num_heads, hd)
-    return _project_out(p, out)
+        y = _project_out(p, out[:, None])
+    else:
+        kvh, hd = k.shape[2], k.shape[3]
+        qg = q.reshape(b, t, kvh, h // kvh, hd)
+        mask = torch.ones((t, k.shape[1]), dtype=torch.bool, device=x.device)
+        y = _project_out(p, _sdpa(qg, k, v, mask).reshape(b, t, h, hd))
+    return shardctx.leave_model(y) if region else y

@@ -80,7 +80,8 @@ def decoder_init(gen, cfg, dtype, device) -> list:
 
 def cross_memory(layers, cfg, enc_out) -> list:
     """Each decoder layer's cross-attention k/v of the encoder's output."""
-    return [attn.cross_attn_memory(shardctx.unit(lp["cross_attn"]), enc_out)
+    return [attn.cross_attn_memory(shardctx.unit(lp["cross_attn"]), cfg,
+                                   enc_out)
             for lp in layers]
 
 

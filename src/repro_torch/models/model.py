@@ -41,10 +41,36 @@ from repro_torch.models import encdec, transformer
 from repro_torch.models.common import dense_init, dtype_of, rms_norm
 
 
-def _xent(logits, labels):
-    """Mean next-token cross-entropy in float32. labels (B, T) int."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, labels[..., None].long())[..., 0].mean()
+def _target_logp(logits, labels, vocab: int):
+    """log p(label) per token, in float32, from logits (..., V) over the
+    whole ``vocab``. Logits of fewer columns are this rank's vocabulary
+    shard (columns ``[r V/n, (r+1) V/n)``) in a sharded step, and the
+    log-softmax is taken over ``"model"``: the maximum by an all-reduce
+    MAX of the detached local maximum (``shardctx.model_max``), the sum of
+    exponentials and the target's logit summed through
+    ``shardctx.leave_model``, whose identity backward hands each rank
+    softmax minus one-hot on its own columns. Every ``"model"`` rank
+    runs the same collectives in the same order, and checkpoint's
+    recomputation runs them again."""
+    logits = logits.float()
+    v = logits.shape[-1]
+    if v == vocab:
+        logp = torch.log_softmax(logits, dim=-1)
+        return logp.gather(-1, labels[..., None].long())[..., 0]
+    m = shardctx.model_max(logits.detach().amax(-1))
+    local = labels.long() - shardctx.model_shard()[0] * v
+    held = (local >= 0) & (local < v)
+    tgt = logits.gather(-1, local.clamp(0, v - 1)[..., None])[..., 0]
+    sums = shardctx.leave_model(torch.stack([
+        torch.exp(logits - m[..., None]).sum(-1),
+        torch.where(held, tgt, tgt.new_zeros(()))]))
+    return sums[1] - m - torch.log(sums[0])
+
+
+def _xent(logits, labels, vocab: int):
+    """Mean next-token cross-entropy in float32. labels (B, T) int;
+    ``vocab``: see :func:`_target_logp`."""
+    return -_target_logp(logits, labels, vocab).mean()
 
 
 # (B, S, V) float32 logits above this budget use the sequence-chunked loss
@@ -54,18 +80,18 @@ _XENT_CHUNK_BUDGET = 1 << 28
 _XENT_CHUNK = 512
 
 
-def _xent_chunked(x, labels, unembed_fn):
+def _xent_chunked(x, labels, unembed_fn, vocab: int):
     """Sequence-chunked next-token loss: each chunk's logits are formed,
     reduced to a scalar and recomputed in the backward pass
     (``torch.utils.checkpoint``), so peak memory is (B, chunk, V) in
-    place of (B, S, V). A last chunk shorter than ``_XENT_CHUNK`` is
-    taken as it is."""
+    place of (B, S, V) (V/n columns for a vocabulary shard, ``vocab`` as
+    in :func:`_target_logp`). A last chunk shorter than ``_XENT_CHUNK``
+    is taken as it is."""
     b, t, _ = x.shape
     c = _XENT_CHUNK
 
     def chunk_loss(xc, yc):
-        logp = torch.log_softmax(unembed_fn(xc).float(), dim=-1)
-        return logp.gather(-1, yc[..., None].long())[..., 0].sum()
+        return _target_logp(unembed_fn(xc), yc, vocab).sum()
 
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, t, c):
@@ -122,18 +148,26 @@ class Model:
         region (sequence-chunked when the (B, T-1, V) logits would pass
         ``_XENT_CHUNK_BUDGET`` entries) plus ``router_aux_coef`` times the
         load-balance loss of ``transformer.collect_moe_aux``.
-        Differentiable with autograd."""
+        Differentiable with autograd. In a sharded step whose head is
+        this rank's vocabulary shard, the loss is taken over ``"model"``
+        (:func:`_target_logp`); ``forward``, ``prefill`` and
+        ``decode_step`` raise ``ValueError`` there."""
         cfg = self.cfg
         tokens, patches = _inputs(params, batch)
         x, n_prefix = transformer.embed(params, cfg, tokens, patches)
         x, _, extras = transformer.stack_apply(params["layers"], cfg, x,
                                                "full")
         xt, labels = x[:, n_prefix:][:, :-1], tokens[:, 1:]
+        # the global vocabulary decides: every "model" rank chunks alike
         if xt.shape[0] * xt.shape[1] * cfg.vocab_size > _XENT_CHUNK_BUDGET:
             loss = _xent_chunked(
-                xt, labels, lambda h: transformer.unembed(params, cfg, h))
+                xt, labels, lambda h: transformer.unembed(params, cfg, h,
+                                                          vocab_shard=True),
+                cfg.vocab_size)
         else:
-            loss = _xent(transformer.unembed(params, cfg, xt), labels)
+            loss = _xent(transformer.unembed(params, cfg, xt,
+                                             vocab_shard=True),
+                         labels, cfg.vocab_size)
         aux = transformer.collect_moe_aux(cfg, extras)
         coef = cfg.moe.router_aux_coef if cfg.moe else 0.0
         return loss + coef * aux, {"xent": loss, "moe_aux": aux}
@@ -211,8 +245,9 @@ class EncDecModel(Model):
                 *(lp["cross_attn"] for lp in dec), params["tok_emb"], *dec,
                 params["final_ln"], params["head"]]
 
-    def _head(self, params, h):
-        return (h @ shardctx.unit(params["head"])).float()
+    def _head(self, params, h, vocab_shard: bool = False):
+        return transformer.vocab_logits(h, shardctx.unit(params["head"]),
+                                        self.cfg.vocab_size, vocab_shard)
 
     def _memory(self, params, frames):
         enc = encdec.encoder_apply(params["encoder"], self.cfg, frames)
@@ -222,7 +257,8 @@ class EncDecModel(Model):
                       pos=0, cache_len: int = 0):
         """Embed ``tokens`` at positions ``pos``.., the decoder in
         ``mode``, the final norm. Returns (hidden, new caches)."""
-        x = shardctx.unit(params["tok_emb"])[tokens.long()]
+        x = transformer.lookup(shardctx.unit(params["tok_emb"]), tokens,
+                               self.cfg.vocab_size)
         b, t, _ = x.shape
         positions = (torch.arange(t, device=x.device) + pos).expand(b, t)
         x, new_caches = encdec.decoder_apply(
@@ -248,10 +284,11 @@ class EncDecModel(Model):
                                   self._memory(params, frames), "full")
         h, labels = h[:, :-1], tokens[:, 1:]
         if h.shape[0] * h.shape[1] * cfg.vocab_size > _XENT_CHUNK_BUDGET:
-            loss = _xent_chunked(h, labels,
-                                 lambda hh: self._head(params, hh))
+            loss = _xent_chunked(
+                h, labels, lambda hh: self._head(params, hh, True),
+                cfg.vocab_size)
         else:
-            loss = _xent(self._head(params, h), labels)
+            loss = _xent(self._head(params, h, True), labels, cfg.vocab_size)
         return loss, {"xent": loss,
                       "moe_aux": torch.zeros((), dtype=torch.float32,
                                              device=loss.device)}

@@ -3,7 +3,10 @@ scan-stacked pytree — ``convert.py`` unstacks it), the attention halves of
 a serving decode step (contiguous rows and block-paged pools) and of a
 paged prefill chunk, the whole-block ``block_apply``/``stack_apply`` of
 the model facade, embed (with the vision early-fusion prefix) and
-unembed.
+unembed. Inside a sharded step whose gatherer hands out this rank's
+vocabulary shard of ``tok_emb`` and the head
+(``launch/sharding.model_computed``), :func:`lookup` and
+:func:`vocab_logits` compute along ``"model"``.
 
 Every layer kind of the reference runs in ``block_apply``'s full, prefill
 and decode modes: ``mla`` and the GQA kinds ``global``, ``local`` and
@@ -333,11 +336,46 @@ def embed(params, cfg, tokens, modality=None):
     token embeddings (early fusion; the vision tower itself is a stub, as
     in the reference), and ``n_prefix`` is S_m; otherwise 0."""
     p = shardctx.unit(embed_unit(params))
-    x = p["tok_emb"][tokens.long()]
+    x = lookup(p["tok_emb"], tokens, cfg.vocab_size)
     if modality is None or cfg.frontend != "vision":
         return x, 0
     m = modality.to(x.dtype) @ p["frontend_proj"]
     return torch.cat([m, x], dim=1), modality.shape[1]
+
+
+def lookup(w, tokens, vocab: int):
+    """The rows of ``tokens`` (int, any shape) in the embedding ``w``:
+    ``w[tokens]`` when ``w`` holds the whole vocabulary of ``vocab`` rows.
+    A vocabulary shard (this rank's rows ``[r V/n, (r+1) V/n)`` in a
+    sharded step) looks up the tokens it holds, puts zeros for the rest,
+    and leaves the ``"model"`` region: each entry of the sum has one
+    nonzero term, so the sum (all-reduced in float32 by
+    ``shardctx.leave_model``) is exact, and the gradient reaches this
+    rank's rows only."""
+    if w.shape[0] == vocab:
+        return w[tokens.long()]
+    rows = w.shape[0]
+    local = tokens.long() - shardctx.model_shard()[0] * rows
+    held = (local >= 0) & (local < rows)
+    x = w[local.clamp(0, rows - 1)]
+    return shardctx.leave_model(torch.where(held[..., None], x,
+                                            x.new_zeros(())))
+
+
+def vocab_logits(x, w, vocab: int, vocab_shard: bool = False):
+    """float32 logits ``x @ w`` over the head ``w`` (D, V). A head that is
+    this rank's vocabulary shard (D, V/n) gives this rank's logits; x,
+    the same on every ``"model"`` rank, enters the region. Only the loss
+    takes such logits (``vocab_shard``): any other caller (``forward``,
+    ``prefill``, ``decode_step`` in a sharded step) gets ``ValueError``
+    rather than a part of the vocabulary."""
+    if w.shape[1] != vocab:
+        if not vocab_shard:
+            raise ValueError(f"the head holds {w.shape[1]} of {vocab} "
+                             "vocabulary columns (a sharded step's shard): "
+                             "only the loss takes this rank's logits")
+        x = shardctx.enter_model(x)
+    return (x @ w).float()
 
 
 def embed_unit(params) -> dict:
@@ -354,11 +392,14 @@ def head_unit(params, cfg) -> dict:
             "w": params["tok_emb" if cfg.tie_embeddings else "head"]}
 
 
-def unembed(params, cfg, x):
+def unembed(params, cfg, x, vocab_shard: bool = False):
+    """The final norm and the head: float32 logits (..., V), or this
+    rank's (..., V/n) in a sharded step with ``vocab_shard``
+    (:func:`vocab_logits`)."""
     p = shardctx.unit(head_unit(params, cfg))
     x = rms_norm(x, p["final_ln"], cfg.norm_eps)
     w = p["w"].T if cfg.tie_embeddings else p["w"]
-    return (x @ w).float()
+    return vocab_logits(x, w, cfg.vocab_size, vocab_shard)
 
 
 def lm_apply(params, cfg, tokens, mode: str = "full", caches=None,

@@ -398,9 +398,10 @@ def test_cross_attention_kernel_route_on_card(cuda, dtype, tol):
     p = attn.cross_attn_init(g, cfg, dtype, "cpu")
     enc = torch.randn(2, cfg.frontend_len, cfg.d_model, generator=g).to(dtype)
     x = torch.randn(2, 1, cfg.d_model, generator=g).to(dtype)
-    cpu = attn.cross_attn_apply(p, cfg, x, attn.cross_attn_memory(p, enc))
+    cpu = attn.cross_attn_apply(p, cfg, x,
+                                attn.cross_attn_memory(p, cfg, enc))
     pc = _tree_to(p, cuda)
-    mem = attn.cross_attn_memory(pc, enc.to(cuda))
+    mem = attn.cross_attn_memory(pc, cfg, enc.to(cuda))
     reset_launch_counts()
     out = attn.cross_attn_apply(pc, cfg, x.to(cuda), mem)
     assert launch_counts()["flash_decode"] == 1

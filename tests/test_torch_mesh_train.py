@@ -39,13 +39,20 @@ expert buffer and attention must have E/n experts and H/n heads, and
 the only ``"model"`` exchanges of a step must be the regions' all-reduces
 (``model_reduced_bytes``, held to its formula). The
 same spawn runs the reduce-scatter helper against ``all_reduce`` and
-``local_slice`` and one step of four other layer kinds; in-process, a
+``local_slice``, one step of six other architectures, and one step of
+reduced internlm2-1.8b, gemma3-27b, Scout and seamless-m4t-large-v2 on
+the 2x2 and 1x4 meshes with GQA heads and the vocabulary along
+``"model"`` (``GQA_CASES``: losses within 1e-5 of one device and 1e-4 of
+the reference's ``loss_fn`` on the same bridged weights, gradient slices
+within 1e-5, the heads and vocabulary each rank computes); in-process, a
 recording gatherer checks that every architecture's ``loss_fn`` reaches
-each weight through ``shardctx.unit``. Every spawn is joined with a
+each weight through ``shardctx.unit``, and the rule is held over every
+architecture's reduced and full config. Every spawn is joined with a
 timeout and its ranks stopped after it. This module imports no JAX at
 its top: the ranks import it."""
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -57,17 +64,20 @@ import pytest
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.utils.checkpoint import checkpoint as recompute
 
 from repro_torch import convert
-from repro_torch.configs import _ARCH_MODULES, get_reduced
+from repro_torch.configs import _ARCH_MODULES, get_config, get_reduced
 from repro_torch.data import lm_batches, make_topic_corpus
 from repro_torch.launch import sharding, shardctx
 from repro_torch.launch.train import (data_rows, mesh_train_step, train,
                                       train_step, trainable,
                                       unit_gathered_bytes)
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import model as model_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import transformer as tf_mod
 from repro_torch.models.model import build_model
 from repro_torch.training import checkpoint
 from repro_torch.training.optimizer import (global_norm, make_adamw,
@@ -195,18 +205,50 @@ def _collectives(out: list):
             setattr(dist, k, f)
 
 
-def model_reduced_formula(cfg, rows: int, t: int) -> int:
-    """The bytes a rank all-reduces over ``"model"`` in one step of
-    ``rows`` x ``t`` tokens when every MoE and MLA layer computes along
-    it: an MLA layer's input, latent and rope key (their gradients) and
-    its output in float32; a MoE layer's input and float32 combine
-    weights (their gradients) and its float32 output."""
+def model_reduced_formula(cfg, rows: int, t: int, n_model: int,
+                          chunked: bool = False) -> int:
+    """The bytes a rank all-reduces over ``"model"`` (of ``n_model``
+    ranks) in one step of ``rows`` x ``t`` tokens (after a vision prefix)
+    where the rule computes along it: an MLA layer's input, latent and
+    rope key (their gradients, in the model's dtype) and its output in
+    float32; a GQA attention's input (its gradient) and float32 output,
+    and a cross-attention's memory input (its gradient); a MoE layer's
+    input and float32 combine weights (their gradients) and its float32
+    output; the embedding's float32 sum, the head input's gradient and
+    the loss's three float32 statistics a scored token (the maximum, the
+    sum of exponentials, the target's logit), twice when the chunked
+    loss recomputes them."""
     es = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
-    n, d, m = rows * t, cfg.d_model, cfg.mla
-    mla = n * (d + m.kv_lora_rank + m.rope_head_dim) * es + n * d * 4
-    moe = n * d * es + n * cfg.moe.top_k * 4 + n * d * 4
-    n_moe = cfg.num_layers - cfg.moe.first_dense_layers
-    return cfg.num_layers * mla + n_moe * moe
+    d = cfg.d_model
+
+    def fits(c):
+        return c % n_model == 0 and c >= n_model
+    prefix = cfg.frontend_len if cfg.frontend == "vision" else 0
+    n = rows * (prefix + t)
+    gqa = n * d * (es + 4) if fits(cfg.num_heads) and fits(
+        cfg.num_kv_heads) else 0
+    total = 0
+    for kind in cfg.layer_kinds():
+        if kind == "mla" and fits(cfg.num_heads):
+            m = cfg.mla
+            total += n * (d + m.kv_lora_rank + m.rope_head_dim) * es \
+                + n * d * 4
+        elif kind in tf_mod.GQA_KINDS:
+            total += gqa
+    if cfg.moe is not None and fits(cfg.moe.num_experts):
+        total += len(tf_mod.moe_layer_ids(cfg)) * (
+            n * d * es + n * cfg.moe.top_k * 4 + n * d * 4)
+    if cfg.encdec is not None:
+        e, s = cfg.encdec, rows * cfg.frontend_len
+        if fits(e.enc_heads):
+            total += e.enc_layers * s * d * (es + 4)
+        if gqa:
+            total += cfg.num_layers * (gqa + s * d * es)
+    if fits(cfg.vocab_size):
+        m = rows * (t - 1)
+        total += rows * t * d * 4 + m * d * es + 3 * 4 * m * (
+            2 if chunked else 1)
+    return total
 
 
 def _deep_step(mesh=None):
@@ -243,6 +285,123 @@ def _deep_step(mesh=None):
 OTHER_ARCHS = ("seamless-m4t-large-v2", "pixtral-12b", "mamba2-130m",
                "recurrentgemma-9b", "llama4-scout-17b-a16e",
                "deepseek-v2-236b")
+
+
+# the head- and vocabulary-parallel cases: one step of each reduced
+# architecture, from weights bridged from the reference's model.init, on
+# each ("data", "model") mesh: GQA with an untied head (internlm2), a
+# tied head and a local window (gemma3), the MoE beside GQA attention and
+# a vision prefix (Scout; its 2 KV heads do not divide "model" 4, so its
+# attention is gathered whole there), the encoder-decoder's self- and
+# cross-attention (seamless)
+GQA_ARCHS = ("internlm2-1.8b", "gemma3-27b", "llama4-scout-17b-a16e",
+             "seamless-m4t-large-v2")
+GQA_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+GQA_CASES = [f"{a}@{m}" for a in GQA_ARCHS for m in GQA_MESHES]
+
+
+def _gqa_batch(cfg):
+    """(tokens (B, T), the batch's frontend entry or None): the first
+    batch of :func:`_batches` and seeded patches or frames."""
+    tokens = _batches(cfg.vocab_size)[0]
+    key = {"vision": "patches", "audio": "frames"}.get(cfg.frontend)
+    if key is None:
+        return tokens, None
+    m = np.random.default_rng(3).normal(
+        size=(B, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32)
+    return tokens, {key: m}
+
+
+@contextlib.contextmanager
+def _gqa_recording(seen: dict):
+    """Add to ``seen`` the query and KV head counts every attention of
+    ``attention._sdpa`` computes, the rows of every embedding lookup and
+    the columns of the logits every loss takes."""
+    sdpa, lookup, logp = (attn_mod._sdpa, tf_mod.lookup,
+                          model_mod._target_logp)
+
+    def sdpa_rec(q, k, v, mask):
+        seen["heads"].add((q.shape[2] * q.shape[3], k.shape[2]))
+        return sdpa(q, k, v, mask)
+
+    def lookup_rec(w, tokens, vocab):
+        seen["emb_rows"].add(w.shape[0])
+        return lookup(w, tokens, vocab)
+
+    def logp_rec(logits, labels, vocab):
+        seen["vocab"].add(logits.shape[-1])
+        return logp(logits, labels, vocab)
+
+    attn_mod._sdpa, tf_mod.lookup, model_mod._target_logp = (
+        sdpa_rec, lookup_rec, logp_rec)
+    try:
+        yield
+    finally:
+        attn_mod._sdpa, tf_mod.lookup, model_mod._target_logp = (
+            sdpa, lookup, logp)
+
+
+def _gqa_rank(meshes, trees, out_dir, rank) -> dict:
+    """One step of each of ``GQA_CASES`` on this rank: its loss, the
+    counts it computed, its ``model_reduced_bytes``, its rows and each
+    leaf's shard dims; its gradient slices to ``out_dir``. Then
+    ``forward`` and ``prefill`` inside a sharded step, whose head is a
+    vocabulary shard: each must raise ``ValueError``."""
+    out = {}
+    for arch in GQA_ARCHS:
+        cfg = get_reduced(arch)
+        model = build_model(cfg)
+        whole = convert.backbone_from_jax(cfg, trees[arch], device="cpu")
+        tokens, modality = _gqa_batch(cfg)
+        modality = modality and {k: torch.from_numpy(v)
+                                 for k, v in modality.items()}
+        for label, shape in GQA_MESHES.items():
+            mesh = next(m for (sh, ax), m in meshes.items()
+                        if sh == shape and ax == ("data", "model"))
+            params = sharding.shard_params(cfg, whole, mesh)
+            init_fn, update_fn = make_sharded_adamw(lr=LR, clip=1.0)
+            grads, stats = [], {}
+            seen = {"heads": set(), "emb_rows": set(), "vocab": set()}
+            rows = data_rows(cfg, mesh, B, T)
+            with _gqa_recording(seen):
+                _, loss, _, _ = mesh_train_step(
+                    model, params, _capturing(update_fn, grads),
+                    init_fn(params), torch.from_numpy(tokens), modality,
+                    rows=rows, stats=stats)
+            key = f"{arch}@{label}"
+            out[key] = {
+                "loss": loss.item(), "heads": sorted(seen["heads"]),
+                "emb_rows": sorted(seen["emb_rows"]),
+                "vocab": sorted(seen["vocab"]),
+                "model_reduced": stats.get("model_reduced_bytes"),
+                "rows": None if rows is None else [rows.start, rows.stop],
+                "coordinate": mesh.get_coordinate(),
+                "paths": [k for k, _ in named_leaves(params)],
+                "shard_dims": [[q.dim if q.is_shard() else None
+                                for q in p.placements]
+                               for _, p in named_leaves(params)],
+                "alive": sharding.gathered_alive_bytes()}
+            np.savez(os.path.join(out_dir, f"gqa_{key}_{rank}.npz"),
+                     **{k: g.numpy() for (k, _), g in
+                        zip(named_leaves(params), grads[0])})
+    refused = {}
+    cfg = get_reduced("internlm2-1.8b")
+    model = build_model(cfg)
+    mesh = meshes[(2, 2), ("data", "model")]
+    params = sharding.shard_params(cfg, model.init(
+        torch.Generator().manual_seed(0), device="cpu"), mesh)
+    batch = {"tokens": torch.from_numpy(_batches(cfg.vocab_size)[0])}
+    for name, call in (("forward", lambda: model.forward(params, batch)),
+                       ("prefill", lambda: model.prefill(params, batch,
+                                                         2 * T))):
+        try:
+            with shardctx.gathering(sharding.Gatherer(params, False)):
+                call()
+            refused[name] = None
+        except ValueError as exc:
+            refused[name] = str(exc)
+    out["refused"] = refused
+    return out
 
 
 # (name, mesh, spec) of the reduce-scatter helper's checks: a 2-rank data
@@ -282,7 +441,7 @@ def _reduce_checks(meshes, rank) -> dict:
     return out
 
 
-def _rank(rank, world, rendezvous, out_dir, ref_tree):
+def _rank(rank, world, rendezvous, out_dir, ref_tree, gqa_trees):
     """One rank: every case through ``mesh_train_step``, then the sharded
     checkpoint, a pod-major slice, ``train(production_mesh=)`` and its
     refusals. Writes its report (and rank 0 the gathered trees) to
@@ -390,6 +549,7 @@ def _rank(rank, world, rendezvous, out_dir, ref_tree):
         report["deep"] = dict(zip(("loss", "grad_norm", "stats", "alive",
                                    "largest_unit"), deep))
         report["reduce_checks"] = _reduce_checks(meshes, rank)
+        report["gqa"] = _gqa_rank(meshes, gqa_trees, out_dir, rank)
         report["other_archs"] = {}
         for arch in OTHER_ARCHS:
             lines = []
@@ -440,12 +600,12 @@ def _rank(rank, world, rendezvous, out_dir, ref_tree):
         dist.destroy_process_group()
 
 
-def _spawn(out_dir, ref_tree):
+def _spawn(out_dir, ref_tree, gqa_trees):
     """Run ``_rank`` on ``WORLD`` spawned processes; fail on a rank that
     raises, dies or outlasts ``JOIN_TIMEOUT_S``."""
     ctx = mp.start_processes(
         _rank, args=(WORLD, os.path.join(out_dir, "rendezvous"), out_dir,
-                     ref_tree),
+                     ref_tree, gqa_trees),
         nprocs=WORLD, join=False, start_method="spawn")
     deadline = time.monotonic() + JOIN_TIMEOUT_S
     try:
@@ -474,6 +634,10 @@ def _spawn(out_dir, ref_tree):
                                       f"routed_{name}_{r}.npz")) as f:
                 routed[name].append([f[f"arr_{i}"]
                                      for i in range(len(f.files))])
+    for key in GQA_CASES:
+        slices[key] = [dict(np.load(os.path.join(out_dir,
+                                                 f"gqa_{key}_{r}.npz")))
+                       for r in range(WORLD)]
     return ranks, gathered, slices, routed
 
 
@@ -494,8 +658,33 @@ def run(tmp_path_factory):
         rcfg0 = r_get_reduced(ARCH)
         ref_tree = jax.tree.map(np.asarray, r_build_model(rcfg0).init(
             jax.random.PRNGKey(0)))
+        gqa_trees = {arch: jax.tree.map(np.asarray, r_build_model(
+            r_get_reduced(arch)).init(jax.random.PRNGKey(0)))
+            for arch in GQA_ARCHS}
         out = tmp_path_factory.mktemp("mesh_train")
-        ranks, gathered, slices, routed = _spawn(str(out), ref_tree)
+        ranks, gathered, slices, routed = _spawn(str(out), ref_tree,
+                                                 gqa_trees)
+        gqa_single, gqa_reference = {}, {}
+        for arch in GQA_ARCHS:         # one device, and the reference's loss
+            cfg = get_reduced(arch)
+            tokens, modality = _gqa_batch(cfg)
+            params, leaves = trainable(convert.backbone_from_jax(
+                cfg, gqa_trees[arch], device="cpu"))
+            init_fn, update_fn = make_adamw(lr=LR, clip=1.0)
+            grads = []
+            _, loss, _, _ = train_step(
+                build_model(cfg), params, leaves,
+                _capturing(update_fn, grads), init_fn(params),
+                torch.from_numpy(tokens),
+                modality and {k: torch.from_numpy(v)
+                              for k, v in modality.items()})
+            gqa_single[arch] = (loss.item(), [g.numpy() for g in grads[0]])
+            rmodel = r_build_model(r_get_reduced(arch))
+            batch = {"tokens": jnp.asarray(tokens),
+                     **{k: jnp.asarray(v) for k, v in
+                        (modality or {}).items()}}
+            gqa_reference[arch] = float(jax.jit(rmodel.loss_fn)(
+                gqa_trees[arch], batch)[0])
         single, reference, replayed, single_routed = {}, {}, {}, {}
         for group in sorted({g for _, _, g in CASES.values()}):
             cfg = _cfg(get_reduced, group)
@@ -558,7 +747,8 @@ def run(tmp_path_factory):
                    replayed=replayed, reference=reference, seeded=seeded,
                    seeded_lines=seeded_lines, out=out,
                    single_save=single_save, deep=deep, slices=slices,
-                   others=others)
+                   others=others, gqa_single=gqa_single,
+                   gqa_reference=gqa_reference)
     finally:
         torch.set_num_threads(n)
 
@@ -928,11 +1118,15 @@ def test_each_rank_computes_its_experts_and_heads(run, case):
 def test_model_leaf_gradients_need_no_model_exchange(run):
     """At ``"model"`` 4, the only exchanges of a step on the ``"model"``
     group are the gathers of the leaves gathered whole and the regions'
-    all-reduces of activations and their gradients; no reduce-scatter or
-    gradient-sized all-reduce runs there, so each expert and MLA head
-    leaf's gradient comes back from the rank's own compute as its shard
-    (equal to the single-device slice:
-    ``test_gradient_slices_equal_single_device_slices``)."""
+    all-reduces of activations, their gradients and the loss's per-token
+    statistics; no reduce-scatter or gradient-sized all-reduce runs
+    there, so each expert, MLA head and vocabulary leaf's gradient comes
+    back from the rank's own compute as its shard (equal to the
+    single-device slice: ``test_gradient_slices_equal_single_device_
+    slices``). Over the B x T tokens: each MLA layer's four, each MoE
+    layer's three and the embedding's sum; over the B x (T - 1) scored
+    tokens: the head input's gradient, the maximum logit and the stacked
+    sum of exponentials and target logit."""
     cfg = get_reduced(ARCH)
     for rep in run["ranks"]:
         c = rep["cases"]["model-parallel"]
@@ -941,11 +1135,14 @@ def test_model_leaf_gradients_need_no_model_exchange(run):
         kinds = {x[0] for x in on_model}
         assert kinds == {"all_gather_into_tensor", "all_reduce"}
         reduced = [x for x in on_model if x[0] == "all_reduce"]
+        tokens = [x for x in reduced if math.prod(x[2][:-1]) == B * T]
         assert all(x[2][-1] in (cfg.d_model, cfg.mla.kv_lora_rank,
                                 cfg.mla.rope_head_dim, cfg.moe.top_k)
-                   and math.prod(x[2][:-1]) == B * T for x in reduced)
+                   for x in tokens)
         n_moe = cfg.num_layers - cfg.moe.first_dense_layers
-        assert len(reduced) == 4 * cfg.num_layers + 3 * n_moe
+        assert len(tokens) == 4 * cfg.num_layers + 3 * n_moe + 1
+        assert sorted(x[2] for x in reduced if x not in tokens) == \
+            [[2, B, T - 1], [B, T - 1], [B, T - 1, cfg.d_model]]
         assert sum(x[3] for x in reduced) == \
             c["steps"][0]["stats"]["model_reduced_bytes"]
 
@@ -959,8 +1156,8 @@ def test_model_reduced_bytes_match_formula(run, case):
     for rep in run["ranks"]:
         c = rep["cases"][case]
         rows = B if c["rows"] is None else c["rows"][1] - c["rows"][0]
-        want = (model_reduced_formula(cfg, rows, T)
-                if CASES[case][0][-1] > 1 else None)
+        n = CASES[case][0][-1]
+        want = model_reduced_formula(cfg, rows, T, n) if n > 1 else None
         assert [s["stats"].get("model_reduced_bytes") for s in c["steps"]] \
             == [want] * STEPS
 
@@ -972,44 +1169,242 @@ class _StandIn:
         self.axis_names, self.shape = tuple(shape), shape
 
 
+@functools.lru_cache(maxsize=None)
+def _rule_leaves(arch: str, full: bool) -> tuple:
+    """[(path, shape)] of the port's tree of ``arch``'s reduced or full
+    config (built on the meta device under ``FakeTensorMode``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    cfg = (get_config if full else get_reduced)(arch)
+    with FakeTensorMode():
+        tree = build_model(cfg).init(torch.Generator(), device="meta")
+        return tuple((k, tuple(t.shape)) for k, t in named_leaves(tree))
+
+
 @pytest.mark.parametrize("n_model", [1, 2, 3, 4])
 def test_rule_computes_along_model_only_where_it_divides(n_model):
-    """``sharding.model_computed`` names every expert and MLA head leaf of
-    the reduced config (16 experts, 4 heads) where ``"model"`` divides
-    both counts, and none where it divides neither (3: the halves are
-    gathered whole); never the router, the latent, the shared experts,
-    the dense FFN, the norms, the embedding or the head. 236B's
-    ``q_lora_rank`` path takes ``w_uq``, not ``w_dq``."""
-    for arch, heads in ((ARCH, "w_q"), ("deepseek-v2-236b", "w_uq")):
-        cfg = get_reduced(arch)
-        mesh = _StandIn(data=2, model=n_model)
-        tree = build_model(cfg).init(torch.Generator().manual_seed(0),
-                                     device="meta")
-        specs = {path: sharding.param_spec(path, t.shape, cfg, mesh)
-                 for path, t in named_leaves(tree)}
-        got = sharding.model_computed(specs)
-        divides = (cfg.moe.num_experts % n_model == 0
-                   and cfg.num_heads % n_model == 0)
-        want = set()
-        if divides:
-            for i in range(cfg.num_layers):
-                want |= {f"layers/{i}/attn/{k}"
-                         for k in (heads, "w_uk", "w_uv", "wo")}
-                if i >= cfg.moe.first_dense_layers:
-                    want |= {f"layers/{i}/moe/{k}"
-                             for k in ("w_gate", "w_up", "w_down")}
-        assert got == want, (arch, n_model)
+    """``sharding.model_computed`` names, for every registered
+    architecture's reduced and full config: every expert leaf where
+    ``"model"`` divides the experts; every MLA head leaf where it
+    divides the heads (236B's ``q_lora_rank`` path takes ``w_uq``, not
+    ``w_dq``); every GQA half (``attn``, the encoder-decoder's
+    ``self_attn``/``cross_attn`` and encoder ``attn``) where it divides
+    both the query and the KV heads, none where the KV heads do not
+    divide (Scout's 2 reduced KV heads at 4, recurrentgemma's one);
+    ``tok_emb`` and the untied ``head`` where it divides the vocabulary;
+    never the router, the latent, the shared experts, dense FFNs, norms
+    or ``frontend_proj``. A half one of whose head leaves has a later dim
+    of a head count (236B's ``w_uk``: 128 nope dims for 128 heads) gets
+    ``"model"`` there by the reference's rule (the last such dim), and is
+    gathered whole. Each rank's query heads of a named GQA half are
+    exactly those of its KV heads, as ``local_slice`` chunks them."""
+    def fits(c):
+        return c % n_model == 0 and c >= n_model
+
+    def heads_on(shape, dim):       # the head rule lands on dim
+        return not any(shape[i] in (h, kvh) and fits(shape[i])
+                       for i in range(dim + 1, len(shape)))
+    mesh = _StandIn(data=2, model=n_model)
+    for arch in sorted(_ARCH_MODULES):
+        for full in (False, True):
+            cfg = (get_config if full else get_reduced)(arch)
+            leaves = _rule_leaves(arch, full)
+            specs = {path: sharding.param_spec(path, shape, cfg, mesh)
+                     for path, shape in leaves}
+            got = sharding.model_computed(specs)
+            shapes = dict(leaves)
+            h, kvh = cfg.num_heads, cfg.num_kv_heads
+            gqa = fits(h) and fits(kvh)
+            halves = {"moe": ("w_gate", "w_up", "w_down"),
+                      "mla": ("w_uq" if cfg.mla and cfg.mla.q_lora_rank
+                              else "w_q", "w_uk", "w_uv", "wo"),
+                      "gqa": ("wq", "wk", "wv", "wo")}
+            want = {p for p in ("tok_emb", "head")
+                    if p in specs and fits(cfg.vocab_size)}
+            prefix = "layers"
+            if cfg.encdec is not None:
+                assert cfg.encdec.enc_heads == h == kvh
+                prefix = "decoder"
+                for i in range(cfg.encdec.enc_layers):
+                    want |= {f"encoder/layers/{i}/attn/{k}"
+                             for k in halves["gqa"] if gqa}
+
+            def half(path, names):
+                paths = [f"{path}/{k}" for k in names]
+                dims = [0 if k == "wo" else 1 for k in names]
+                return set(paths) if all(
+                    heads_on(shapes[p], d) for p, d in zip(paths, dims)) \
+                    else set()
+            for i, kind in enumerate(cfg.layer_kinds()):
+                for sub in (("self_attn", "cross_attn") if cfg.encdec
+                            else ("attn",)):
+                    if kind == "mla" and fits(h):
+                        want |= half(f"{prefix}/{i}/{sub}", halves["mla"])
+                    elif kind in tf_mod.GQA_KINDS and gqa:
+                        want |= half(f"{prefix}/{i}/{sub}", halves["gqa"])
+                if f"{prefix}/{i}/moe/w_gate" in specs \
+                        and fits(cfg.moe.num_experts):
+                    want |= {f"{prefix}/{i}/moe/{k}" for k in halves["moe"]}
+            assert got == want, (arch, full, n_model)
+            if gqa:                     # the heads a rank computes align
+                group = h // kvh
+                for q, kv in zip(torch.arange(h).chunk(n_model),
+                                 torch.arange(kvh).chunk(n_model)):
+                    assert torch.equal(torch.unique(q // group), kv)
 
 
 def test_regions_are_identities_outside_gathering():
     """Outside ``shardctx.gathering`` (serving, one device) the region
     boundaries hand back their argument and its gradient unchanged, and
-    this rank is ``"model"`` index 0 of 1."""
+    this rank is ``"model"`` index 0 of 1. The vocabulary-parallel
+    lookup, logits and loss, given the whole vocabulary, equal the plain
+    lookup, ``x @ w`` and the plain (and chunked) log-softmax loss bit
+    for bit, gradients included."""
     x = torch.randn(3, 4, requires_grad=True)
     assert shardctx.enter_model(x) is x
     assert shardctx.leave_model(x) is x
+    assert shardctx.model_max(x) is x
     assert shardctx.model_shard() == (0, 1)
     g = torch.randn(3, 4)
     (got,) = torch.autograd.grad(shardctx.leave_model(
         shardctx.enter_model(x)), x, g)
     assert torch.equal(got, g)
+
+    gen = torch.Generator().manual_seed(5)
+    v, d = 64, 8
+    w = torch.randn(v, d, generator=gen, requires_grad=True)
+    head = torch.randn(d, v, generator=gen, requires_grad=True)
+    tokens = torch.randint(0, v, (2, 10), generator=gen)
+    labels = tokens[:, 1:]
+
+    def plain_chunk(xc, yc):            # the loss before the vocabulary split
+        logp = torch.log_softmax((xc @ head).float(), dim=-1)
+        return logp.gather(-1, yc[..., None].long())[..., 0].sum()
+
+    def plain():
+        h = w[tokens.long()][:, :-1]
+        logp = torch.log_softmax((h @ head).float(), dim=-1)
+        whole = -logp.gather(-1, labels[..., None].long())[..., 0].mean()
+        tot = torch.zeros(())
+        for i in range(0, h.shape[1], 4):
+            tot = tot + recompute(plain_chunk, h[:, i:i + 4],
+                                  labels[:, i:i + 4], use_reentrant=False)
+        return whole, -tot / labels.numel()
+
+    def split():
+        h = tf_mod.lookup(w, tokens, v)[:, :-1]
+        whole = model_mod._xent(tf_mod.vocab_logits(h, head, v, True),
+                                labels, v)
+        with _chunked_loss(4):
+            chunked = model_mod._xent_chunked(
+                h, labels, lambda hc: tf_mod.vocab_logits(hc, head, v, True),
+                v)
+        return whole, chunked
+
+    for a, b in zip(plain(), split()):
+        assert torch.equal(a, b)
+        for ga, gb in zip(torch.autograd.grad(a, (w, head),
+                                              retain_graph=True),
+                          torch.autograd.grad(b, (w, head),
+                                              retain_graph=True)):
+            assert torch.equal(ga, gb)
+    with pytest.raises(ValueError, match="only the loss"):
+        tf_mod.vocab_logits(x, head[:, : v // 2], v)
+
+
+@pytest.mark.parametrize("kind", ["global", "local", "cross"])
+def test_head_shards_sum_to_the_whole_attention(kind):
+    """Outside a sharded step (the regions identities), a GQA
+    sub-block on each ``"model"`` rank's head shard (query heads and
+    their KV heads, ``wo``'s rows) gives a partial output, and the
+    partials sum to the whole sub-block's within 1e-5: self-attention in
+    full mode (gemma3's local window and a global layer) and the
+    cross-attention with its memory, whose query grouping reads the
+    shard's head count."""
+    cfg = get_reduced("seamless-m4t-large-v2" if kind == "cross"
+                      else "gemma3-27b")
+    gen = torch.Generator().manual_seed(6)
+    p = attn_mod.attn_init(gen, cfg, torch.float32, "cpu")
+    x = torch.randn(2, 40, cfg.d_model, generator=gen)
+    enc = torch.randn(2, 24, cfg.d_model, generator=gen)
+    positions = torch.arange(x.shape[1])
+
+    def apply(q):
+        if kind == "cross":
+            return attn_mod.cross_attn_apply(
+                q, cfg, x, attn_mod.cross_attn_memory(q, cfg, enc))
+        return attn_mod.attn_apply(q, cfg, kind, x, positions, "full")[0]
+
+    n = 2
+    shards = [{"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+              for wq, wk, wv, wo in zip(
+                  p["wq"].chunk(n, 1), p["wk"].chunk(n, 1),
+                  p["wv"].chunk(n, 1), p["wo"].chunk(n, 0))]
+    assert shards[0]["wq"].shape[1] == cfg.num_heads // n
+    np.testing.assert_allclose(sum(apply(q) for q in shards).numpy(),
+                               apply(p).numpy(), **TOL)
+
+
+def _gqa_key(key):
+    arch, label = key.split("@")
+    return arch, get_reduced(arch), GQA_MESHES[label]
+
+
+@pytest.mark.parametrize("key", GQA_CASES)
+def test_gqa_and_vocab_parallel_step_matches_one_device_and_reference(
+        run, key):
+    """One sharded step of each head- and vocabulary-parallel case:
+    every rank's loss within 1e-5 of the port's single-device step and
+    within ``REF_LOSS_TOL`` of the reference's ``loss_fn`` on the same
+    bridged weights and batch; no gathered storage alive after it."""
+    arch, _, _ = _gqa_key(key)
+    want, _ = run["gqa_single"][arch]
+    for rep in run["ranks"]:
+        got = rep["gqa"][key]
+        np.testing.assert_allclose(got["loss"], want, **TOL)
+        assert abs(got["loss"] - run["gqa_reference"][arch]) <= REF_LOSS_TOL
+        assert got["alive"] == 0
+
+
+@pytest.mark.parametrize("key", GQA_CASES)
+def test_gqa_gradient_slices_equal_single_device_slices(run, key):
+    """Each rank's gradient slices (query, KV and output heads, the
+    vocabulary rows and columns included) within 1e-5 of the same slices
+    of the single-device gradient."""
+    arch, _, shape = _gqa_key(key)
+    _, want = run["gqa_single"][arch]
+    for rep, got in zip(run["ranks"], run["slices"][key]):
+        c = rep["gqa"][key]
+        assert sorted(got) == sorted(c["paths"])
+        assert len(c["paths"]) == len(want)
+        for k, g, dims in zip(c["paths"], want, c["shard_dims"]):
+            np.testing.assert_allclose(
+                got[k], _np_slice(g, dims, c["coordinate"], shape),
+                err_msg=k, **TOL)
+
+
+@pytest.mark.parametrize("key", GQA_CASES)
+def test_gqa_ranks_compute_their_heads_and_vocabulary(run, key):
+    """A rank's attention computes H/n query heads over KVH/n KV heads
+    where ``"model"`` (n) divides both, else all of them; its embedding
+    looks up in V/n rows and its loss takes V/n columns of logits; its
+    ``model_reduced_bytes`` is the formula's for its rows."""
+    _, cfg, shape = _gqa_key(key)
+    n = shape[-1]
+    split = cfg.num_heads % n == 0 and cfg.num_kv_heads % n == 0
+    h, kvh = ((cfg.num_heads // n, cfg.num_kv_heads // n) if split
+              else (cfg.num_heads, cfg.num_kv_heads))
+    for rep in run["ranks"]:
+        c = rep["gqa"][key]
+        assert c["heads"] == [[h, kvh]]
+        assert c["emb_rows"] == c["vocab"] == [cfg.vocab_size // n]
+        rows = B if c["rows"] is None else c["rows"][1] - c["rows"][0]
+        assert c["model_reduced"] == model_reduced_formula(cfg, rows, T, n)
+
+
+def test_partial_logits_are_refused_in_a_sharded_step(run):
+    """``forward`` and ``prefill`` inside a sharded step whose head is a
+    vocabulary shard raise ``ValueError`` rather than return a part of
+    the vocabulary."""
+    for rep in run["ranks"]:
+        for name, msg in rep["gqa"]["refused"].items():
+            assert msg is not None and "only the loss" in msg, name

@@ -226,8 +226,9 @@ def test_xent_chunked_matches_xent_and_reference(monkeypatch):
     xt = x[:, :-1]
     assert xt.shape[1] % T_model._XENT_CHUNK == 7
     chunked = T_model._xent_chunked(
-        xt, labels, lambda h: T_T.unembed(tparams, tcfg, h))
-    plain = T_model._xent(T_T.unembed(tparams, tcfg, xt), labels)
+        xt, labels, lambda h: T_T.unembed(tparams, tcfg, h), tcfg.vocab_size)
+    plain = T_model._xent(T_T.unembed(tparams, tcfg, xt), labels,
+                          tcfg.vocab_size)
     assert abs(chunked.item() - plain.item()) <= 1e-6
     assert abs(chunked.item() - ref) <= 1e-5 * abs(ref)
     g_chunk = torch.autograd.grad(chunked, leaves, retain_graph=True)

@@ -3187,10 +3187,15 @@ def dispatch_run(torch, np, dev):
 # DeepSeek-V2-Lite, 2 layers, its seed and lr) 2 steps at B 8 x S 1024:
 # 4 rows a data rank, one whole dispatch group of 4,096 tokens; then, in
 # the same spawn, full-width internlm2-1.8b (GQA, an untied head) at the
-# same depth, steps, batch and seed
+# same depth, steps, batch and seed. DeepSeek-V2-Lite's runs go under the
+# reference's activation sharding (``remat``): each scanned layer group
+# recomputed, the sequence on "model" between groups (``act_spec``), its
+# reduced run also without it
 MESH_TRAIN = dict(ranks=4, mesh=(2, 2), batch=8, seq=1024, steps=2,
                   timeout_s=300.0, f32_tol=1e-5,
-                  archs=("deepseek-v2-lite", "internlm2-1.8b"))
+                  archs=("deepseek-v2-lite", "internlm2-1.8b"),
+                  remat=("deepseek-v2-lite",), act_spec=("data", "model",
+                                                         None))
 # each rank's peak device memory in the mesh_train phase must stay below
 # the highest rank's peak when every rank gathered the whole tree and
 # all-reduced whole gradients (10,385,082,368 B on an NVIDIA H100 80GB
@@ -3207,6 +3212,12 @@ PER_LAYER_MESH_PEAK_BYTES = 8_630_632_448
 # whole vocabulary's logits (7,907,950,592 B on an NVIDIA H100 80GB HBM3
 # at 700.00 W, torch 2.11): a vocabulary shard halves the logits chunk
 MODEL_PARALLEL_MESH_PEAK_BYTES = 7_907_950_592
+# ... and DeepSeek-V2-Lite's below the highest rank's peak with the
+# vocabulary along "model" too, with no recomputation (6,365,476,352 B on
+# an NVIDIA H100 80GB HBM3 at 700.00 W, torch 2.11): recomputing its
+# scanned MoE layer keeps that layer's input shard in place of its
+# activations
+VOCAB_PARALLEL_MESH_PEAK_BYTES = 6_365_476_352
 # the bf16 losses' tolerance, relative: the f32 run holds the sharded step
 # to the single-device one within f32_tol, so what is left between the
 # bf16 runs is bfloat16 rounding of products whose row counts differ (4
@@ -3258,6 +3269,73 @@ def model_reduced_want(cfg, rows: int, seq: int) -> int:
     return total + n * d * 4 + m * d * es + 3 * 4 * m * (2 if chunked else 1)
 
 
+def mesh_act_want(cfg, rows: int, seq: int, n_model: int) -> dict:
+    """The activation sharding's bytes a rank exchanges over ``"model"``
+    in one step of ``rows`` x ``seq`` tokens with every scanned group
+    recomputed and the sequence on ``"model"`` between groups
+    (``launch/shardctx``; ``"model"`` dividing the sequence, the heads
+    and the experts): ``model_gathered`` the shards a group's start
+    gathers (forward and recomputation), the tail's, and the gradient
+    shards of each group's end and of the first group's start, (3
+    groups + 2) shards of ``n_model - 1`` ranks in the model's dtype;
+    ``model_scattered`` each MoE-ending group's float32 output, twice;
+    ``reduced_delta`` what ``model_reduced_bytes`` gains over
+    :func:`model_reduced_want` where every attention computes along
+    ``"model"`` and every MoE layer ends its group: the recomputation
+    repeats each group layer's attention exit (float32), and a MoE exit
+    that ends a group is scattered in place of all-reduced."""
+    import torch
+    from repro_torch.models.transformer import _layer_is_moe, _layer_split
+    es = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    n, d = rows * seq, cfg.d_model
+    n_head, groups, _ = _layer_split(cfg)
+    pat = len(cfg.block_pattern)
+    moe_end = sum(_layer_is_moe(cfg, n_head + (g + 1) * pat - 1)
+                  for g in range(groups))
+    return {"model_gathered": (3 * groups + 2) * (n_model - 1)
+            * (n // n_model) * d * es,
+            "model_scattered": 2 * moe_end * n * d * 4,
+            "reduced_delta": (groups * pat - moe_end) * n * d * 4}
+
+
+def mesh_gathered_want(model, whole, mesh, remat: bool) -> int:
+    """``gathered_bytes`` of one step: what a rank receives to gather
+    each unit of ``whole`` (every sharded leaf as gathered, less its own
+    shard), the embedding once (its backward pass reads no weight), each
+    layer twice (for its backward pass; a recomputed group's layer but
+    the last three times, as one unit is held at a time), the head once
+    (its chunks' recomputation finds it held)."""
+    import numpy as np
+    from repro_torch.launch import sharding
+    from repro_torch.models.transformer import _layer_split
+    from repro_torch.training.optimizer import named_leaves
+    named = named_leaves(whole)
+    specs = {p: sharding.param_spec(p, t.shape, model.cfg, mesh)
+             for p, t in named}
+    along, path_of = sharding.model_computed(specs), {
+        id(t): p for p, t in named}
+
+    def received(unit):
+        total = 0
+        for _, t in named_leaves(unit):
+            spec = specs[path_of[id(t)]]
+            axes = [a for ax in spec if ax is not None
+                    for a in (ax if isinstance(ax, tuple) else (ax,))]
+            full = t.numel() * t.element_size()
+            if axes:
+                total += full // (mesh.shape["model"] if path_of[id(t)]
+                                  in along else 1) - full // int(np.prod(
+                                      [mesh.shape[a] for a in axes]))
+        return total
+    embed, *layers, head = model.units(whole)
+    n_head, groups, _ = _layer_split(model.cfg)
+    pat = len(model.cfg.block_pattern)
+    third = {n_head + g * pat + j for g in range(groups)
+             for j in range(pat - 1)} if remat else set()
+    return received(embed) + received(head) + sum(
+        (3 if i in third else 2) * received(u) for i, u in enumerate(layers))
+
+
 def mesh_unit_shapes(cfg, n_model: int) -> dict:
     """The shapes a ``"model"`` rank computes with, gathered: this rank's
     vocabulary shard of ``tok_emb`` and of the head (``w`` of the head
@@ -3288,10 +3366,15 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
     config in float32 (its gathered parameters written by rank 0), then
     full width at 2 layers in bfloat16 with the launches, peak memory and
     the shapes of every gathered unit's leaves counted; a digest of every
-    MoE layer's routed ids a step in each. ``device`` is ``"cuda"``
+    MoE layer's routed ids a step in each, the recomputation's too. A
+    model of ``c["remat"]`` trains full width under
+    ``shardctx.activation_sharding(c["act_spec"], remat=True)``, and its
+    reduced config both without and with it. ``device`` is ``"cuda"``
     (``"cpu"`` rehearses the phase on the plain path). Writes its report
     to ``out_dir``: the first model's figures at its top, the others'
     under their names."""
+    import contextlib
+
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3341,24 +3424,39 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
                    seq_len=c["seq"], lr=CHECKPOINT["lr"], seed=SEED,
                    device=dev, production_mesh=mesh)
 
-        def model_run(arch):
-            t_small = time.perf_counter()
+        def context(arch):
+            if arch not in c["remat"]:
+                return contextlib.nullcontext()
+            return shardctx.activation_sharding(c["act_spec"], remat=True,
+                                                mesh=mesh)
+
+        def small_run(arch, name, ctx):
             rlines = []
             routed[:] = []
-            small, small_losses = train(get_reduced(arch),
-                                        log=rlines.append, **run)
-            small_peak = [int(re.search(r"gathered_peak=(\d+)B",
-                                        ln).group(1))
-                          for ln in rlines if ln.startswith("step ")]
-            small_bound = int(re.search(r"gathers at most (\d+) B",
-                                        rlines[1]).group(1))
-            small_routed, routed[:] = list(routed), []
+            with ctx:
+                small, small_losses = train(get_reduced(arch),
+                                            log=rlines.append, **run)
+            steps = [ln for ln in rlines if ln.startswith("step ")]
             small = {k: sharding.full_tensor(t).cpu().numpy()
                      for k, t in named_leaves(small)}
             if rank == 0:
-                np.savez(os.path.join(out_dir, f"small_{arch}.npz"),
+                np.savez(os.path.join(out_dir, f"{name}_{arch}.npz"),
                          **small)
-            del small
+            return {"losses": small_losses, "first_line": rlines[0],
+                    "gathered_peak_bytes_per_step": [
+                        int(re.search(r"gathered_peak=(\d+)B",
+                                      ln).group(1)) for ln in steps],
+                    "largest_unit_bytes": int(re.search(
+                        r"gathers at most (\d+) B", rlines[1]).group(1)),
+                    "bytes_per_step": [step_bytes(ln) for ln in steps],
+                    "routed": list(routed)}
+
+        def model_run(arch):
+            t_small = time.perf_counter()
+            sm = small_run(arch, "small", contextlib.nullcontext())
+            small_remat = (small_run(arch, "small_remat", context(arch))
+                           if arch in c["remat"] else None)
+            routed[:] = []
             small_s = time.perf_counter() - t_small
             cfg = get_config(arch).replace(num_layers=CHECKPOINT["layers"])
             want_params = want_moments = 0
@@ -3381,7 +3479,7 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
             reset_launch_counts()
             shapes.clear()
             t0 = time.perf_counter()
-            with RssPeak() as rss:
+            with RssPeak() as rss, context(arch):
                 params, losses = train(cfg, log=note, **run)
                 if on_card:
                     torch.cuda.synchronize()
@@ -3393,8 +3491,9 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
             step_at = [t for t, ln in stamps if ln.startswith("step ")]
             del params
             return {
-                "small_s": small_s, "small_losses": small_losses,
-                "small_first_line": rlines[0], "losses": losses,
+                "small_s": small_s, "small_losses": sm["losses"],
+                "small_first_line": sm["first_line"],
+                "small_remat": small_remat, "losses": losses,
                 "first_line": lines[0],
                 "data_parallel": "batch=data-parallel" in lines[0],
                 "param_bytes": int(held.group(1)),
@@ -3410,13 +3509,12 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
                     for ln in lines if ln.startswith("step ")],
                 "bytes_per_step": [step_bytes(ln) for ln in lines
                                    if ln.startswith("step ")],
-                "small_model_reduced_per_step": [
-                    step_bytes(ln)["model_reduced"] for ln in rlines
-                    if ln.startswith("step ")],
-                "routed": list(routed), "small_routed": small_routed,
+                "small_bytes_per_step": sm["bytes_per_step"],
+                "routed": list(routed), "small_routed": sm["routed"],
                 "largest_unit_bytes": int(held.group(4)),
-                "small_gathered_peak_bytes_per_step": small_peak,
-                "small_largest_unit_bytes": small_bound,
+                "small_gathered_peak_bytes_per_step":
+                    sm["gathered_peak_bytes_per_step"],
+                "small_largest_unit_bytes": sm["largest_unit_bytes"],
                 "gathered_alive_after_bytes":
                     sharding.gathered_alive_bytes(),
                 "unit_shapes": sorted([k, list(s)] for k, s in shapes),
@@ -3439,35 +3537,59 @@ def mesh_train_rank(rank: int, world: int, rendezvous: str, out_dir: str,
         dist.destroy_process_group()
 
 
+def recomputed_as_routed(routed: list, n_moe: int) -> bool:
+    """Whether each step's digests (``n_moe`` forward ones, then the
+    recomputation's of the same layers, scanned one a group, in reverse)
+    show the recomputation routing as its forward pass did."""
+    steps = [routed[i:i + 2 * n_moe] for i in range(0, len(routed),
+                                                     2 * n_moe)]
+    return bool(steps) and all(len(st) == 2 * n_moe
+                               and st[n_moe:] == st[:n_moe][::-1]
+                               for st in steps)
+
+
 def mesh_train_check(arch: str, reps: list, single: dict, c: dict,
                      want: dict) -> None:
     """Fail unless every rank's report ``reps`` of ``arch`` holds: the
-    reduced float32 losses within ``f32_tol`` of one device's and the
-    full-width bfloat16 ones within ``BF16_LOSS_REL``; data-parallel rows;
-    the parameter and moment bytes its placements give; the launches of
-    ``want["launches"]``; every step's gathered peak equal to the largest
-    unit as gathered (the log's bound and the specs' count), none alive
-    after ``train``; ``model_reduced_bytes`` the shapes' count; the
-    vocabulary (and a GQA model's head) shards of
-    :func:`mesh_unit_shapes` as the only shapes of those leaves; and,
-    where the model routes, the two ``"model"`` ranks of each data rank
-    routing alike. ``single``: one device's losses; ``want``: the
-    spec-derived counts."""
+    reduced float32 losses (of each layout run) within ``f32_tol`` of one
+    device's and the full-width bfloat16 ones within ``BF16_LOSS_REL``;
+    data-parallel rows; the parameter and moment bytes its placements
+    give; the launches of ``want["launches"]``; every step's gathered
+    peak equal to the largest unit as gathered (the log's bound and the
+    specs' count), none alive after ``train``; every step's gathered and
+    ``"model"`` bytes as ``want["bytes"]`` gives them; the vocabulary
+    (and a GQA model's head) shards of :func:`mesh_unit_shapes` as the
+    only shapes of those leaves; under the activation sharding
+    (``want["remat"]``), the first lines naming it and every
+    recomputation routing as its forward pass; and, where the model
+    routes, the two ``"model"`` ranks of each data rank routing alike.
+    ``single``: one device's losses; ``want``: the spec-derived
+    counts."""
     tol = [BF16_LOSS_REL * abs(x) for x in single["losses"]]
+    named = f"remat=True act_spec={tuple(c['act_spec'])}"
     for rep in reps:
         label = f"mesh_train: {arch} rank {rep['rank']}"
-        err = max(abs(a - b) for a, b in zip(rep["small_losses"],
-                                             single["small_losses"]))
-        if not err <= c["f32_tol"]:
-            fail(f"{label}: reduced f32 losses {rep['small_losses']} "
-                 f"against {single['small_losses']}")
+        smalls = [("small", rep["small_losses"], rep["small_first_line"])]
+        if want["remat"]:
+            sr = rep["small_remat"]
+            smalls.append(("small_remat", sr["losses"], sr["first_line"]))
+        for run, losses, first in smalls:
+            err = max(abs(a - b) for a, b in zip(losses,
+                                                 single["small_losses"]))
+            if not err <= c["f32_tol"]:
+                fail(f"{label}: {run} f32 losses {losses} against "
+                     f"{single['small_losses']}")
+            if "batch=data-parallel" not in first:
+                fail(f"{label}: {run} did not run data-parallel: {first}")
         if not all(abs(a - b) <= t for a, b, t in zip(
                 rep["losses"], single["losses"], tol)):
             fail(f"{label}: losses {rep['losses']} against "
                  f"{single['losses']}")
-        if not (rep["data_parallel"]
-                and "batch=data-parallel" in rep["small_first_line"]):
+        if not rep["data_parallel"]:
             fail(f"{label}: did not run data-parallel: {rep['first_line']}")
+        if want["remat"] and not (named in rep["first_line"]
+                                  and named in smalls[1][2]):
+            fail(f"{label}: did not run with {named}: {rep['first_line']}")
         if rep["param_bytes"] != rep["want_param_bytes"] \
                 or rep["moment_bytes"] != rep["want_moment_bytes"]:
             fail(f"{label}: holds {rep['param_bytes']} B of parameters and "
@@ -3476,22 +3598,25 @@ def mesh_train_check(arch: str, reps: list, single: dict, c: dict,
         launches = {k: want["launches"].get(k, 0) for k in rep["launches"]}
         if rep["launches"] != launches:
             fail(f"{label}: launches {rep['launches']}, want {launches}")
-        for run, run_peak, bound in (
-                ("full", rep["gathered_peak_bytes_per_step"],
-                 rep["largest_unit_bytes"]),
-                ("small", rep["small_gathered_peak_bytes_per_step"],
-                 rep["small_largest_unit_bytes"])):
-            if not bound == want["unit"][run] \
-                    or run_peak != [bound] * c["steps"]:
-                fail(f"{label}: held {run_peak} B gathered at once, the "
-                     f"largest unit as gathered is {bound} B in the log, "
-                     f"{want['unit'][run]} B by the specs")
-        for run, got in (("full", [b["model_reduced"]
-                                   for b in rep["bytes_per_step"]]),
-                         ("small", rep["small_model_reduced_per_step"])):
-            if got != [want["reduced"][run]] * c["steps"]:
-                fail(f"{label}: all-reduced {got} B over \"model\" in the "
-                     f"{run} run, the shapes give {want['reduced'][run]} B")
+        runs = {"full": (rep["gathered_peak_bytes_per_step"],
+                         rep["largest_unit_bytes"], rep["bytes_per_step"]),
+                "small": (rep["small_gathered_peak_bytes_per_step"],
+                          rep["small_largest_unit_bytes"],
+                          rep["small_bytes_per_step"])}
+        if want["remat"]:
+            runs["small_remat"] = (sr["gathered_peak_bytes_per_step"],
+                                   sr["largest_unit_bytes"],
+                                   sr["bytes_per_step"])
+        for run, (run_peak, bound, got) in runs.items():
+            unit = want["unit"]["full" if run == "full" else "small"]
+            if not bound == unit or run_peak != [bound] * c["steps"]:
+                fail(f"{label}: held {run_peak} B gathered at once in the "
+                     f"{run} run, the largest unit as gathered is {bound} B "
+                     f"in the log, {unit} B by the specs")
+            for key, n in want["bytes"][run].items():
+                if [b[key] for b in got] != [n] * c["steps"]:
+                    fail(f"{label}: {key} {[b[key] for b in got]} B in the "
+                         f"{run} run, the shapes give {n} B a step")
         if rep["gathered_alive_after_bytes"] != 0:
             fail(f"{label}: {rep['gathered_alive_after_bytes']} B of "
                  "gathered weights alive after train returned")
@@ -3500,13 +3625,28 @@ def mesh_train_check(arch: str, reps: list, single: dict, c: dict,
             if got != [shape]:
                 fail(f"{label}: computed with {path} of shapes {got}, this "
                      f"rank's shard is {shape}")
+        if want["remat"]:
+            for run, routed, n_moe in (
+                    ("full", rep["routed"], want["moe_layers"]["full"]),
+                    ("small_remat", sr["routed"],
+                     want["moe_layers"]["small"])):
+                if not recomputed_as_routed(routed, n_moe):
+                    fail(f"{label}: the {run} run's recomputation routed "
+                         f"apart from its forward pass ({len(routed)} "
+                         "digests)")
     if not want["launches"]:                # no router: no ids to compare
         return
+    keys = ("routed", "small_routed") + (
+        ("small_remat_routed",) if want["remat"] else ())
     for rep in reps:           # the "model" ranks of a data rank route alike
+        rep = rep | {"small_remat_routed": (rep["small_remat"] or {}).get(
+            "routed")}
         for other in reps:
             if other["coordinate"][0] != rep["coordinate"][0]:
                 continue
-            for key in ("routed", "small_routed"):
+            other = other | {"small_remat_routed": (
+                other["small_remat"] or {}).get("routed")}
+            for key in keys:
                 if not rep[key] or rep[key] != other[key]:
                     fail(f"mesh_train: {arch} ranks {rep['rank']} and "
                          f"{other['rank']} of one data rank routed apart "
@@ -3520,28 +3660,38 @@ def mesh_train_run(torch, np, dev):
     DeepSeek-V2-Lite (MoE experts expert-parallel, MLA heads
     head-parallel) and internlm2-1.8b (GQA heads head-parallel), both
     with the embedding, head and loss vocabulary-parallel along
-    ``"model"``, against the same 2 steps on one device from the same
-    seed and batches (``train`` without a mesh, i.e. ``train_step``), run
-    first by this process and freed before the spawn. Fails if a rank
-    raises, dies or outlasts ``timeout_s`` (every rank is stopped then),
-    unless, for each model (:func:`mesh_train_check`): the reduced
-    float32 run's losses and gathered parameters are within ``f32_tol``
-    of the single-device run's; the full-width bfloat16 losses of every
-    rank are within ``BF16_LOSS_REL`` of the single-device ones and ran
-    data-parallel; each rank holds the parameter and float32 moment
+    ``"model"``, DeepSeek-V2-Lite under the reference's activation
+    sharding (``shardctx.activation_sharding(MESH_TRAIN["act_spec"],
+    remat=True)``: its scanned groups recomputed, the sequence on
+    ``"model"`` between them; its reduced run also without it), against
+    the same 2 steps on one device from the same seed and batches
+    (``train`` without a mesh, i.e. ``train_step``), run first by this
+    process and freed before the spawn. Fails if a rank raises, dies or
+    outlasts ``timeout_s`` (every rank is stopped then), unless, for
+    each model (:func:`mesh_train_check`): each reduced float32 run's
+    losses and gathered parameters are within ``f32_tol`` of the
+    single-device run's; the full-width bfloat16 losses of every rank
+    are within ``BF16_LOSS_REL`` of the single-device ones and ran
+    data-parallel, under the activation sharding where asked (the first
+    lines name it); each rank holds the parameter and float32 moment
     bytes its placements give; the sum over ranks is the whole tree's
     bytes times each leaf's replication; ``topk_gating`` launched exactly
-    once per MoE layer and step on each rank (DeepSeek-V2-Lite; internlm2
-    launches no kernel); the two ``"model"`` ranks of each data rank
-    routed alike (every MoE layer and step, both runs); every step's
-    gathered peak equals the largest unit as gathered (``train``'s log,
-    and ``unit_gathered_bytes`` of the specs here), none alive once
-    ``train`` returned; ``model_reduced_bytes`` is
-    :func:`model_reduced_want` at every step; each rank computed with its
-    vocabulary shard of ``tok_emb`` and the head and internlm2 with its
-    query and KV head shards (:func:`mesh_unit_shapes`); and each rank's
-    peak device memory is below ``PER_LAYER_MESH_PEAK_BYTES``,
-    DeepSeek-V2-Lite's below ``MODEL_PARALLEL_MESH_PEAK_BYTES``."""
+    once per MoE layer and step on each rank, and once more per
+    recomputed one (DeepSeek-V2-Lite; internlm2 launches no kernel);
+    every recomputation routed as its forward pass, and the two
+    ``"model"`` ranks of each data rank alike (every MoE layer and step,
+    every run); every step's gathered peak equals the largest unit as
+    gathered (``train``'s log, and ``unit_gathered_bytes`` of the specs
+    here), none alive once ``train`` returned; every step's
+    ``gathered_bytes`` is :func:`mesh_gathered_want`,
+    ``model_reduced_bytes`` :func:`model_reduced_want` (plus
+    :func:`mesh_act_want`'s delta) and ``model_gathered_bytes`` and
+    ``model_scattered_bytes`` :func:`mesh_act_want`'s (0 without the
+    context); each rank computed with its vocabulary shard of
+    ``tok_emb`` and the head and internlm2 with its query and KV head
+    shards (:func:`mesh_unit_shapes`); and each rank's peak device
+    memory is below ``PER_LAYER_MESH_PEAK_BYTES``, DeepSeek-V2-Lite's
+    below ``VOCAB_PARALLEL_MESH_PEAK_BYTES``."""
     import tempfile
     import torch.multiprocessing as mp
     from torch.multiprocessing.spawn import ProcessException
@@ -3578,19 +3728,39 @@ def mesh_train_run(torch, np, dev):
         release_host_memory(torch)
         meta = build_model(cfg).init(torch.Generator(dev).manual_seed(SEED),
                                      device="meta")
+        small_meta = build_model(small_cfg).init(
+            torch.Generator(dev).manual_seed(SEED), device="meta")
         n_moe = len(moe_layer_ids(cfg))
+        remat = arch in c["remat"]
+        n_model = Mesh.shape["model"]
+
+        def step_want(run_cfg, whole, on):
+            act = (mesh_act_want(run_cfg, rows, c["seq"], n_model) if on
+                   else dict.fromkeys(("model_gathered", "model_scattered",
+                                       "reduced_delta"), 0))
+            return {"gathered": mesh_gathered_want(
+                        build_model(run_cfg), whole, Mesh, on),
+                    "model_reduced": model_reduced_want(
+                        run_cfg, rows, c["seq"]) + act["reduced_delta"],
+                    "model_gathered": act["model_gathered"],
+                    "model_scattered": act["model_scattered"]}
         want[arch] = {
             "unit": {"full": max(unit_gathered_bytes(build_model(cfg), meta,
                                                      Mesh)),
                      "small": max(unit_gathered_bytes(
-                         build_model(small_cfg), build_model(small_cfg).init(
-                             torch.Generator(dev).manual_seed(SEED),
-                             device="meta"), Mesh))},
-            "reduced": {"full": model_reduced_want(cfg, rows, c["seq"]),
-                        "small": model_reduced_want(small_cfg, rows,
-                                                    c["seq"])},
-            "launches": {"topk_gating": n_moe * c["steps"]} if n_moe else {},
-            "shapes": mesh_unit_shapes(cfg, Mesh.shape["model"])}
+                         build_model(small_cfg), small_meta, Mesh))},
+            "bytes": {"full": step_want(cfg, meta, remat),
+                      "small": step_want(small_cfg, small_meta, False)},
+            # the scanned MoE layers route again in the recomputation
+            "launches": {"topk_gating": (n_moe + n_moe * remat)
+                         * c["steps"]} if n_moe else {},
+            "moe_layers": {"full": n_moe,
+                           "small": len(moe_layer_ids(small_cfg))},
+            "remat": remat,
+            "shapes": mesh_unit_shapes(cfg, n_model)}
+        if remat:
+            want[arch]["bytes"]["small_remat"] = step_want(
+                small_cfg, small_meta, True)
         replicated[arch] = 0    # sum over ranks: bytes x replication
         for path, t in named_leaves(meta):
             spec = sharding.param_spec(path, t.shape, cfg, Mesh)
@@ -3622,24 +3792,26 @@ def mesh_train_run(torch, np, dev):
         spawn_to_done_s = time.perf_counter() - t0
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
                  for r in range(world)]
-        gathered = {arch: dict(np.load(os.path.join(tmp,
-                                                    f"small_{arch}.npz")))
-                    for arch in c["archs"]}
+        gathered = {(name, arch): dict(np.load(os.path.join(
+            tmp, f"{name}_{arch}.npz"))) for arch in c["archs"]
+            for name in ("small", "small_remat")
+            if name == "small" or arch in c["remat"]}
     first = c["archs"][0]
     by_arch = {arch: [rep if arch == first else rep[arch] | {
         "rank": rep["rank"], "coordinate": rep["coordinate"]}
         for rep in ranks] for arch in c["archs"]}
     small_err = {}
-    for arch in c["archs"]:
+    for (name, arch), tree in gathered.items():
         small = single[arch]["small"]
-        if sorted(gathered[arch]) != sorted(small):
-            fail(f"mesh_train: the gathered reduced {arch} tree's keys "
+        if sorted(tree) != sorted(small):
+            fail(f"mesh_train: the gathered {name} {arch} tree's keys "
                  "differ")
-        small_err[arch] = max(float(np.abs(gathered[arch][k] - v).max())
-                              for k, v in small.items())
-        if not small_err[arch] <= c["f32_tol"]:
-            fail(f"mesh_train: reduced f32 {arch} parameters differ by "
-                 f"{small_err[arch]}")
+        small_err[name, arch] = max(float(np.abs(tree[k] - v).max())
+                                    for k, v in small.items())
+        if not small_err[name, arch] <= c["f32_tol"]:
+            fail(f"mesh_train: {name} f32 {arch} parameters differ by "
+                 f"{small_err[name, arch]}")
+    for arch in c["archs"]:
         mesh_train_check(arch, by_arch[arch], single[arch], c, want[arch])
         held = sum(rep["param_bytes"] for rep in by_arch[arch])
         if held != replicated[arch]:
@@ -3648,7 +3820,8 @@ def mesh_train_run(torch, np, dev):
                  f"is {replicated[arch]} B")
         for rep in by_arch[arch]:
             peak = rep["max_memory_allocated_bytes"]
-            bound = (MODEL_PARALLEL_MESH_PEAK_BYTES if arch == first
+            bound = (VOCAB_PARALLEL_MESH_PEAK_BYTES if arch in c["remat"]
+                     else MODEL_PARALLEL_MESH_PEAK_BYTES if arch == first
                      else PER_LAYER_MESH_PEAK_BYTES)
             if peak is not None and not peak < bound:
                 fail(f"mesh_train: {arch} rank {rep['rank']}: peak device "
@@ -3672,7 +3845,18 @@ def mesh_train_run(torch, np, dev):
             "small_max_loss_diff": max(
                 abs(a - b) for rep in reps
                 for a, b in zip(rep["small_losses"], s["small_losses"])),
-            "small_max_param_diff": small_err[arch],
+            "small_max_param_diff": small_err["small", arch],
+            "remat": arch in c["remat"],
+            "first_line": reps[0]["first_line"],
+            "small_remat_max_loss_diff": max(
+                abs(a - b) for rep in reps for a, b in zip(
+                    rep["small_remat"]["losses"], s["small_losses"]))
+            if arch in c["remat"] else None,
+            "small_remat_max_param_diff": small_err.get(("small_remat",
+                                                         arch)),
+            "small_remat_bytes_per_step": [
+                rep["small_remat"]["bytes_per_step"] for rep in reps]
+            if arch in c["remat"] else None,
             "single_max_memory_allocated_bytes":
                 s["max_memory_allocated_bytes"],
             "rank_small_s": [rep["small_s"] for rep in reps],
@@ -3683,8 +3867,7 @@ def mesh_train_run(torch, np, dev):
             "gathered_peak_bytes_per_step": [
                 rep["gathered_peak_bytes_per_step"] for rep in reps],
             "bytes_per_step": [rep["bytes_per_step"] for rep in reps],
-            "model_reduced_want": want[arch]["reduced"]["full"],
-            "small_model_reduced_want": want[arch]["reduced"]["small"],
+            "bytes_want": want[arch]["bytes"],
             "routed_digests_per_rank": len(reps[0]["routed"]),
             "largest_unit_bytes": reps[0]["largest_unit_bytes"],
             "largest_unit_want": want[arch]["unit"]["full"],
@@ -3718,7 +3901,9 @@ def mesh_train_run(torch, np, dev):
         "rank_wall_s": [rep["wall_s"] for rep in ranks],
         "whole_tree_mesh_peak_bytes": WHOLE_TREE_MESH_PEAK_BYTES,
         "per_layer_mesh_peak_bytes": PER_LAYER_MESH_PEAK_BYTES,
-        "model_parallel_mesh_peak_bytes": MODEL_PARALLEL_MESH_PEAK_BYTES}
+        "model_parallel_mesh_peak_bytes": MODEL_PARALLEL_MESH_PEAK_BYTES,
+        "vocab_parallel_mesh_peak_bytes": VOCAB_PARALLEL_MESH_PEAK_BYTES,
+        "act_spec": list(c["act_spec"])}
     return result, launches
 
 
@@ -5044,20 +5229,22 @@ def run(torch, guard) -> None:
         "single_losses", "rank_losses", "max_loss_diff",
         "small_max_loss_diff", "small_max_param_diff", "spawn_to_done_s",
         "rank_ready_s", "s_per_step", "exchanged_bytes_per_step",
-        "bytes_per_step", "model_reduced_want", "routed_digests_per_rank",
+        "bytes_per_step", "bytes_want", "routed_digests_per_rank",
+        "remat", "act_spec", "first_line", "small_remat_max_loss_diff",
+        "small_remat_max_param_diff", "small_remat_bytes_per_step",
         "gathered_peak_bytes_per_step", "largest_unit_bytes",
         "largest_unit_want", "gathered_alive_after_bytes",
         "rank_param_bytes", "rank_moment_bytes", "sum_param_bytes",
         "replicated_param_bytes", "max_memory_allocated_bytes",
         "whole_tree_mesh_peak_bytes", "per_layer_mesh_peak_bytes",
-        "model_parallel_mesh_peak_bytes",
+        "model_parallel_mesh_peak_bytes", "vocab_parallel_mesh_peak_bytes",
         "rank_peak_rss_bytes", "rank_start_s", "rank_small_s",
         "launches_per_rank", "single_device_s")},
         **{arch: {k: mt[arch][k] for k in (
             "layers", "single_losses", "rank_losses", "max_loss_diff",
             "small_max_loss_diff", "small_max_param_diff", "s_per_step",
-            "exchanged_bytes_per_step", "bytes_per_step",
-            "model_reduced_want", "gathered_peak_bytes_per_step",
+            "exchanged_bytes_per_step", "bytes_per_step", "remat",
+            "bytes_want", "gathered_peak_bytes_per_step",
             "largest_unit_bytes", "largest_unit_want", "unit_shapes_want",
             "gathered_alive_after_bytes", "rank_param_bytes",
             "max_memory_allocated_bytes", "single_max_memory_allocated_bytes",

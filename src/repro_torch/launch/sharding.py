@@ -400,7 +400,11 @@ class Gatherer:
     gathers the handle's unit again when it first needs it, one unit at
     a time. Each unit is then gathered at most once a pass (the
     encoder-decoder's cross-attention, used by the memory and by its
-    layer, twice).
+    layer, twice). A recomputed layer group (``shardctx.recompute``)
+    asks for its units again in the backward pass: each is gathered
+    anew, the unit unpacked last dropped first, and its backward pass
+    finds it held. A unit's gradient reduction (:meth:`reduce`, the last
+    of its backward pass) drops it first: no use of its weights is left.
 
     ``data_split``: the rows went to the data ranks, so the gradients
     are averaged over the data axes in the backward pass. ``stats``
@@ -409,7 +413,9 @@ class Gatherer:
     and, on :meth:`close`, ``gathered_peak_bytes``: the most gathered
     bytes alive at once in this process, counted when each is gathered
     and released (``weakref.finalize``) when its storage is freed; the
-    ``"model"``-parallel regions add ``model_reduced_bytes``."""
+    ``"model"``-parallel regions add ``model_reduced_bytes``, and the
+    activation sharding ``model_gathered_bytes`` and
+    ``model_scattered_bytes`` (``launch/shardctx.constrain_act``)."""
 
     def __init__(self, params, data_split: bool, stats: dict | None = None):
         from torch.distributed.tensor import Replicate
@@ -449,13 +455,20 @@ class Gatherer:
         key = self._key(tree)
         if self._fwd is not None and self._fwd[0] == key:
             return self._fwd[1]
-        self._fwd = None              # the last unit goes before this comes
+        # the last unit goes before this comes (a recomputation asks for
+        # its units in the backward pass, after others were unpacked)
+        self._fwd, self._bwd = None, (None, {})
         whole = dict(zip(key, _GatherUnit.apply(
             self, key, *(self.leaves[j] for j in key))))
         out = tree_map_with_path(
             lambda _, t: whole[self._index[id(t)]], tree)
         self._fwd = (key, out, whole)
         return out
+
+    def leaves_of(self, tree) -> list:
+        """This rank's shards (autograd leaves) behind the unit
+        ``tree``."""
+        return [self.leaves[j] for j in self._key(tree)]
 
     def whole(self, key, locals_) -> list:
         """The tensors of unit ``key`` as the model uses them, from this
@@ -481,6 +494,12 @@ class Gatherer:
         return out
 
     def reduce(self, key, grads) -> list:
+        # every use of the unit's weights is behind: drop them before the
+        # gradients' exchange allocates its buffers
+        if self._fwd is not None and self._fwd[0] == key:
+            self._fwd = None
+        if self._bwd[0] == key:
+            self._bwd = (None, {})
         return reduce_all(grads, self.mesh, [self._places[j] for j in key],
                           self.data_split, self.stats)
 

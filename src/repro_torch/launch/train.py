@@ -31,7 +31,12 @@ layer's heads head-parallel (H/n a rank), each rank gathering only its
 ``"model"`` shard of those weights (``launch/sharding.model_computed``)
 and the partial outputs all-reduced over ``"model"``; every other weight
 is gathered whole and computed alike on each ``"model"`` rank. The loss
-is the reference's global loss either way.
+is the reference's global loss either way. A caller that enters
+``shardctx.activation_sharding(act_spec, remat=True, mesh=mesh)``
+around ``train`` gets the reference's activation sharding: each scanned
+layer group recomputed in the backward pass and, with the spec's
+sequence on ``"model"``, the stream between groups this rank's sequence
+shard.
 
 Usage::
 
@@ -152,10 +157,25 @@ def mesh_train_step(model, params, opt_update, opt_state, tokens,
     in gathers (``stats["gathered_bytes"]``), gave to reduce-scatters
     (``"reduce_scattered_bytes"``), to all-reduces over the data axes
     (``"reduced_bytes"``) and over ``"model"``
-    (``"model_reduced_bytes"``), and sets ``"gathered_peak_bytes"``, the
-    most gathered bytes alive at once."""
+    (``"model_reduced_bytes"``), received in and gave to the activation
+    sharding's gathers and reduce-scatters over ``"model"``
+    (``"model_gathered_bytes"``, ``"model_scattered_bytes"``), and sets
+    ``"gathered_peak_bytes"``, the most gathered bytes alive at once.
+
+    The step runs under whatever ``shardctx.activation_sharding`` the
+    caller entered (the reference's ``dryrun.run_one`` enters it around
+    its step): its spec shards the stream between layer groups along
+    ``"model"`` and ``remat`` recomputes each group. A context naming
+    another mesh or other data axes raises ``ValueError``."""
     stats = {} if stats is None else stats
     mesh = named_leaves(params)[0][1].device_mesh
+    act_mesh, act_dp = shardctx.current_mesh()
+    if isinstance(act_dp, str):
+        act_dp = (act_dp,)
+    if (act_mesh is not None and act_mesh != mesh) or (
+            act_dp is not None and tuple(act_dp) != data_axes(mesh)):
+        raise ValueError("activation_sharding: its mesh or data axes are "
+                         "not the step's")
     groups = ()
     if rows is not None:
         groups = tuple(mesh.get_group(a) for a in data_axes(mesh))
@@ -183,7 +203,8 @@ def mesh_train_step(model, params, opt_update, opt_state, tokens,
 
 
 EXCHANGED = ("gathered_bytes", "reduce_scattered_bytes", "reduced_bytes",
-             "model_reduced_bytes")
+             "model_reduced_bytes", "model_gathered_bytes",
+             "model_scattered_bytes")
 
 
 def unit_gathered_bytes(model, params, mesh) -> list:
@@ -219,7 +240,9 @@ def train(cfg, steps: int = 100, batch_size: int = 8, seq_len: int = 128,
     ``make_production_mesh()`` (256 ranks, else ``ValueError``), or a
     ``DeviceMesh`` with axes ``("data", "model")`` or ``("pod", "data",
     "model")`` on ``device``'s type; every rank of the default group
-    calls ``train`` alike. Returns (params, losses): the parameters as
+    calls ``train`` alike. It trains under whatever
+    ``shardctx.activation_sharding`` the caller entered, which its first
+    log line names. Returns (params, losses): the parameters as
     ``DTensor``s on a mesh, the global losses."""
     dev = resolve_device(device)
     mesh = _mesh(production_mesh, dev)
@@ -227,7 +250,8 @@ def train(cfg, steps: int = 100, batch_size: int = 8, seq_len: int = 128,
     params = model.init(torch.Generator(dev).manual_seed(seed), device=dev)
     n_params = sum(t.numel() for _, t in named_leaves(params))
     head = (f"arch={cfg.name} params={n_params / 1e6:.1f}M "
-            f"layers={cfg.num_layers}")
+            f"layers={cfg.num_layers} remat={shardctx.current_remat()} "
+            f"act_spec={shardctx.current_act_spec()}")
     sched = dict(lr=lr, clip=1.0, schedule=cosine_schedule(
         1.0, warmup=20, total=steps))
     rows = None

@@ -46,12 +46,25 @@ def encoder_init(gen, cfg, dtype, device):
 def encoder_apply(params, cfg, frames):
     """frames (B, S, frontend_dim) -> (B, S, D): cast to the model's
     dtype, projected, then every layer attending bidirectionally at
-    RoPE positions 0..S-1."""
+    RoPE positions 0..S-1. As the reference's scan body, each layer ends
+    in ``shardctx.constrain_act`` (starting from the stream gathered
+    whole) and is recomputed in the backward pass whenever
+    ``shardctx.current_remat()``."""
     ecfg = _enc_cfg(cfg)
     x = frames.to(dtype_of(cfg)) @ shardctx.unit(params["in_proj"])
-    positions = torch.arange(x.shape[1], device=x.device)
-    for lp in params["layers"]:     # the unit is handed on, never bound
-        x = _encoder_layer(shardctx.unit(lp), cfg, ecfg, x, positions)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    remat = shardctx.current_remat()
+
+    def layer(lp, xc):              # the unit is handed on, never bound
+        xc = shardctx.gather_act(xc, s)
+        return (shardctx.constrain_act(_encoder_layer(
+            shardctx.unit(lp), cfg, ecfg, xc, positions)),)
+    x = shardctx.constrain_act(x)
+    for lp in params["layers"]:
+        x, = (shardctx.recompute(lambda xc, lp=lp: layer(lp, xc), [lp], x)
+              if remat else layer(lp, x))
+    x = shardctx.gather_act(x, s)
     return rms_norm(x, shardctx.unit(params["final_ln"]), cfg.norm_eps)
 
 
@@ -92,15 +105,33 @@ def decoder_apply(layers, cfg, x, positions, memory, mode: str, caches=None,
     FFN. ``mode`` "full" and "prefill" attend whole at ``positions``
     (prefill also builds each layer's global self-attention row,
     ``cache_len`` long, and reads none); "decode" takes x (B, 1, D) at
-    ``pos`` against ``caches``. Returns (x, new caches, None in full
-    mode)."""
+    ``pos`` against ``caches``. As the reference's scan body, each layer
+    ends in ``shardctx.constrain_act`` (the stream returned gathered
+    whole) and, in "full" mode with ``shardctx.current_remat()``, is
+    recomputed in the backward pass, its memory kept. Returns (x, new
+    caches, None in full mode)."""
+    t = x.shape[1]
+    remat = mode == "full" and shardctx.current_remat()
+
+    def layer(i, xc, k, v):         # the unit is handed on, never bound
+        xc, nc = _decoder_layer(
+            shardctx.unit(layers[i]), cfg, shardctx.gather_act(xc, t),
+            positions, {"k": k, "v": v}, mode,
+            caches[i] if mode == "decode" else None, pos, cache_len)
+        return shardctx.constrain_act(xc), nc
+
     new_caches = []
-    for i, lp in enumerate(layers):
-        x, nc = _decoder_layer(shardctx.unit(lp), cfg, x, positions,
-                               memory[i], mode,
-                               caches[i] if mode == "decode" else None, pos,
-                               cache_len)
+    x = shardctx.constrain_act(x)
+    for i in range(len(layers)):
+        kv = memory[i]["k"], memory[i]["v"]
+        if remat:
+            x, = shardctx.recompute(lambda *a, i=i: layer(i, *a)[:1],
+                                    [layers[i]], x, *kv)
+            nc = None
+        else:
+            x, nc = layer(i, x, *kv)
         new_caches.append(nc)
+    x = shardctx.gather_act(x, t)
     return x, (None if mode == "full" else new_caches)
 
 

@@ -162,7 +162,7 @@ def grouped_swiglu(p, x_e):
     return torch.bmm(h, p["w_down"])
 
 
-def moe_apply(p, cfg, x):
+def moe_apply(p, cfg, x, resid=None):
     """The training forward of the reference's ``moe_apply``: route, then
     dispatch every kept (token, k) pair into its expert's capacity buffer
     ``(E, G*C, D)``, run the grouped SwiGLU products
@@ -184,6 +184,12 @@ def moe_apply(p, cfg, x):
     normed input and the combine weights enter a ``"model"`` region and
     the partial combine, summed in float32, leaves it
     (``launch/shardctx``). The shared experts stay outside it.
+
+    With ``resid`` (the stream the layer adds its output to, at the end
+    of a layer group) the output is ``shardctx.constrain_act(resid +
+    out)``: the region leaves onto this rank's sequence shard by a
+    reduce-scatter where the activation spec shards the sequence
+    (``shardctx.leave_model_act``), in place of its all-reduce.
 
     x (B, T, D) -> (out (B, T, D), aux loss, routed ids (B, T, k))."""
     m = cfg.moe
@@ -219,10 +225,16 @@ def moe_apply(p, cfg, x):
     y = (y_e[slot.reshape(-1)].reshape(n, k, d)
          * wr.reshape(n, k, 1).to(x.dtype))
     if region:
-        y = shardctx.leave_model(y.sum(1, dtype=torch.float32)).to(x.dtype)
+        part = y.sum(1, dtype=torch.float32).reshape(b, t, d)
+        if resid is not None:
+            shared = (ffn_apply(p["shared"], x, "swiglu") if "shared" in p
+                      else None)
+            return shardctx.leave_model_act(part, resid, shared), aux, idx
+        y = shardctx.leave_model(part).to(x.dtype)
     else:
-        y = y.sum(1)
-    y = y.reshape(b, t, d)
+        y = y.sum(1).reshape(b, t, d)
     if "shared" in p:
         y = y + ffn_apply(p["shared"], x, "swiglu")
+    if resid is not None:
+        y = shardctx.constrain_act(resid + y)
     return y, aux, idx

@@ -187,27 +187,37 @@ def block_paged_copy(cfg, kind: str, cache, src: int, dst: int):
     raise ValueError(f"layer kind {kind!r} does not page")
 
 
-def _ffn_half(p, cfg, x, mode: str):
+def _constrained(x, constrain: bool):
+    return shardctx.constrain_act(x) if constrain else x
+
+
+def _ffn_half(p, cfg, x, mode: str, constrain: bool = False):
     """ln2, then the dense FFN or the MoE, and the residual: the capacity
     dispatch of :func:`moe.moe_apply` in full and prefill mode (the
     reference's ``moe_apply(decode=False)``), :func:`moe.moe_decode` with
-    every expert on the device in decode mode. Returns (x, extras)."""
+    every expert on the device in decode mode. With ``constrain`` (the
+    end of a layer group), the result goes through
+    ``shardctx.constrain_act``, an expert-parallel MoE leaving its
+    region onto this rank's sequence shard. Returns (x, extras)."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" not in p:
-        return x + ffn_apply(p["ffn"], h, cfg.ffn_kind), {}
+        return _constrained(x + ffn_apply(p["ffn"], h, cfg.ffn_kind),
+                            constrain), {}
     if mode == "decode":
         y, idx = moe.moe_decode(p["moe"], cfg, h)
-        return x + y, {"experts": idx}
-    y, aux, idx = moe.moe_apply(p["moe"], cfg, h)
-    return x + y, {"moe_aux": aux, "experts": idx}
+        return _constrained(x + y, constrain), {"experts": idx}
+    y, aux, idx = moe.moe_apply(p["moe"], cfg, h, x if constrain else None)
+    return (y if constrain else x + y), {"moe_aux": aux, "experts": idx}
 
 
 def block_apply(p, cfg, kind: str, x, mode: str, cache=None, pos=None,
-                cache_len: int = 0):
+                cache_len: int = 0, constrain: bool = False):
     """One whole block in ``mode`` "full", "prefill" or "decode", as the
     reference's ``block_apply``. Returns (x, new_cache, extras), where an
     MoE layer's ``extras["experts"]`` holds its routed ids (B, T, k) and,
     in full and prefill mode, ``extras["moe_aux"]`` its load-balance loss.
+    ``constrain``: the block ends a scanned layer group, whose output
+    ``shardctx.constrain_act`` constrains (:func:`_ffn_half`).
 
     ``ssd`` and ``rglru`` run in every mode (they read neither positions
     nor ``pos``; prefill returns their O(1) state, decode updates it);
@@ -235,8 +245,8 @@ def block_apply(p, cfg, kind: str, x, mode: str, cache=None, pos=None,
         else:
             out, new_cache = full(blk, cfg, h), None
         x = x + out
-        if kind == "ssd":
-            return x, new_cache, {}                  # no FFN sub-block
+        if kind == "ssd":                            # no FFN sub-block
+            return _constrained(x, constrain), new_cache, {}
     elif kind != "mla" and kind not in GQA_KINDS:
         raise ValueError(f"unknown layer kind {kind!r}")
     elif mode == "decode":
@@ -253,7 +263,7 @@ def block_apply(p, cfg, kind: str, x, mode: str, cache=None, pos=None,
                                            positions, mode,
                                            cache_len=cache_len)
         x = x + o
-    x, extras = _ffn_half(p, cfg, x, mode)
+    x, extras = _ffn_half(p, cfg, x, mode, constrain)
     return x, new_cache, extras
 
 
@@ -265,20 +275,79 @@ def stack_cache_init(cfg, batch: int, cache_len: int, dtype, device) -> list:
 
 def stack_apply(layers, cfg, x, mode: str, caches=None, pos=None,
                 cache_len: int = 0):
-    """Every layer in order (the reference scans its stacked groups).
-    Returns (x, new_caches, extras): one cache per layer, None in "full"
-    mode; one extras dict per layer. Prefill builds caches (attention
-    caches of ``cache_len`` positions) and reads none."""
+    """Every layer in order: the head layers, the scanned groups of the
+    block pattern (the reference scans them), the tail. Returns (x,
+    new_caches, extras): one cache per layer, None in "full" mode; one
+    extras dict per layer. Prefill builds caches (attention caches of
+    ``cache_len`` positions) and reads none.
+
+    As the reference's scan body, each group ends in
+    ``shardctx.constrain_act``: under an activation spec that puts the
+    sequence on ``"model"``, the stream between groups is this rank's
+    sequence shard, and each group starts from it gathered whole
+    (``shardctx.gather_act``), as do the tail, the final norm and the
+    head. In "full" mode with ``shardctx.current_remat()``, each group
+    is recomputed in the backward pass (``shardctx.recompute``, the
+    reference's ``jax.checkpoint``); the head and tail layers are not."""
+    kinds = cfg.layer_kinds()
+    n_head, n_groups, _ = _layer_split(cfg)
+    pat = len(cfg.block_pattern)
+    seq = x.shape[1]
+    remat = mode == "full" and shardctx.current_remat()
     new_caches, extras = [], []
-    for i, kind in enumerate(cfg.layer_kinds()):
-        c = caches[i] if mode == "decode" else None
+
+    def layer(i, xc, constrain=False):
         # the unit is handed on, never bound here: a sharded step frees
         # this layer's gathered weights before it gathers the next's
-        x, nc, ex = block_apply(shardctx.unit(layers[i]), cfg, kind, x,
-                                mode, c, pos, cache_len)
+        return block_apply(shardctx.unit(layers[i]), cfg, kinds[i], xc,
+                           mode, caches[i] if mode == "decode" else None,
+                           pos, cache_len, constrain)
+
+    def group(ids, xc):
+        xc, out = shardctx.gather_act(xc, seq), []
+        for j, i in enumerate(ids):
+            xc, nc, ex = layer(i, xc, j == len(ids) - 1)
+            out.append((nc, ex))
+        return xc, out
+
+    for i in range(n_head):
+        x, nc, ex = layer(i, x)
+        new_caches.append(nc)
+        extras.append(ex)
+    if n_groups:
+        x = shardctx.constrain_act(x)
+    for g in range(n_groups):
+        ids = range(n_head + g * pat, n_head + (g + 1) * pat)
+        if remat:
+            x, exs = _recomputed(lambda xc, ids=ids: group(ids, xc), x,
+                                 [layers[i] for i in ids])
+            out = [(None, ex) for ex in exs]
+        else:
+            x, out = group(ids, x)
+        for nc, ex in out:
+            new_caches.append(nc)
+            extras.append(ex)
+    x = shardctx.gather_act(x, seq)
+    for i in range(n_head + n_groups * pat, cfg.num_layers):
+        x, nc, ex = layer(i, x)
         new_caches.append(nc)
         extras.append(ex)
     return x, (None if mode == "full" else new_caches), extras
+
+
+def _recomputed(fn, x, units):
+    """``fn(x)`` -> (x, [(cache, extras dict) a layer]) through
+    ``shardctx.recompute``: the extras (MoE load-balance losses and
+    routed ids) pass as its outputs, by key."""
+    keys = []
+
+    def flat(xc):
+        y, out = fn(xc)
+        keys[:] = [sorted(ex) for _, ex in out]
+        return (y, *(ex[k] for _, ex in out for k in sorted(ex)))
+    y, *rest = shardctx.recompute(flat, units, x)
+    it = iter(rest)
+    return y, [{k: next(it) for k in ks} for ks in keys]
 
 
 def collect_moe_aux(cfg, extras) -> torch.Tensor:

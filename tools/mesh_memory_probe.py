@@ -6,13 +6,17 @@ S 1024, ``--steps`` steps from the seeded weights.
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is run, so
 two versions of the trainer can be measured in one call (a checkout of
-another commit unpacked under ``build/``). Prints one JSON line a depth:
-each rank's ``torch.cuda.max_memory_allocated``, its log lines (the bytes
-held, exchanged and gathered), and its seconds a step.
+another commit unpacked under ``build/``). ``--remat`` trains under
+``shardctx.activation_sharding(("data", "model", None), remat=True)``:
+each scanned layer group recomputed in the backward pass, the sequence
+on ``"model"`` between groups. Prints one JSON line a depth: each rank's
+``torch.cuda.max_memory_allocated``, its log lines (the bytes held,
+exchanged and gathered), and its seconds a step.
 
 Usage::
 
     python3 tools/mesh_memory_probe.py --layers 2 3 [--src build/base/src]
+        [--remat]
 """
 from __future__ import annotations
 
@@ -25,8 +29,10 @@ import time
 from pathlib import Path
 
 
-def _rank(rank, world, rendezvous, out_dir, src, layers, steps):
+def _rank(rank, world, rendezvous, out_dir, src, layers, steps, remat):
     sys.path.insert(0, src)
+    import contextlib
+
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -45,10 +51,16 @@ def _rank(rank, world, rendezvous, out_dir, src, layers, steps):
         stamps = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        ctx = contextlib.nullcontext()
+        if remat:
+            from repro_torch.launch import shardctx
+            ctx = shardctx.activation_sharding(("data", "model", None),
+                                               remat=True, mesh=mesh)
         dist.barrier()
-        train(cfg, steps=steps, batch_size=8, seq_len=1024, lr=1e-3, seed=0,
-              device="cuda", production_mesh=mesh,
-              log=lambda ln: stamps.append((time.perf_counter(), ln)))
+        with ctx:
+            train(cfg, steps=steps, batch_size=8, seq_len=1024, lr=1e-3,
+                  seed=0, device="cuda", production_mesh=mesh,
+                  log=lambda ln: stamps.append((time.perf_counter(), ln)))
         torch.cuda.synchronize()
         at = [t for t, ln in stamps if ln.startswith("step ")]
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps({
@@ -67,6 +79,7 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, nargs="+", default=[2, 3])
     ap.add_argument("--steps", type=int, default=1)
     ap.add_argument("--timeout", type=float, default=300.0)
+    ap.add_argument("--remat", action="store_true")
     args = ap.parse_args(argv)
     src = str(Path(args.src).resolve())
     sys.path.insert(0, src)
@@ -79,7 +92,7 @@ def main(argv=None):
             t0 = time.perf_counter()
             ctx = mp.start_processes(
                 _rank, args=(4, os.path.join(tmp, "rendezvous"), tmp, src,
-                             layers, args.steps),
+                             layers, args.steps, args.remat),
                 nprocs=4, join=False, start_method="spawn")
             deadline = time.monotonic() + args.timeout
             try:
@@ -96,7 +109,7 @@ def main(argv=None):
             ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
                      for r in range(4)]
         print(json.dumps({"src": args.src, "layers": layers,
-                          "steps": args.steps,
+                          "steps": args.steps, "remat": args.remat,
                           "wall_s": time.perf_counter() - t0,
                           "ranks": ranks}), flush=True)
 
